@@ -1,0 +1,296 @@
+"""Subpath generation: ray emission and depth-major wavefront tracing (port
+of clive2_tpu/integrator/trace.py, corrected estimator).
+
+At each depth the whole wavefront intersects the scene, shades and bounces
+in lockstep, with dead rays masked; the JAX ``lax.scan`` over depth is a
+Python loop here.  Paths are dicts of [D, N, ...] tensors.
+
+BDPT bookkeeping (as in the JAX package):
+  vertex k's c_importance = pdf of sampling edge (k-1 -> k) at vertex k-1
+              walking from the camera
+  vertex k's l_importance = pdf of sampling edge (k+1 -> k) at vertex k+1
+              walking from the light
+  tot_importance = running product of the forward importance
+  color      = path throughput after the bounce at vertex k
+
+Random numbers come from threefry keys folded per (purpose, depth), bit for
+bit with the JAX package (``clive2_tpu_torch.rng``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import rng
+from ..constants import DELTA, MAX_BOUNCES, require_default_estimator
+from ..ops import bsdf
+from ..ops.gather import gather_rows
+from ..ops.intersect import intersect_scene
+from ..ops.sampling import (
+    INV_2PI,
+    dot,
+    ggx_sample,
+    normalize,
+    orthonormal,
+    random_hemisphere_uniform,
+    sample_triangle_uniform,
+)
+
+
+def generate_camera_rays(key, cam, width: int, height: int):
+    """One jittered primary ray per pixel, raster order.  Rays start on the
+    physical sensor plane and aim at the focal point.  Returns (rays,
+    pixel_idx [N])."""
+    dev = key.device
+    n = width * height
+    pixel_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    off = rng.uniform(key, (n, 2))
+
+    px = (pixel_idx % width).to(torch.float32)
+    py = (pixel_idx // width).to(torch.float32)
+    xn = (px + off[:, 0] - 0.5 * width) / width
+    yn = (py + off[:, 1] - 0.5 * height) / height
+
+    origin = (
+        cam["center"]
+        + (xn * cam["phys_width"])[:, None] * cam["dx"]
+        + (yn * cam["phys_height"])[:, None] * cam["dy"]
+    )
+    direction = normalize(cam["focal_point"] - origin)
+    c_imp = 1.0 / (cam["phys_width"] * cam["phys_height"])
+
+    rays = dict(
+        origin=origin,
+        direction=direction,
+        normal=cam["direction"].expand(n, 3),
+        color=torch.ones_like(origin),
+        c_importance=c_imp.expand(n).clone(),
+        l_importance=torch.ones(n, device=dev),    # filled during trace
+        tot_importance=c_imp.expand(n).clone(),
+        material=torch.full((n,), 7, dtype=torch.int32, device=dev),
+        triangle=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        hit_light=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        hit_camera=torch.full((n,), -1, dtype=torch.int32, device=dev),
+    )
+    return rays, pixel_idx
+
+
+def generate_light_rays(key, lights, materials, n: int):
+    """Uniform light-surface emission rays: a light triangle picked
+    uniformly, a uniform point on it, a uniform-hemisphere direction;
+    l_importance = 1/(count * area)."""
+    dev = key.device
+    k_pick, k_bary, k_dir = rng.split(key, 3)
+    count = lights["v0"].shape[0]
+    pick = torch.clamp(
+        (rng.uniform(k_pick, (n,)) * count).to(torch.int32), max=count - 1)
+    lv = {k: gather_rows(v, pick) for k, v in lights.items()}
+
+    bary = rng.uniform(k_bary, (n, 2))
+    normal = lv["normal"]
+    origin = sample_triangle_uniform(lv["v0"], lv["v1"], lv["v2"], bary)
+    origin = origin + DELTA * normal
+
+    x, y = orthonormal(normal)
+    rolls = rng.uniform(k_dir, (n, 2))
+    direction = random_hemisphere_uniform(x, y, normal, rolls)
+
+    l_imp = 1.0 / (count * lv["area"])
+    emission = gather_rows(materials["emission"], lv["material"])
+
+    return dict(
+        origin=origin,
+        direction=direction,
+        normal=normal,
+        color=emission,
+        c_importance=torch.ones(n, device=dev),    # filled during trace
+        l_importance=l_imp,
+        tot_importance=l_imp,
+        material=lv["material"].to(torch.int32),
+        triangle=lv["tri_index"].to(torch.int32),
+        hit_light=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        hit_camera=torch.full((n,), -1, dtype=torch.int32, device=dev),
+    )
+
+
+def _select_bounce(mat_type, f_lottery, fres, diffuse, reflect, transmit):
+    """Material dispatch as masked selects.  type 0: diffuse; 1:
+    Fresnel-weighted reflect|transmit; 2: Fresnel-weighted reflect|diffuse;
+    else: reflect."""
+    take_reflect = f_lottery <= fres
+    picks = []
+    for branch in range(4):  # wo, f, c_p, l_p
+        d, r, t = diffuse[branch], reflect[branch], transmit[branch]
+        expand = (lambda c: c[:, None]) if branch == 0 else (lambda c: c)
+        picks.append(torch.where(
+            expand(mat_type == 0),
+            d,
+            torch.where(
+                expand(mat_type == 1),
+                torch.where(expand(take_reflect), r, t),
+                torch.where(
+                    expand(mat_type == 2),
+                    torch.where(expand(take_reflect), r, d),
+                    r,
+                ),
+            ),
+        ))
+    return tuple(picks)
+
+
+def trace_subpaths(key, rays, scene, from_camera,
+                   max_bounces: int = MAX_BOUNCES):
+    """Trace a wavefront of subpaths to ``max_bounces`` stored vertices.
+
+    ``from_camera`` is a bool or a per-ray [N] bool tensor, so camera and
+    light wavefronts trace as one merged wavefront.  Returns
+      vertices: dict of [D, N, ...] tensors (fields as in generate_*)
+      valid:    [D, N] bool, vertex d stored
+      length:   [N] i32
+      n_rays:   extension rays cast (one per stored vertex plus the final
+                breaking cast, capped at max_bounces)
+    """
+    require_default_estimator()
+    tri = scene["tri"]
+    mat = scene["mat"]
+    dev = rays["origin"].device
+
+    n = rays["origin"].shape[0]
+    fc = torch.as_tensor(from_camera, device=dev).to(torch.bool).expand(n)
+    fwd_pending = torch.where(fc, rays["c_importance"], INV_2PI)
+
+    cur = dict(rays)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    verts, stores = [], []
+    for depth in range(max_bounces):
+        hit_i, hit_t, hit_u, hit_v = intersect_scene(
+            cur["origin"], cur["direction"], scene, active=active)
+        hit_ok = hit_i >= 0
+        safe_i = torch.clamp(hit_i, min=0)
+
+        attrs = gather_rows(tri["packed"], safe_i)
+        face_n = attrs[:, 0:3]
+        n0 = attrs[:, 3:6]
+        n1 = attrs[:, 6:9]
+        n2 = attrs[:, 9:12]
+        tri_mat = attrs[:, 12].to(torch.int32)
+        is_light = attrs[:, 13].to(torch.int32)
+        is_camera = attrs[:, 14].to(torch.int32)
+
+        alpha = gather_rows(mat["alpha"], tri_mat)
+        ior = gather_rows(mat["ior"], tri_mat)
+        mat_type = gather_rows(mat["type"], tri_mat)
+        mat_color = gather_rows(mat["color"], tri_mat)
+
+        d = cur["direction"]
+        cos_f = dot(-d, face_n)
+        front = cos_f > 0.0
+        degenerate = cos_f == 0.0
+
+        sampled_n = bsdf.interpolate_normal(n0, n1, n2, hit_u, hit_v)
+        nrm = torch.where(front[:, None], sampled_n, -sampled_n)
+        ni = torch.where(front, 1.0, ior)
+        no = torch.where(front, ior, 1.0)
+
+        new_origin = cur["origin"] + d * hit_t[:, None]
+        new_hit_light = torch.where(
+            (is_light != 0) & (dot(d, face_n) < 0.0), hit_i, -1)
+        new_hit_camera = torch.where(is_camera != 0, hit_i, -1)
+
+        wi = -d
+        ka, kb, kc = rng.split(rng.fold_in(key, depth), 3)
+        roll_a = rng.uniform(ka, (n, 2))
+        roll_b = rng.uniform(kb, (n, 2))
+        # an independent uniform for the Fresnel lottery (the reference
+        # reuses roll_b.x)
+        roll_c = rng.uniform(kc, (n,))
+
+        m = ggx_sample(nrm, roll_a, alpha)
+        ok_m = (dot(wi, m) >= 0.0) & (dot(m, nrm) >= 0.0)
+        fres = bsdf.fresnel(wi, m, ni, no)
+
+        # bounce routines return (fwd, rev) pdfs in camera convention; swap
+        # per ray for light-subpath lanes
+        diffuse = bsdf.diffuse_bounce(wi, nrm, roll_b)
+        reflect = bsdf.reflect_bounce(wi, nrm, m, ni, no, alpha)
+        transmit = bsdf.transmit_bounce(wi, nrm, m, ni, no, alpha)
+        wo, f, fwd_p, rev_p = _select_bounce(
+            mat_type, roll_c, fres, diffuse, reflect, transmit)
+        c_p = torch.where(fc, fwd_p, rev_p)
+        l_p = torch.where(fc, rev_p, fwd_p)
+
+        # throughput: material color only on external reflection / egress
+        wi_fn = dot(wi, face_n)
+        wo_fn = dot(wo, face_n)
+        apply_color = (((wi_fn > 0.0) & (wo_fn > 0.0))
+                       | ((wi_fn < 0.0) & (wo_fn > 0.0)))
+        new_color = torch.where(
+            apply_color[:, None],
+            f[:, None] * cur["color"] * mat_color,
+            f[:, None] * cur["color"],
+        )
+        # the Lambertian emitter's flux toward the first light-subpath edge
+        # carries cos(n_light, dir): fold it in at the first light bounce
+        if depth == 0:
+            emit_cos = dot(cur["direction"], cur["normal"]).abs()
+            new_color = torch.where(
+                (~fc)[:, None], new_color * emit_cos[:, None], new_color)
+
+        new_fwd = fwd_pending
+        new_tot = cur["tot_importance"] * new_fwd
+
+        bounce_ok = ok_m & (f != 0.0)
+        # store on hit success alone; continue only if the bounce succeeded
+        store = active & hit_ok & ~degenerate
+        valid = store & bounce_ok
+
+        emit = dict(cur)
+        emit["l_importance"] = torch.where(fc, l_p, cur["l_importance"])
+        emit["c_importance"] = torch.where(fc, cur["c_importance"], c_p)
+        next_pending = torch.where(fc, c_p, l_p)
+
+        new_cur = dict(
+            origin=new_origin,
+            direction=wo,
+            normal=nrm,
+            color=new_color,
+            c_importance=torch.where(fc, new_fwd, 1.0),
+            l_importance=torch.where(fc, 1.0, new_fwd),
+            tot_importance=new_tot,
+            material=tri_mat,
+            triangle=hit_i.to(torch.int32),
+            hit_light=new_hit_light.to(torch.int32),
+            hit_camera=new_hit_camera.to(torch.int32),
+        )
+        # dead lanes stay frozen (masked by `valid` downstream)
+        cur = {
+            k: torch.where(valid.reshape((n,) + (1,) * (v.dim() - 1)), v,
+                           cur[k])
+            for k, v in new_cur.items()
+        }
+        fwd_pending = torch.where(valid, next_pending, fwd_pending)
+        active = valid
+        verts.append(emit)
+        stores.append(store)
+
+    vertices = {k: torch.stack([v[k] for v in verts]) for k in verts[0]}
+    valid = torch.stack(stores)
+    length = valid.to(torch.int32).sum(0, dtype=torch.int32)
+    n_rays = torch.clamp(length + 1, max=max_bounces).sum()
+    return dict(vertices=vertices, valid=valid, length=length, n_rays=n_rays)
+
+
+def unidirectional_image(path):
+    """Plain path-traced estimate from a camera path: the first stored
+    vertex that hit a light contributes prior color / tot_importance."""
+    hit_light = path["vertices"]["hit_light"]   # [D, N]
+    mask = path["valid"] & (hit_light >= 0)
+    color = path["vertices"]["color"]           # [D, N, 3]
+    tot = path["vertices"]["tot_importance"]    # [D, N]
+    has = mask.any(0)
+    first = torch.argmax(mask.to(torch.int32), dim=0)  # first True
+    prior_color = color.gather(
+        0, torch.clamp(first - 1, min=0)[None, :, None].expand(1, -1, 3))[0]
+    tot_first = tot.gather(0, first[None, :])[0]
+    out = prior_color / torch.clamp(tot_first, min=1e-30)[:, None]
+    return torch.where(has[:, None], out, 0.0)

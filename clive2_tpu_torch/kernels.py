@@ -1,0 +1,180 @@
+"""Build, load and call the port's CUDA kernels (``csrc/*.cu``).
+
+At first use ``nvcc`` compiles every source in ``csrc/`` into one shared
+library with a plain C interface, in ``clive2_tpu_torch/build/`` (ignored by
+git), named by a hash of the sources and flags so an edit rebuilds it.
+``ctypes`` loads it.  Pointers are ``tensor.data_ptr()`` and the stream is
+PyTorch's current stream, both passed as ``c_void_p``.  Each C entry point
+launches one kernel, does not synchronise, and returns
+``cudaGetLastError()``; ``call`` raises when that is not 0.
+
+Flags: ``sm_90a`` (Hopper) and ``--fmad=false``, so that a kernel rounds
+exactly as its plain PyTorch version (separate multiplies and adds) and
+their hit ids can be held equal on every ray.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_RAYS = [_P, _P, _P, _P, ctypes.c_int64]     # origin, direction, active,
+_OUTS = [_P, _P, _P, _P]                     # t_max, n | i, t, u, v
+_SIGNATURES = {
+    "clive2_brute": _RAYS + [_P, ctypes.c_int] + _OUTS + [_P],
+    "clive2_bvh2": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
+}
+
+_lib = None
+
+
+def sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "clive2_tpu_torch/csrc at first use")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libclive2_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, float]:
+    """Compile the kernels unless this exact build exists.  Returns the
+    library path and the seconds spent compiling (0 when cached)."""
+    so = library_path()
+    if os.path.exists(so):
+        return so, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in sources()
+                                               if s.endswith(".cu")]],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)          # atomic: concurrent builds race safely
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so, time.perf_counter() - t0
+
+
+def load():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()[0])
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.clive2_error_string.argtypes = [ctypes.c_int]
+        lib.clive2_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def call(name: str, device, *args):
+    """Launch kernel entry ``name`` on ``device``'s current stream."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = _P(torch.cuda.current_stream(device).cuda_stream)
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.clive2_error_string(rc).decode()
+        raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
+                           f"({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return _P(t.data_ptr())
+
+
+@dataclasses.dataclass
+class RayArgs:
+    """Validated, contiguous ray tensors for a kernel launch; holds them
+    alive for the duration of the call."""
+
+    origin: torch.Tensor
+    direction: torch.Tensor
+    active: torch.Tensor
+    t_max: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.origin.shape[0]
+
+    def pointers(self):
+        return (ptr(self.origin), ptr(self.direction), ptr(self.active),
+                ptr(self.t_max), ctypes.c_int64(self.n))
+
+
+def ray_args(origin, direction, active=None, t_max=None) -> RayArgs:
+    if origin.device.type != "cuda":
+        raise ValueError(f"kernels take CUDA tensors, got {origin.device}")
+    dev = origin.device
+    n = origin.shape[0]
+    for name, t in (("origin", origin), ("direction", direction)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n, 3):
+            raise ValueError(f"{name} must be f32 [N, 3], got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        on_device(t, dev, name)
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    if active.dtype not in (torch.bool, torch.uint8) or active.shape != (n,):
+        raise ValueError("active must be bool or uint8 [N]")
+    if t_max is None:
+        t_max = torch.full((n,), float("inf"), device=dev)
+    if t_max.dtype != torch.float32 or t_max.shape != (n,):
+        raise ValueError("t_max must be f32 [N]")
+    on_device(active, dev, "active")
+    on_device(t_max, dev, "t_max")
+    return RayArgs(origin.contiguous(), direction.contiguous(),
+                   active.contiguous(), t_max.contiguous())
+
+
+def on_device(t, device, name: str):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, rays are on {device}")
+    return t
+
+
+def hit_outputs(origin):
+    """Kernel outputs (tri id i32, t, u, v), allocated by the caller."""
+    n, dev = origin.shape[0], origin.device
+    return (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, device=dev), torch.empty(n, device=dev),
+            torch.empty(n, device=dev))

@@ -1,0 +1,280 @@
+"""Scene construction: geometry assembly, BVH build, device upload, presets
+(port of clive2_tpu/scene.py).
+
+The camera plane and the Cornell-style room are always injected, mesh files
+are merged, and the BVH is built on the host.  The result is a dict of
+tensors on the requested device.  Which intersection tables a scene gets
+depends on its size and on that device:
+
+* at most 256 triangles: the ``brute`` table (CPU: the plain dense test;
+  CUDA: the brute kernel);
+* otherwise the gather walk's tables (``bvh``) and the sensor-plane
+  triangles (``camtri``), and on CUDA also the BVH2 kernel's tables
+  (``bvh2``).  Every such scene goes to that kernel on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .bvh import build_bvh
+from .bvh.build import leaf_tables
+from .camera import Camera
+from .constants import UNIT_Z, ZERO_VECTOR
+from .geometry import TriangleSoup, box_geometry, camera_geometry
+from .load import load_mesh_file
+from .materials import MaterialTable, default_materials
+from .ops.brute import MAX_TRIS as BRUTE_FORCE_MAX_TRIS
+from .ops.brute import pack_brute
+from .ops.intersect import pack_gather_walk
+from .ops.traverse_bvh2 import pack_bvh2
+
+RESOURCE_DIR = os.environ.get(
+    "CLIVE2_RESOURCES",
+    os.path.join(os.path.dirname(__file__), "..", "resources"),
+)
+
+
+@dataclasses.dataclass
+class Scene:
+    """Host handle + device tensors for one renderable scene."""
+
+    camera: Camera
+    pixel_width: int
+    pixel_height: int
+    data: Dict[str, Any]          # dict of tensors on ``device``
+    n_triangles: int
+    n_nodes: int
+    device: torch.device
+    camera_tri_ids: Any = None    # global ids of the sensor-plane triangles
+
+
+def to_device(tree, device):
+    """numpy leaves of a nested dict -> tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def camera_tables(camera: Camera):
+    """The camera as f32 arrays (scalars as 0-d arrays)."""
+    return {k: np.asarray(v, dtype=np.float32)
+            for k, v in camera.to_pytree().items()}
+
+
+def camtri_arrays(cam_soup, ids):
+    v = cam_soup.vertices
+    return dict(v0=v[:, 0], e1=v[:, 1] - v[:, 0], e2=v[:, 2] - v[:, 0],
+                ids=np.asarray(ids, dtype=np.int32))
+
+
+def _build_scene_arrays(soup: TriangleSoup, materials: MaterialTable,
+                        camera: Camera, cuda: bool):
+    """numpy scene tables.  The sensor plane stays out of the BVH; brute
+    scenes keep it in their dense triangle table."""
+    cam_ids = np.nonzero(soup.is_camera)[0]
+    world_sel = np.nonzero(~soup.is_camera)[0]
+    world = soup.select(world_sel)
+
+    bvh = build_bvh(world)
+    leafs = leaf_tables(bvh, world)
+    # leaf tri ids are world-local; remap to global soup ids
+    leafs["tri_index"] = np.where(
+        leafs["tri_index"] >= 0,
+        world_sel[np.minimum(leafs["tri_index"], len(world) - 1)],
+        -1,
+    ).astype(np.int32)
+
+    tri = dict(
+        face_normal=soup.face_normals,
+        n0=soup.vertex_normals[:, 0],
+        n1=soup.vertex_normals[:, 1],
+        n2=soup.vertex_normals[:, 2],
+        material=soup.material.astype(np.int32),
+        is_light=soup.is_light.astype(np.int32),
+        is_camera=soup.is_camera.astype(np.int32),
+    )
+    # every hit-shading attribute in one row: one gather per bounce
+    packed_attrs = np.zeros((len(soup), 16), dtype=np.float32)
+    packed_attrs[:, 0:3] = soup.face_normals
+    packed_attrs[:, 3:6] = soup.vertex_normals[:, 0]
+    packed_attrs[:, 6:9] = soup.vertex_normals[:, 1]
+    packed_attrs[:, 9:12] = soup.vertex_normals[:, 2]
+    packed_attrs[:, 12] = soup.material
+    packed_attrs[:, 13] = soup.is_light
+    packed_attrs[:, 14] = soup.is_camera
+    tri["packed"] = packed_attrs
+
+    light_sel = np.nonzero(soup.is_light)[0]
+    areas = soup.surface_areas()[light_sel]
+    lights = dict(
+        v0=soup.vertices[light_sel, 0],
+        v1=soup.vertices[light_sel, 1],
+        v2=soup.vertices[light_sel, 2],
+        normal=soup.face_normals[light_sel],
+        area=areas.astype(np.float32),
+        tri_index=light_sel.astype(np.int32),
+        material=soup.material[light_sel].astype(np.int32),
+    )
+    data = dict(
+        tri=tri,
+        bvh=pack_gather_walk(bvh, leafs),
+        mat=materials.to_pytree(),
+        lights=lights,
+        camera=camera_tables(camera),
+    )
+    if len(soup) <= BRUTE_FORCE_MAX_TRIS:
+        data["brute"] = dict(tris=pack_brute(soup))
+    else:
+        data["camtri"] = camtri_arrays(soup.select(cam_ids), cam_ids)
+        if cuda:
+            data["bvh2"] = pack_bvh2(data["bvh"]["node_packed"],
+                                     data["bvh"]["leaf_packed"])
+    return data, bvh, cam_ids
+
+
+def create_scene(
+    pixel_width: int = 1280,
+    pixel_height: int = 720,
+    cam_center=ZERO_VECTOR,
+    cam_direction=UNIT_Z,
+    file_specs=None,
+    materials: Optional[MaterialTable] = None,
+    extra_geometry: Optional[TriangleSoup] = None,
+    box_kwargs: Optional[dict] = None,
+    soup_transform=None,
+    device="cpu",
+) -> Scene:
+    """Assemble a scene on ``device``.
+
+    Always injects the camera-plane triangles and the Cornell-style room
+    with its ceiling light, then merges any mesh files from ``file_specs``
+    (file_path / material / material_def / scale / offset).
+    ``soup_transform`` may re-flag or re-material the assembled soup before
+    the BVH build.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' was asked for, but CUDA is not "
+                           "available")
+    camera = Camera(
+        center=np.asarray(cam_center, dtype=np.float64),
+        direction=np.asarray(cam_direction, dtype=np.float64),
+        pixel_width=pixel_width,
+        pixel_height=pixel_height,
+        phys_width=pixel_width / pixel_height,
+        phys_height=1.0,
+    )
+    materials = materials or default_materials()
+    if any("material_def" in s for s in file_specs or []):
+        # appending must not mutate a caller-owned table
+        materials = dataclasses.replace(
+            materials, **{k: v.copy() for k, v in
+                          materials.to_pytree().items()}
+        )
+    soup = camera_geometry(camera) + box_geometry(**(box_kwargs or {}))
+    if extra_geometry is not None:
+        soup = soup + extra_geometry
+    for spec in file_specs or []:
+        mat_idx = spec.get("material", 0)
+        if "material_def" in spec:
+            mat_idx = materials.append(spec["material_def"])
+        soup = soup + load_mesh_file(
+            spec["file_path"],
+            material=mat_idx,
+            scale=spec.get("scale", 1.0),
+            offset=spec.get("offset", ZERO_VECTOR),
+        )
+
+    if soup_transform is not None:
+        soup = soup_transform(soup)
+
+    data, bvh, cam_ids = _build_scene_arrays(soup, materials, camera,
+                                             cuda=device.type == "cuda")
+    data = to_device(data, device)
+    return Scene(
+        camera=camera,
+        pixel_width=pixel_width,
+        pixel_height=pixel_height,
+        data=data,
+        n_triangles=len(soup),
+        n_nodes=bvh.n_nodes,
+        device=device,
+        camera_tri_ids=cam_ids,
+    )
+
+
+# presets (names and parameters match the JAX package's scene.py)
+
+def _res(name: str) -> str:
+    return os.path.join(RESOURCE_DIR, name)
+
+
+scene_presets: Dict[str, dict] = {
+    "empty": {
+        "cam_center": np.array([0, 1.5, 6]),
+        "cam_direction": np.array([0, 0, -1]),
+    },
+    "teapots": {
+        "cam_center": np.array([7, 0, 8]),
+        "cam_direction": np.array([-1, 0, -1]),
+        "file_specs": [
+            {"file_path": _res("teapot.obj"), "offset": np.array([0, 0, 2.5]),
+             "material": 5},
+            {"file_path": _res("teapot.obj"), "offset": np.array([0, 0, -2.5]),
+             "material": 0},
+        ],
+    },
+    "dragon": {
+        "cam_center": np.array([0, 1.5, 7.5]),
+        "cam_direction": np.array([0, 0, -1]),
+        "file_specs": [
+            {"file_path": _res("dragon_vrip_res3.ply"),
+             "offset": np.array([0, -4, 0]), "material": 5, "scale": 50},
+        ],
+    },
+    "medium-dragon": {
+        "cam_center": np.array([0, 1.5, 7.5]),
+        "cam_direction": np.array([0, 0, -1]),
+        "file_specs": [
+            {"file_path": _res("dragon_vrip_res2.ply"),
+             "offset": np.array([0, -4, 0]), "material": 5, "scale": 50},
+        ],
+    },
+    "big-dragon": {
+        "cam_center": np.array([0, 1.5, 7.5]),
+        "cam_direction": np.array([0, 0, -1]),
+        "file_specs": [
+            {"file_path": _res("dragon_vrip.ply"),
+             "offset": np.array([0, -4, 0]), "material": 5, "scale": 50},
+        ],
+    },
+    "sponza": {
+        "cam_center": np.array([0, 1.5, 7.5]),
+        "cam_direction": np.array([0, 0, -1]),
+        "file_specs": [
+            {"file_path": _res("sponza_scale.ply"),
+             "offset": np.array([0, -4, 0]), "material": 4, "scale": 50},
+        ],
+    },
+}
+
+
+def create_scene_from_preset(preset_name: str, pixel_width=1280,
+                             pixel_height=720, device="cpu") -> Scene:
+    preset = scene_presets.get(preset_name)
+    if not preset:
+        raise ValueError(f"Preset '{preset_name}' not found.")
+    return create_scene(
+        pixel_width=pixel_width,
+        pixel_height=pixel_height,
+        cam_center=preset["cam_center"],
+        cam_direction=preset["cam_direction"],
+        file_specs=preset.get("file_specs"),
+        device=device,
+    )

@@ -52,6 +52,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running convergence oracle (excluded from the default "
         "gate; run with `-m slow` or `-m 'slow or not slow'`)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips without one (on the card: "
+        "python3 -m pytest --noconftest -q tests/test_torch_cuda.py)")
 
 
 def pytest_collection_modifyitems(config, items):
