@@ -5,13 +5,19 @@
 Builds the port's CUDA kernels from clive2_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (on synthetic ray sets, then
 on the casts the main path itself gives the kernel, recorded from one
-sample of each configuration), times both on those casts, renders the two
-main-path configurations through ``create_scene_from_preset`` ->
-``Renderer.run_sample()`` (Cornell ``empty`` at 1920x1080 and ``teapots`` at
-512x512, 2 samples each) with launch counters proving the kernels carried
-every cast, and compares a small render on the card with the same render on
-the CPU.  Each phase prints one JSON line; any failure exits non-zero
-without the final line.  The last line is
+sample of each configuration), times both on those casts (and, on the
+large scenes' casts, the BVH2 kernel as an A/B to the fat-leaf kernel),
+renders the main-path configurations through ``create_scene_from_preset``
+-> ``Renderer.run_sample()`` (Cornell ``empty`` at 1920x1080 and ``teapots``
+at 512x512 with the brute and BVH2 kernels; ``medium-dragon`` at 512x512 and
+``sponza`` at 1920x1080 with the fat-leaf kernel, each followed by the same
+render on BVH2 tables as an A/B; 2 samples each) with
+launch counters proving the kernels carried every cast, and compares a small
+render on the card with the same render on the CPU.  The large meshes are
+written into resources/ when missing (procedural stand-ins at the
+reference's triangle counts, as scripts/make_assets.py makes them).  Each
+phase prints one JSON line; any failure exits non-zero without the final
+line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports no JAX.
 """
@@ -76,6 +82,85 @@ def record_casts(module, wrapper, renderer):
     return casts
 
 
+def strided(cast, stride):
+    """Every ``stride``-th ray of a recorded cast, from the first to the
+    last."""
+    return {k: v if k == "any_hit" or v is None else v[::stride]
+            for k, v in cast.items()}
+
+
+def bvh2_ab_scene(scene):
+    """``scene`` with BVH2 tables packed from its gather-walk rows in place
+    of its fat-leaf tables (the BVH2 kernel's path), or the reason
+    ``pack_bvh2`` refused the tree."""
+    import dataclasses
+
+    import torch
+
+    from clive2_tpu_torch.ops.traverse_bvh2 import pack_bvh2
+
+    rows = scene.data["bvh"]
+    try:
+        tables = pack_bvh2(rows["node_packed"].cpu().numpy(),
+                           rows["leaf_packed"].cpu().numpy())
+    except ValueError as e:
+        return str(e)
+    data = {k: v for k, v in scene.data.items() if k != "stream2"}
+    data["bvh2"] = {k: torch.from_numpy(v).to(scene.device)
+                    for k, v in tables.items()}
+    return dataclasses.replace(scene, data=data)
+
+
+def write_assets(resource_dir):
+    """Write the large meshes the presets read when they are missing:
+    procedural stand-ins at the reference's triangle counts, with the
+    transform of scripts/make_assets.py.  Returns {file: seconds or None
+    when the file was there}."""
+    import numpy as np
+
+    from clive2_tpu_torch.load import write_ply
+    from clive2_tpu_torch.models import displaced_blob_exact
+
+    out = {}
+    for name, count in (("dragon_vrip_res2.ply", 202_520),
+                        ("sponza_scale.ply", 1_310_720)):
+        path = os.path.join(resource_dir, name)
+        out[name] = None
+        if not os.path.exists(path):
+            t0 = time.perf_counter()
+            os.makedirs(resource_dir, exist_ok=True)
+            v, f = displaced_blob_exact(count)
+            write_ply(path, v * 0.06 + np.array([0.0, 0.085, 0.0]), f,
+                      binary=True)
+            out[name] = time.perf_counter() - t0
+    return out
+
+
+def build_timed(preset, w, h, device):
+    """create_scene_from_preset with its host BVH build timed apart:
+    returns (scene, total seconds, BVH build seconds)."""
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import scene as scene_mod
+
+    build_bvh = scene_mod.build_bvh
+    spent = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = build_bvh(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    scene_mod.build_bvh = timed
+    try:
+        t0 = time.perf_counter()
+        scene = ct.create_scene_from_preset(preset, w, h, device=device)
+        total = time.perf_counter() - t0
+    finally:
+        scene_mod.build_bvh = build_bvh
+    return scene, total, sum(spent)
+
+
 def random_rays(n, lo, hi, gen, device):
     import torch
 
@@ -131,7 +216,8 @@ def main() -> int:
     import clive2_tpu_torch as ct
     from clive2_tpu_torch import kernels, rng
     from clive2_tpu_torch.integrator.trace import generate_camera_rays
-    from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
+    from clive2_tpu_torch.ops import (brute, intersect, traverse_bvh2,
+                                      traverse_stream2)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -144,11 +230,12 @@ def main() -> int:
     t0 = time.perf_counter()
     so, nvcc_s = kernels.build()
     kernels.load()
-    emit(phase="build", library=os.path.relpath(so), nvcc_seconds=nvcc_s,
-         seconds=time.perf_counter() - t0)
+    emit(phase="build", library=os.path.relpath(so),
+         sources=[os.path.relpath(src) for src in kernels.sources()],
+         nvcc_seconds=nvcc_s, seconds=time.perf_counter() - t0)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    err = {"brute": 0.0, "bvh2": 0.0}
+    err = {"brute": 0.0, "bvh2": 0.0, "stream2": 0.0}
 
     # ---- 3. brute kernel vs plain ----------------------------------------
     cornell = ct.create_scene_from_preset("empty", 1920, 1080, device=dev)
@@ -225,6 +312,50 @@ def main() -> int:
          teapots.n_triangles, scene_build_s=build_s,
          max_abs_err_t=err["bvh2"], ids_equal=True, any_hit_verdicts_equal=True)
 
+    # ---- 4b. the fat-leaf kernel vs its plain version -----------------------
+    from clive2_tpu_torch.bvh import native
+
+    assets = write_assets(RESOURCE_DIR)
+    dragon, build_s, bvh_s = build_timed("medium-dragon", 512, 512, dev)
+    if "stream2" not in dragon.data or "bvh2" in dragon.data:
+        raise AssertionError("medium-dragon did not take the stream2 tables")
+    s2_tables = dragon.data["stream2"]
+    emit(phase="assets", written_s=assets,
+         native_bvh=native.available(),
+         scene="medium-dragon", scene_tris=dragon.n_triangles,
+         scene_build_s=build_s, bvh_build_s=bvh_s,
+         fat_leaves=s2_tables["fat_start"].numel() - 1,
+         top_nodes=s2_tables["childs"].shape[0])
+    cam_d = generate_camera_rays(rng.key(9, dev), dragon.data["camera"],
+                                 512, 512)[0]
+    lo = dragon.data["bvh"]["node_packed"][0, 0:3]
+    hi = dragon.data["bvh"]["node_packed"][0, 3:6]
+    sets = {
+        "coherent": (cam_d["origin"], cam_d["direction"]),
+        "incoherent": random_rays(1 << 18, lo, hi, gen, dev),
+    }
+    checks, hits, any_ids_equal = 0, {}, True
+    for rname, (o, d) in sets.items():
+        n = o.shape[0]
+        active = torch.rand(n, generator=gen, device=dev) < 0.8
+        t_max = torch.rand(n, generator=gen, device=dev) * 12
+        for variant, kw in (("closest", dict(active=active)),
+                            ("any-hit", dict(active=active, t_max=t_max,
+                                             any_hit=True))):
+            got = traverse_stream2.intersect_stream2(o, d, dragon.data, **kw)
+            want = traverse_stream2.stream2_plain(o, d, s2_tables, **kw)
+            closest = variant == "closest"
+            e = compare_hits(got, want, f"stream2 {rname} {variant}",
+                             closest=closest)
+            err["stream2"] = max(err["stream2"], e)
+            any_ids_equal &= closest or bool(torch.equal(got[0], want[0]))
+            hits[f"{rname} {variant}"] = int((want[0] >= 0).sum())
+            checks += 1
+    torch.cuda.synchronize()
+    emit(phase="kernel_stream2_vs_plain", checks=checks, hits=hits,
+         max_abs_err_t=err["stream2"], ids_equal=True,
+         any_hit_verdicts_equal=True, any_hit_ids_equal=any_ids_equal)
+
     # ---- 5. the kernels on the main path's own casts ----------------------
     # One sample of each configuration runs with its kernel's wrapper
     # recording the first cast of each shape it is given: the merged
@@ -276,20 +407,115 @@ def main() -> int:
         del casts, c
     torch.cuda.empty_cache()
 
+    # ---- 5b. the fat-leaf kernel on the large scenes' own casts ----------
+    # One sample of medium-dragon 512x512 and of sponza 1920x1080 runs with
+    # the wrapper recording its casts.  The kernel is timed over 5 launches
+    # on each whole cast, and the output of that full-size launch is held
+    # against the plain walk (one host sync per step, run once) on every
+    # k-th ray, k the least stride that leaves at most 2^20 rays: the whole
+    # extension cast at 512x512, a sample spread over the whole cast
+    # elsewhere.  The BVH2 kernel, with tables packed for this A/B from the
+    # same gather-walk rows, is timed on the whole casts and its agreement
+    # with the fat-leaf kernel reported.
+    sponza, build_s, bvh_s = build_timed("sponza", 1920, 1080, dev)
+    emit(phase="scene", name="sponza", scene_tris=sponza.n_triangles,
+         scene_build_s=build_s, bvh_build_s=bvh_s,
+         fat_leaves=sponza.data["stream2"]["fat_start"].numel() - 1,
+         top_nodes=sponza.data["stream2"]["childs"].shape[0])
+    ab_scenes = {}
+    for sname, scene, w, h in (("medium_dragon", dragon, 512, 512),
+                               ("sponza", sponza, 1920, 1080)):
+        ab_scenes[sname] = ab_scene = bvh2_ab_scene(scene)
+        casts = record_casts(traverse_stream2, "intersect_stream2",
+                             ct.Renderer(scene, seed=1, device=dev))
+        n = w * h
+        shapes = {2 * n: "extension", 36 * n: "connection"}
+        if sorted(casts) != sorted(shapes):
+            raise AssertionError(f"stream2 {sname}: casts of {sorted(casts)} "
+                                 f"rays, expected {sorted(shapes)}")
+        for rays, c in sorted(casts.items()):
+            ms, got = cuda_time(lambda: traverse_stream2.intersect_stream2(
+                c["origin"], c["direction"], scene.data, active=c["active"],
+                t_max=c["t_max"], any_hit=c["any_hit"]), 5)
+            stride = -(-rays // (1 << 20))
+            part = strided(c, stride)
+            plain_ms, want = cuda_time(lambda: traverse_stream2.stream2_plain(
+                part["origin"], part["direction"], scene.data["stream2"],
+                active=part["active"], t_max=part["t_max"],
+                any_hit=c["any_hit"]), 1)
+            got_part = tuple(x[::stride] for x in got)
+            m = part["origin"].shape[0]
+            label = f"stream2 {sname} {shapes[rays]} cast"
+            e = compare_hits(got_part, want, label, closest=not c["any_hit"])
+            err["stream2"] = max(err["stream2"], e)
+            timing["stream2", sname, shapes[rays]] = (ms, plain_ms)
+            if isinstance(ab_scene, str):
+                ab = dict(refused=ab_scene)
+            else:
+                ab_ms, ab_out = cuda_time(lambda: traverse_bvh2.intersect_bvh2(
+                    c["origin"], c["direction"], ab_scene.data,
+                    active=c["active"], t_max=c["t_max"],
+                    any_hit=c["any_hit"]), 5)
+                same = ((ab_out[0] >= 0) == (got[0] >= 0) if c["any_hit"]
+                        else ab_out[0] == got[0])
+                ab = dict(ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
+                          agreement=float(same.float().mean()))
+                del ab_out, same
+            cap = c["t_max"]
+            emit(phase="main_path_cast", kernel="stream2", scene=sname,
+                 cast=shapes[rays], rays=rays, compared_rays=m,
+                 compared_stride=stride, any_hit=c["any_hit"],
+                 active=rays if c["active"] is None
+                 else int(c["active"].sum()),
+                 capped=cap is not None,
+                 cap_finite_share=None if cap is None
+                 else float(torch.isfinite(cap).float().mean()),
+                 cap_max_finite=None if cap is None
+                 else float(cap[torch.isfinite(cap)].max()),
+                 ms=ms, mrays_s=rays / ms / 1e3, plain_ms=plain_ms,
+                 plain_mrays_s=m / plain_ms / 1e3, bvh2_ab=ab,
+                 max_abs_err_t=e, matches_plain=True,
+                 any_hit_ids_equal=bool(torch.equal(got_part[0], want[0])))
+            del got, got_part, want, part
+        del casts, c
+        torch.cuda.empty_cache()
+
     # ---- 6./7. the main path at full size ----------------------------------
     counters = {
         "brute": (brute.intersect_brute, "launches"),
         "bvh2": (traverse_bvh2.intersect_bvh2, "launches"),
+        "stream2": (traverse_stream2.intersect_stream2, "launches"),
         "brute_plain": (brute.brute_plain, "calls"),
         "gather_walk": (intersect.intersect_bvh_packed, "calls"),
+        "stream2_plain": (traverse_stream2.stream2_plain, "calls"),
     }
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
-    slices = {}
+    plain = ("brute_plain", "gather_walk", "stream2_plain")
+
+    def sponza_scene():                    # built when its slice comes
+        scene, build_s, bvh_s = build_timed("sponza", 1920, 1080, dev)
+        emit(phase="scene", name="sponza", scene_tris=scene.n_triangles,
+             scene_build_s=build_s, bvh_build_s=bvh_s)
+        return scene
+
+    # each large slice is followed by its A/B: the same render on the BVH2
+    # kernel's tables (the path these scenes took before the fat-leaf
+    # kernel), whose launches stay out of the main path's counts
+    slices, launches = {}, dict.fromkeys(counters, 0)
     for name, scene, w, h, kernel in (
             ("cornell_1080p", cornell, 1920, 1080, "brute"),
-            ("teapots_512", teapots, 512, 512, "bvh2")):
-        before = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+            ("teapots_512", teapots, 512, 512, "bvh2"),
+            ("medium_dragon_512", dragon, 512, 512, "stream2"),
+            ("medium_dragon_512_bvh2_ab", ab_scenes["medium_dragon"], 512,
+             512, "bvh2"),
+            ("sponza_1080p", sponza, 1920, 1080, "stream2"),
+            ("sponza_1080p_bvh2_ab", ab_scenes["sponza"], 1920, 1080,
+             "bvh2")):
+        ab = name.endswith("_ab")
+        if isinstance(scene, str):
+            emit(phase="slice_ab", name=name, refused=scene)
+            continue
+        for fn, attr in counters.values():    # counted from 0 per path
+            setattr(fn, attr, 0)
         torch.cuda.reset_peak_memory_stats()
         r = ct.Renderer(scene, seed=0, device=dev)
         times, rays = [], 0
@@ -300,32 +526,39 @@ def main() -> int:
             r.block()
             times.append(time.perf_counter() - t0)
             rays += int(r.last_n_rays)
-        after = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
-        ran = {k: after[k] - before[k] for k in counters}
+        ran = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+        if not ab:
+            launches = {k: launches[k] + ran[k] for k in counters}
         img = r.raw_image
         slices[name] = dict(
-            phase="slice", name=name, width=w, height=h, spp=2,
-            s_per_sample=times, mrays_s=rays / sum(times) / 1e6,
-            rays=rays, counts=ran, image_mean=float(img.mean()),
+            phase="slice_ab" if ab else "slice", name=name, width=w,
+            height=h, spp=2, s_per_sample=times,
+            mrays_s=rays / sum(times) / 1e6, rays=rays, counts=ran,
+            image_mean=float(img.mean()),
             finite=bool(np.isfinite(img).all()),
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            scene_tris=scene.n_triangles)
         emit(**slices[name])
         if ran[kernel] <= 0:
             raise AssertionError(f"{name}: the {kernel} kernel never ran")
-        if ran["brute_plain"] or ran["gather_walk"]:
+        if any(ran[k] for k in plain):
             raise AssertionError(f"{name}: a plain version ran: {ran}")
+        other = {"stream2": "bvh2", "bvh2": "stream2"}.get(kernel)
+        if other and ran[other]:
+            raise AssertionError(f"{name}: the {other} kernel ran: {ran}")
         if not np.isfinite(img).all():
             raise AssertionError(f"{name}: non-finite image")
-        del r
-    launches = {k: counters[k][0].launches for k in ("brute", "bvh2")}
+        if not img.mean() > 0:
+            raise AssertionError(f"{name}: the image is black")
+        del r, img
+    del scene, ab_scenes, sponza
+    torch.cuda.empty_cache()
     # the verify skill's health band for the Cornell preset at 16:9 (the
     # mean depends on the aspect ratio: ~0.0058 at 1:1, ~0.0101 at 16:9)
     mean_c = slices["cornell_1080p"]["image_mean"]
     if not 0.0095 <= mean_c <= 0.011:
         raise AssertionError(f"Cornell image mean {mean_c} outside the "
                              "16:9 health band 0.0095-0.011")
-    if not slices["teapots_512"]["image_mean"] > 0:
-        raise AssertionError("teapots image is black")
 
     # ---- 8. the same small render on the CPU and on the card --------------
     imgs = {}
@@ -344,9 +577,11 @@ def main() -> int:
 
     # ---- 9. summary ------------------------------------------------------
     # times: brute on Cornell 1080p's connection cast (where its time goes),
-    # BVH2 on teapots 512's extension cast; every cast is in phase 5's lines
+    # BVH2 on teapots 512's and the fat-leaf kernel on the medium dragon's
+    # extension cast; every cast is in phase 5's lines
     brute_ms = timing["brute", "connection"]
     bvh2_ms = timing["bvh2", "extension"]
+    stream2_ms = timing["stream2", "medium_dragon", "extension"]
     print(json.dumps({"kernels": [
         dict(name="brute", route="cuda",
              source="clive2_tpu_torch/csrc/brute.cu",
@@ -358,6 +593,11 @@ def main() -> int:
              replaces="clive2_tpu/ops/traverse_pallas2.py:144",
              launches=launches["bvh2"], max_abs_err=err["bvh2"],
              ms=bvh2_ms[0], plain_ms=bvh2_ms[1]),
+        dict(name="stream2", route="cuda",
+             source="clive2_tpu_torch/csrc/traverse_stream2.cu",
+             replaces="clive2_tpu/ops/traverse_stream2.py:191",
+             launches=launches["stream2"], max_abs_err=err["stream2"],
+             ms=stream2_ms[0], plain_ms=stream2_ms[1]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

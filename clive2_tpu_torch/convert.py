@@ -13,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.traverse_bvh2 import pack_bvh2
-from .scene import to_device
+from .scene import to_device, traversal_tables
 
 
 def scene_data_from_jax(np_tree, device="cpu"):
@@ -41,7 +40,7 @@ def scene_data_from_jax(np_tree, device="cpu"):
         data["brute"] = dict(tris=np.asarray(b["tris"]).reshape(-1, 10)[:n])
     else:
         data["camtri"] = dict(np_tree["camtri"])
-        if device.type == "cuda":
-            data["bvh2"] = pack_bvh2(data["bvh"]["node_packed"],
-                                     data["bvh"]["leaf_packed"])
+        n_world = int((np.asarray(data["tri"]["is_camera"]) == 0).sum())
+        data.update(traversal_tables(data["bvh"], n_world,
+                                     cuda=device.type == "cuda"))
     return to_device(data, device)

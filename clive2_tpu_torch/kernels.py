@@ -1,11 +1,12 @@
 """Build, load and call the port's CUDA kernels (``csrc/*.cu``).
 
-At first use ``nvcc`` compiles every source in ``csrc/`` into one shared
-library with a plain C interface, in ``clive2_tpu_torch/build/`` (ignored by
-git), named by a hash of the sources and flags so an edit rebuilds it.
-``ctypes`` loads it.  Pointers are ``tensor.data_ptr()`` and the stream is
-PyTorch's current stream, both passed as ``c_void_p``.  Each C entry point
-launches one kernel, does not synchronise, and returns
+At first use ``nvcc`` compiles each source in ``csrc/`` into an object, one
+``nvcc`` per source, all started together, and links the objects into one
+shared library with a plain C interface, in ``clive2_tpu_torch/build/``
+(ignored by git), named by a hash of the sources and flags so an edit
+rebuilds it.  ``ctypes`` loads it.  Pointers are ``tensor.data_ptr()`` and
+the stream is PyTorch's current stream, both passed as ``c_void_p``.  Each C
+entry point launches one kernel, does not synchronise, and returns
 ``cudaGetLastError()``; ``call`` raises when that is not 0.
 
 Flags: ``sm_90a`` (Hopper) and ``--fmad=false``, so that a kernel rounds
@@ -29,7 +30,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _RAYS = [_P, _P, _P, _P, ctypes.c_int64]     # origin, direction, active,
@@ -37,6 +38,7 @@ _OUTS = [_P, _P, _P, _P]                     # t_max, n | i, t, u, v
 _SIGNATURES = {
     "clive2_brute": _RAYS + [_P, ctypes.c_int] + _OUTS + [_P],
     "clive2_bvh2": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
+    "clive2_stream2": _RAYS + [_P] * 7 + [ctypes.c_int] + _OUTS + [_P],
 }
 
 _lib = None
@@ -67,6 +69,28 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libclive2_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(commands):
+    """Run the commands at once; raise with the output of those that
+    failed."""
+    procs = []
+    try:
+        for cmd in commands:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errors = [f"{os.path.basename(c[-1])}: nvcc failed "
+              f"({p.returncode}):\n{out}"
+              for c, p, out in zip(commands, procs, outs) if p.returncode]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def build() -> tuple[str, float]:
     """Compile the kernels unless this exact build exists.  Returns the
     library path and the seconds spent compiling (0 when cached)."""
@@ -74,21 +98,15 @@ def build() -> tuple[str, float]:
     if os.path.exists(so):
         return so, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in sources()
-                                               if s.endswith(".cu")]],
-            capture_output=True, text=True, timeout=900)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)          # atomic: concurrent builds race safely
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [s for s in sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cus]
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", o, s]
+                  for s, o in zip(cus, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, so)          # atomic: concurrent builds race safely
     return so, time.perf_counter() - t0
 
 

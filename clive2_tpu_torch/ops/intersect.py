@@ -1,7 +1,7 @@
 """Ray-scene intersection: slab test, Möller-Trumbore, the gather walk, and
 the one dispatch every cast goes through (port of clive2_tpu/ops/intersect.py).
 
-Contract of every intersector here and of both CUDA kernels behind
+Contract of every intersector here and of the CUDA kernels behind
 ``intersect_scene``: rays ``origin``/``direction`` [N, 3] f32, an optional
 ``active`` [N] bool mask (inactive rays miss) and an optional per-ray
 ``t_max`` [N] cap (hits at or beyond it are ignored).  Returns
@@ -220,20 +220,29 @@ def intersect_scene(origin, direction, scene, active=None, t_max=None,
     """The dispatch behind every cast, keyed by the scene's tables.
 
     A ``brute`` table (scenes of at most 256 triangles) goes to the dense
-    brute-force intersector; every other scene goes to the BVH2 traversal
-    and then merges the sensor-plane triangles (``camtri``).  Each
+    brute-force intersector; a ``stream2`` table (large scenes) to the
+    fat-leaf traversal; every other scene to the BVH2 traversal.  BVH
+    scenes then merge the sensor-plane triangles (``camtri``).  Each
     intersector runs its CUDA kernel on CUDA tensors and its plain version
-    on CPU tensors.  ``any_hit`` lets the BVH2 kernel stop at the first hit
+    on CPU tensors.  ``any_hit`` lets the traversals stop at the first hit
     under ``t_max`` (visibility casts whose cap excludes the target); the
     exhaustive paths return the closest hit, which is a valid answer too.
+    Rays stay in the caller's (raster) order: no kernel's answer depends
+    on it.
     """
     if "brute" in scene:
         from .brute import intersect_brute
 
         return intersect_brute(origin, direction, scene["brute"]["tris"],
                                active=active, t_max=t_max)
-    from .traverse_bvh2 import intersect_bvh2
+    if "stream2" in scene:
+        from .traverse_stream2 import intersect_stream2
 
-    hit = intersect_bvh2(origin, direction, scene, active=active,
-                         t_max=t_max, any_hit=any_hit)
+        hit = intersect_stream2(origin, direction, scene, active=active,
+                                t_max=t_max, any_hit=any_hit)
+    else:
+        from .traverse_bvh2 import intersect_bvh2
+
+        hit = intersect_bvh2(origin, direction, scene, active=active,
+                             t_max=t_max, any_hit=any_hit)
     return merge_camtri(origin, direction, scene["camtri"], hit, active)

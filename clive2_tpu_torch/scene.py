@@ -8,9 +8,12 @@ depends on its size and on that device:
 
 * at most 256 triangles: the ``brute`` table (CPU: the plain dense test;
   CUDA: the brute kernel);
-* otherwise the gather walk's tables (``bvh``) and the sensor-plane
-  triangles (``camtri``), and on CUDA also the BVH2 kernel's tables
-  (``bvh2``).  Every such scene goes to that kernel on the card.
+* otherwise the gather walk's tables (``bvh``), the sensor-plane
+  triangles (``camtri``) and one traversal's tables (``traversal_tables``):
+  scenes of at least ``STREAM2_MIN_TRIS`` world triangles get the
+  fat-leaf traversal's ``stream2`` (on the CPU its plain version, on CUDA
+  its kernel); smaller ones get, on CUDA, the BVH2 kernel's ``bvh2`` (on
+  the CPU they take the gather walk).
 """
 
 from __future__ import annotations
@@ -33,11 +36,16 @@ from .ops.brute import MAX_TRIS as BRUTE_FORCE_MAX_TRIS
 from .ops.brute import pack_brute
 from .ops.intersect import pack_gather_walk
 from .ops.traverse_bvh2 import pack_bvh2
+from .ops.traverse_stream2 import pack_stream2
 
 RESOURCE_DIR = os.environ.get(
     "CLIVE2_RESOURCES",
     os.path.join(os.path.dirname(__file__), "..", "resources"),
 )
+
+# world triangle count from which a scene takes the fat-leaf traversal: the
+# JAX package's packet-kernel ceiling (clive2_tpu/scene.py:37-39)
+STREAM2_MIN_TRIS = 100_000
 
 
 @dataclasses.dataclass
@@ -71,6 +79,15 @@ def camtri_arrays(cam_soup, ids):
     v = cam_soup.vertices
     return dict(v0=v[:, 0], e1=v[:, 1] - v[:, 0], e2=v[:, 2] - v[:, 0],
                 ids=np.asarray(ids, dtype=np.int32))
+
+
+def traversal_tables(bvh_rows, n_world: int, cuda: bool):
+    """The traversal tables of a BVH scene with ``n_world`` triangles in
+    its tree, from the gather walk's rows ``bvh_rows``."""
+    rows = (bvh_rows["node_packed"], bvh_rows["leaf_packed"])
+    if n_world >= STREAM2_MIN_TRIS:
+        return dict(stream2=pack_stream2(*rows))
+    return dict(bvh2=pack_bvh2(*rows)) if cuda else {}
 
 
 def _build_scene_arrays(soup: TriangleSoup, materials: MaterialTable,
@@ -132,9 +149,7 @@ def _build_scene_arrays(soup: TriangleSoup, materials: MaterialTable,
         data["brute"] = dict(tris=pack_brute(soup))
     else:
         data["camtri"] = camtri_arrays(soup.select(cam_ids), cam_ids)
-        if cuda:
-            data["bvh2"] = pack_bvh2(data["bvh"]["node_packed"],
-                                     data["bvh"]["leaf_packed"])
+        data.update(traversal_tables(data["bvh"], len(world), cuda))
     return data, bvh, cam_ids
 
 

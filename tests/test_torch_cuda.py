@@ -5,8 +5,9 @@ suite's conftest:
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Each kernel must match its plain PyTorch version on every ray (ids; t, u, v
-to 1e-6; built with --fmad=false both round alike), and a small render on
-the card must match the same render on the CPU.
+to 1e-6; built with --fmad=false both round alike; the fat-leaf kernel's
+any-hit ids too, since both stop after the same fat leaf), and a small
+render on the card must match the same render on the CPU.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import clive2_tpu_torch as ct
 from clive2_tpu_torch.bvh.build import build_bvh, leaf_tables
 from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
+from clive2_tpu_torch.ops import traverse_stream2
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +85,28 @@ def test_bvh2_kernel_matches_gather_walk(dev, any_hit):
     want = intersect.intersect_bvh_packed(o, d, scene["bvh"], active=active,
                                           t_max=t_max)
     _assert_same(got, want, closest=not any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream2_kernel_matches_plain(dev, any_hit):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    soup = _soup(3, 5000)
+    bvh = build_bvh(soup)
+    rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    scene = dict(stream2={
+        k: torch.from_numpy(v).to(dev) for k, v in
+        traverse_stream2.pack_stream2(rows["node_packed"],
+                                      rows["leaf_packed"]).items()})
+    o, d, active, t_max = _rays(gen, 50_000, dev)
+    before = traverse_stream2.intersect_stream2.launches
+    got = traverse_stream2.intersect_stream2(o, d, scene, active=active,
+                                             t_max=t_max, any_hit=any_hit)
+    assert traverse_stream2.intersect_stream2.launches == before + 1
+    want = traverse_stream2.stream2_plain(o, d, scene["stream2"],
+                                          active=active, t_max=t_max,
+                                          any_hit=any_hit)
+    _assert_same(got, want)
+    assert (got[0] >= 0).sum() > 1000
 
 
 def test_render_on_the_card_matches_the_cpu(dev):
