@@ -2,20 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from clive2_tpu_torch/csrc, holds each
+Builds the port's five CUDA kernels from clive2_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (on synthetic ray sets, then
 on the casts the main path itself gives the kernel, recorded from one
-sample of each configuration), times both on those casts (and, on the
-large scenes' casts, the BVH2 kernel as an A/B to the fat-leaf kernel),
+sample of each configuration), times both on those casts (and, on the BVH
+scenes' casts, the other kernels that can carry the scene as an A/B),
 renders the main-path configurations through ``create_scene_from_preset``
--> ``Renderer.run_sample()`` (Cornell ``empty`` at 1920x1080 and ``teapots``
-at 512x512 with the brute and BVH2 kernels; ``medium-dragon`` at 512x512 and
-``sponza`` at 1920x1080 with the fat-leaf kernel, each followed by the same
-render on BVH2 tables as an A/B; 2 samples each) with
-launch counters proving the kernels carried every cast, and compares a small
-render on the card with the same render on the CPU.  The large meshes are
-written into resources/ when missing (procedural stand-ins at the
-reference's triangle counts, as scripts/make_assets.py makes them).  Each
+-> ``Renderer.run_sample()`` with launch counters proving which kernel
+carried every cast, 2 samples each: Cornell ``empty`` at 1920x1080 and
+``teapots`` at 512x512 (brute and BVH2 kernels); ``medium-dragon`` at
+512x512 and ``sponza`` at 1920x1080 (fat-leaf kernel), each followed by the
+same render on BVH2 tables as an A/B; and the JAX package's two A/B
+traversal paths: ``dragon`` at 512x512 under ``CLIVE2_TRAVERSAL=wide``
+(BVH8 kernel), ``medium-dragon`` at 512x512 under ``CLIVE2_STREAM_IMPL=1``
+and ``sponza`` at 1920x1080 on the same tables (streaming kernel).  Then it
+compares a small render on the card with the same render on the CPU.  The
+meshes are written into resources/ when missing (procedural stand-ins at
+the reference's triangle counts, as scripts/make_assets.py makes them).  Each
 phase prints one JSON line; any failure exits non-zero without the final
 line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -24,6 +27,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -89,26 +93,36 @@ def strided(cast, stride):
             for k, v in cast.items()}
 
 
-def bvh2_ab_scene(scene):
-    """``scene`` with BVH2 tables packed from its gather-walk rows in place
-    of its fat-leaf tables (the BVH2 kernel's path), or the reason
-    ``pack_bvh2`` refused the tree."""
+def with_traversal(scene, traversal):
+    """``scene`` with the tables of ``traversal`` (``wide``, ``bvh2``,
+    ``stream`` or ``stream2``) in place of its own traversal tables, packed
+    from its gather-walk rows by ``scene.traversal_tables``."""
     import dataclasses
 
-    import torch
+    from clive2_tpu_torch import scene as scene_mod
 
-    from clive2_tpu_torch.ops.traverse_bvh2 import pack_bvh2
-
-    rows = scene.data["bvh"]
-    try:
-        tables = pack_bvh2(rows["node_packed"].cpu().numpy(),
-                           rows["leaf_packed"].cpu().numpy())
-    except ValueError as e:
-        return str(e)
-    data = {k: v for k, v in scene.data.items() if k != "stream2"}
-    data["bvh2"] = {k: torch.from_numpy(v).to(scene.device)
-                    for k, v in tables.items()}
+    rows = {k: v.cpu().numpy() for k, v in scene.data["bvh"].items()}
+    tables = scene_mod.traversal_tables(rows, 0, cuda=True,
+                                        traversal=traversal)
+    data = {k: v for k, v in scene.data.items()
+            if k not in scene_mod.PACKERS}
+    data.update(scene_mod.to_device(tables, scene.device))
     return dataclasses.replace(scene, data=data)
+
+
+@contextlib.contextmanager
+def environment(**env):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def write_assets(resource_dir):
@@ -122,7 +136,8 @@ def write_assets(resource_dir):
     from clive2_tpu_torch.models import displaced_blob_exact
 
     out = {}
-    for name, count in (("dragon_vrip_res2.ply", 202_520),
+    for name, count in (("dragon_vrip_res3.ply", 47_794),
+                        ("dragon_vrip_res2.ply", 202_520),
                         ("sponza_scale.ply", 1_310_720)):
         path = os.path.join(resource_dir, name)
         out[name] = None
@@ -217,7 +232,9 @@ def main() -> int:
     from clive2_tpu_torch import kernels, rng
     from clive2_tpu_torch.integrator.trace import generate_camera_rays
     from clive2_tpu_torch.ops import (brute, intersect, traverse_bvh2,
-                                      traverse_stream2)
+                                      traverse_stream, traverse_stream2,
+                                      traverse_wide)
+    from clive2_tpu_torch.scene import PACKERS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -235,7 +252,13 @@ def main() -> int:
          nvcc_seconds=nvcc_s, seconds=time.perf_counter() - t0)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    err = {"brute": 0.0, "bvh2": 0.0, "stream2": 0.0}
+    modules = dict(bvh2=traverse_bvh2, stream2=traverse_stream2,
+                   wide=traverse_wide, stream=traverse_stream)
+    # every kernel's wrapper, by the name its launch count goes under
+    wrappers = dict(brute=brute.intersect_brute, **{
+        name: getattr(module, f"intersect_{name}")
+        for name, module in modules.items()})
+    err = dict.fromkeys(wrappers, 0.0)
 
     # ---- 3. brute kernel vs plain ----------------------------------------
     cornell = ct.create_scene_from_preset("empty", 1920, 1080, device=dev)
@@ -312,13 +335,16 @@ def main() -> int:
          teapots.n_triangles, scene_build_s=build_s,
          max_abs_err_t=err["bvh2"], ids_equal=True, any_hit_verdicts_equal=True)
 
-    # ---- 4b. the fat-leaf kernel vs its plain version -----------------------
+    # ---- 4b. the traversal kernels of the large and A/B paths vs plain ----
+    # Each kernel against its plain version on 512^2 camera rays and 2^18
+    # random rays inside the scene's root box, 80% of them active:
+    # closest-hit, closest-hit under random caps, and any-hit under them.
+    # The scenes come through create_scene_from_preset, with the JAX
+    # package's selectors set for the wide and stream1 scenes.
     from clive2_tpu_torch.bvh import native
 
     assets = write_assets(RESOURCE_DIR)
     dragon, build_s, bvh_s = build_timed("medium-dragon", 512, 512, dev)
-    if "stream2" not in dragon.data or "bvh2" in dragon.data:
-        raise AssertionError("medium-dragon did not take the stream2 tables")
     s2_tables = dragon.data["stream2"]
     emit(phase="assets", written_s=assets,
          native_bvh=native.available(),
@@ -326,35 +352,73 @@ def main() -> int:
          scene_build_s=build_s, bvh_build_s=bvh_s,
          fat_leaves=s2_tables["fat_start"].numel() - 1,
          top_nodes=s2_tables["childs"].shape[0])
-    cam_d = generate_camera_rays(rng.key(9, dev), dragon.data["camera"],
-                                 512, 512)[0]
-    lo = dragon.data["bvh"]["node_packed"][0, 0:3]
-    hi = dragon.data["bvh"]["node_packed"][0, 3:6]
-    sets = {
-        "coherent": (cam_d["origin"], cam_d["direction"]),
-        "incoherent": random_rays(1 << 18, lo, hi, gen, dev),
+    with environment(CLIVE2_TRAVERSAL="wide"):
+        dragon_w, build_s, bvh_s = build_timed("dragon", 512, 512, dev)
+    emit(phase="scene", name="dragon", selector="CLIVE2_TRAVERSAL=wide",
+         scene_tris=dragon_w.n_triangles, scene_build_s=build_s,
+         bvh_build_s=bvh_s, wide_nodes=dragon_w.data["wide"]["wbox"].shape[0])
+    with environment(CLIVE2_STREAM_IMPL="1"):
+        dragon_s1, build_s, bvh_s = build_timed("medium-dragon", 512, 512,
+                                                dev)
+    emit(phase="scene", name="medium-dragon", selector="CLIVE2_STREAM_IMPL=1",
+         scene_tris=dragon_s1.n_triangles, scene_build_s=build_s,
+         bvh_build_s=bvh_s,
+         sub_leaves=dragon_s1.data["stream"]["sub_node"].numel())
+    for scene, want in ((dragon, "stream2"), (dragon_w, "wide"),
+                        (dragon_s1, "stream")):
+        got = sorted(set(scene.data) & set(PACKERS))
+        if got != [want]:
+            raise AssertionError(f"expected the {want} tables, got {got}")
+
+    plains = {
+        "stream2": lambda c, data: traverse_stream2.stream2_plain(
+            c["origin"], c["direction"], data["stream2"],
+            active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
+        "wide": lambda c, data: traverse_wide.wide_plain(
+            c["origin"], c["direction"], data["wide"], data["bvh"],
+            active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
+        "stream": lambda c, data: traverse_stream.stream_plain(
+            c["origin"], c["direction"], data["stream"], data["bvh"],
+            active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
     }
-    checks, hits, any_ids_equal = 0, {}, True
-    for rname, (o, d) in sets.items():
-        n = o.shape[0]
-        active = torch.rand(n, generator=gen, device=dev) < 0.8
-        t_max = torch.rand(n, generator=gen, device=dev) * 12
-        for variant, kw in (("closest", dict(active=active)),
-                            ("any-hit", dict(active=active, t_max=t_max,
-                                             any_hit=True))):
-            got = traverse_stream2.intersect_stream2(o, d, dragon.data, **kw)
-            want = traverse_stream2.stream2_plain(o, d, s2_tables, **kw)
-            closest = variant == "closest"
-            e = compare_hits(got, want, f"stream2 {rname} {variant}",
-                             closest=closest)
-            err["stream2"] = max(err["stream2"], e)
-            any_ids_equal &= closest or bool(torch.equal(got[0], want[0]))
-            hits[f"{rname} {variant}"] = int((want[0] >= 0).sum())
-            checks += 1
-    torch.cuda.synchronize()
-    emit(phase="kernel_stream2_vs_plain", checks=checks, hits=hits,
-         max_abs_err_t=err["stream2"], ids_equal=True,
-         any_hit_verdicts_equal=True, any_hit_ids_equal=any_ids_equal)
+
+    def launch(name, c, data):
+        return wrappers[name](c["origin"], c["direction"], data,
+                              active=c["active"], t_max=c["t_max"],
+                              any_hit=c["any_hit"])
+
+    for name, scene, key in (("stream2", dragon, 9), ("wide", dragon_w, 10),
+                             ("stream", dragon_s1, 11)):
+        cam = generate_camera_rays(rng.key(key, dev), scene.data["camera"],
+                                   512, 512)[0]
+        lo = scene.data["bvh"]["node_packed"][0, 0:3]
+        hi = scene.data["bvh"]["node_packed"][0, 3:6]
+        sets = {"coherent": (cam["origin"], cam["direction"]),
+                "incoherent": random_rays(1 << 18, lo, hi, gen, dev)}
+        checks, hits, any_ids_equal = 0, {}, True
+        for rname, (o, d) in sets.items():
+            n = o.shape[0]
+            active = torch.rand(n, generator=gen, device=dev) < 0.8
+            t_max = torch.rand(n, generator=gen, device=dev) * 12
+            for variant, cap, any_hit in (("closest", None, False),
+                                          ("capped", t_max, False),
+                                          ("any-hit", t_max, True)):
+                c = dict(origin=o, direction=d, active=active, t_max=cap,
+                         any_hit=any_hit)
+                got = launch(name, c, scene.data)
+                want = plains[name](c, scene.data)
+                e = compare_hits(got, want, f"{name} {rname} {variant}",
+                                 closest=not any_hit)
+                err[name] = max(err[name], e)
+                any_ids_equal &= bool(torch.equal(got[0], want[0]))
+                hits[f"{rname} {variant}"] = int((want[0] >= 0).sum())
+                checks += 1
+        torch.cuda.synchronize()
+        emit(phase=f"kernel_{name}_vs_plain", scene_tris=scene.n_triangles,
+             checks=checks, hits=hits, max_abs_err_t=err[name],
+             ids_equal=True, any_hit_verdicts_equal=True,
+             any_hit_ids_equal=any_ids_equal)
+        del sets, cam, got, want
 
     # ---- 5. the kernels on the main path's own casts ----------------------
     # One sample of each configuration runs with its kernel's wrapper
@@ -367,11 +431,6 @@ def main() -> int:
         return lambda c: fn(c["origin"], c["direction"], tris,
                             active=c["active"], t_max=c["t_max"])
 
-    def bvh2_kernel(c):
-        return traverse_bvh2.intersect_bvh2(
-            c["origin"], c["direction"], teapots.data, active=c["active"],
-            t_max=c["t_max"], any_hit=c["any_hit"])
-
     def bvh2_plain(c):
         return intersect.intersect_bvh_packed(
             c["origin"], c["direction"], teapots.data["bvh"],
@@ -382,7 +441,7 @@ def main() -> int:
             ("brute", cornell, 1920, 1080, brute, "intersect_brute",
              brute_cast(brute.intersect_brute), brute_cast(brute.brute_plain)),
             ("bvh2", teapots, 512, 512, traverse_bvh2, "intersect_bvh2",
-             bvh2_kernel, bvh2_plain)):
+             lambda c: launch("bvh2", c, teapots.data), bvh2_plain)):
         casts = record_casts(module, wrapper, ct.Renderer(scene, seed=1,
                                                           device=dev))
         n = w * h
@@ -407,62 +466,69 @@ def main() -> int:
         del casts, c
     torch.cuda.empty_cache()
 
-    # ---- 5b. the fat-leaf kernel on the large scenes' own casts ----------
-    # One sample of medium-dragon 512x512 and of sponza 1920x1080 runs with
-    # the wrapper recording its casts.  The kernel is timed over 5 launches
-    # on each whole cast, and the output of that full-size launch is held
-    # against the plain walk (one host sync per step, run once) on every
-    # k-th ray, k the least stride that leaves at most 2^20 rays: the whole
-    # extension cast at 512x512, a sample spread over the whole cast
-    # elsewhere.  The BVH2 kernel, with tables packed for this A/B from the
-    # same gather-walk rows, is timed on the whole casts and its agreement
-    # with the fat-leaf kernel reported.
+    # ---- 5b. the traversal kernels on the BVH scenes' own casts ----------
+    # One sample of each scene runs with its kernel's wrapper recording its
+    # casts.  The kernel is timed over 5 launches on each whole cast, and
+    # the output of that full-size launch is held against the plain walk
+    # (one host sync per step, run once) on every k-th ray, k the least
+    # stride that leaves at most 2^20 rays.  The other kernels that can
+    # carry the scene (the default's, with tables packed from the same
+    # gather-walk rows) are timed on the whole cast as an A/B, with their
+    # agreement with the kernel.
     sponza, build_s, bvh_s = build_timed("sponza", 1920, 1080, dev)
     emit(phase="scene", name="sponza", scene_tris=sponza.n_triangles,
          scene_build_s=build_s, bvh_build_s=bvh_s,
          fat_leaves=sponza.data["stream2"]["fat_start"].numel() - 1,
          top_nodes=sponza.data["stream2"]["childs"].shape[0])
-    ab_scenes = {}
-    for sname, scene, w, h in (("medium_dragon", dragon, 512, 512),
-                               ("sponza", sponza, 1920, 1080)):
-        ab_scenes[sname] = ab_scene = bvh2_ab_scene(scene)
-        casts = record_casts(traverse_stream2, "intersect_stream2",
+    t0 = time.perf_counter()
+    sponza_s1 = with_traversal(sponza, "stream")
+    emit(phase="scene", name="sponza", selector="traversal='stream'",
+         pack_s=time.perf_counter() - t0,
+         sub_leaves=sponza_s1.data["stream"]["sub_node"].numel())
+    ab_scenes = {"medium_dragon": with_traversal(dragon, "bvh2"),
+                 "sponza": with_traversal(sponza, "bvh2"),
+                 "dragon": with_traversal(dragon_w, "bvh2")}
+    for name, sname, scene, w, h, ab in (
+            ("stream2", "medium_dragon", dragon, 512, 512,
+             dict(bvh2=ab_scenes["medium_dragon"])),
+            ("stream2", "sponza", sponza, 1920, 1080,
+             dict(bvh2=ab_scenes["sponza"])),
+            ("wide", "dragon", dragon_w, 512, 512,
+             dict(bvh2=ab_scenes["dragon"])),
+            ("stream", "medium_dragon", dragon_s1, 512, 512,
+             dict(stream2=dragon, bvh2=ab_scenes["medium_dragon"])),
+            ("stream", "sponza", sponza_s1, 1920, 1080,
+             dict(stream2=sponza, bvh2=ab_scenes["sponza"]))):
+        casts = record_casts(modules[name], f"intersect_{name}",
                              ct.Renderer(scene, seed=1, device=dev))
         n = w * h
         shapes = {2 * n: "extension", 36 * n: "connection"}
         if sorted(casts) != sorted(shapes):
-            raise AssertionError(f"stream2 {sname}: casts of {sorted(casts)} "
+            raise AssertionError(f"{name} {sname}: casts of {sorted(casts)} "
                                  f"rays, expected {sorted(shapes)}")
         for rays, c in sorted(casts.items()):
-            ms, got = cuda_time(lambda: traverse_stream2.intersect_stream2(
-                c["origin"], c["direction"], scene.data, active=c["active"],
-                t_max=c["t_max"], any_hit=c["any_hit"]), 5)
+            ms, got = cuda_time(lambda: launch(name, c, scene.data), 5)
             stride = -(-rays // (1 << 20))
             part = strided(c, stride)
-            plain_ms, want = cuda_time(lambda: traverse_stream2.stream2_plain(
-                part["origin"], part["direction"], scene.data["stream2"],
-                active=part["active"], t_max=part["t_max"],
-                any_hit=c["any_hit"]), 1)
+            plain_ms, want = cuda_time(lambda: plains[name](part, scene.data),
+                                       1)
             got_part = tuple(x[::stride] for x in got)
             m = part["origin"].shape[0]
-            label = f"stream2 {sname} {shapes[rays]} cast"
+            label = f"{name} {sname} {shapes[rays]} cast"
             e = compare_hits(got_part, want, label, closest=not c["any_hit"])
-            err["stream2"] = max(err["stream2"], e)
-            timing["stream2", sname, shapes[rays]] = (ms, plain_ms)
-            if isinstance(ab_scene, str):
-                ab = dict(refused=ab_scene)
-            else:
-                ab_ms, ab_out = cuda_time(lambda: traverse_bvh2.intersect_bvh2(
-                    c["origin"], c["direction"], ab_scene.data,
-                    active=c["active"], t_max=c["t_max"],
-                    any_hit=c["any_hit"]), 5)
+            err[name] = max(err[name], e)
+            timing[name, sname, shapes[rays]] = (ms, plain_ms)
+            abs_ = {}
+            for ab_name, ab_scene in ab.items():
+                ab_ms, ab_out = cuda_time(
+                    lambda: launch(ab_name, c, ab_scene.data), 5)
                 same = ((ab_out[0] >= 0) == (got[0] >= 0) if c["any_hit"]
                         else ab_out[0] == got[0])
-                ab = dict(ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
-                          agreement=float(same.float().mean()))
+                abs_[ab_name] = dict(ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
+                                     agreement=float(same.float().mean()))
                 del ab_out, same
             cap = c["t_max"]
-            emit(phase="main_path_cast", kernel="stream2", scene=sname,
+            emit(phase="main_path_cast", kernel=name, scene=sname,
                  cast=shapes[rays], rays=rays, compared_rays=m,
                  compared_stride=stride, any_hit=c["any_hit"],
                  active=rays if c["active"] is None
@@ -473,7 +539,7 @@ def main() -> int:
                  cap_max_finite=None if cap is None
                  else float(cap[torch.isfinite(cap)].max()),
                  ms=ms, mrays_s=rays / ms / 1e3, plain_ms=plain_ms,
-                 plain_mrays_s=m / plain_ms / 1e3, bvh2_ab=ab,
+                 plain_mrays_s=m / plain_ms / 1e3, ab=abs_,
                  max_abs_err_t=e, matches_plain=True,
                  any_hit_ids_equal=bool(torch.equal(got_part[0], want[0])))
             del got, got_part, want, part
@@ -481,25 +547,19 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 6./7. the main path at full size ----------------------------------
-    counters = {
-        "brute": (brute.intersect_brute, "launches"),
-        "bvh2": (traverse_bvh2.intersect_bvh2, "launches"),
-        "stream2": (traverse_stream2.intersect_stream2, "launches"),
+    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
+    counters.update({
         "brute_plain": (brute.brute_plain, "calls"),
         "gather_walk": (intersect.intersect_bvh_packed, "calls"),
         "stream2_plain": (traverse_stream2.stream2_plain, "calls"),
-    }
-    plain = ("brute_plain", "gather_walk", "stream2_plain")
+        "wide_plain": (traverse_wide.wide_plain, "calls"),
+        "stream_plain": (traverse_stream.stream_plain, "calls"),
+    })
+    plain = [k for k in counters if k not in wrappers]
 
-    def sponza_scene():                    # built when its slice comes
-        scene, build_s, bvh_s = build_timed("sponza", 1920, 1080, dev)
-        emit(phase="scene", name="sponza", scene_tris=scene.n_triangles,
-             scene_build_s=build_s, bvh_build_s=bvh_s)
-        return scene
-
-    # each large slice is followed by its A/B: the same render on the BVH2
-    # kernel's tables (the path these scenes took before the fat-leaf
-    # kernel), whose launches stay out of the main path's counts
+    # the two large default slices are each followed by their A/B: the same
+    # render on the BVH2 kernel's tables, whose launches stay out of the
+    # main path's counts
     slices, launches = {}, dict.fromkeys(counters, 0)
     for name, scene, w, h, kernel in (
             ("cornell_1080p", cornell, 1920, 1080, "brute"),
@@ -509,11 +569,11 @@ def main() -> int:
              512, "bvh2"),
             ("sponza_1080p", sponza, 1920, 1080, "stream2"),
             ("sponza_1080p_bvh2_ab", ab_scenes["sponza"], 1920, 1080,
-             "bvh2")):
+             "bvh2"),
+            ("dragon_512_wide", dragon_w, 512, 512, "wide"),
+            ("medium_dragon_512_stream1", dragon_s1, 512, 512, "stream"),
+            ("sponza_1080p_stream1", sponza_s1, 1920, 1080, "stream")):
         ab = name.endswith("_ab")
-        if isinstance(scene, str):
-            emit(phase="slice_ab", name=name, refused=scene)
-            continue
         for fn, attr in counters.values():    # counted from 0 per path
             setattr(fn, attr, 0)
         torch.cuda.reset_peak_memory_stats()
@@ -543,15 +603,14 @@ def main() -> int:
             raise AssertionError(f"{name}: the {kernel} kernel never ran")
         if any(ran[k] for k in plain):
             raise AssertionError(f"{name}: a plain version ran: {ran}")
-        other = {"stream2": "bvh2", "bvh2": "stream2"}.get(kernel)
-        if other and ran[other]:
-            raise AssertionError(f"{name}: the {other} kernel ran: {ran}")
+        if any(ran[k] for k in wrappers if k != kernel):
+            raise AssertionError(f"{name}: another kernel ran: {ran}")
         if not np.isfinite(img).all():
             raise AssertionError(f"{name}: non-finite image")
         if not img.mean() > 0:
             raise AssertionError(f"{name}: the image is black")
         del r, img
-    del scene, ab_scenes, sponza
+    del scene, ab_scenes, sponza, sponza_s1, dragon, dragon_w, dragon_s1
     torch.cuda.empty_cache()
     # the verify skill's health band for the Cornell preset at 16:9 (the
     # mean depends on the aspect ratio: ~0.0058 at 1:1, ~0.0101 at 16:9)
@@ -577,34 +636,30 @@ def main() -> int:
 
     # ---- 9. summary ------------------------------------------------------
     # times: brute on Cornell 1080p's connection cast (where its time goes),
-    # BVH2 on teapots 512's and the fat-leaf kernel on the medium dragon's
-    # extension cast; every cast is in phase 5's lines
-    brute_ms = timing["brute", "connection"]
-    bvh2_ms = timing["bvh2", "extension"]
-    stream2_ms = timing["stream2", "medium_dragon", "extension"]
+    # BVH2 on teapots 512's, the fat-leaf and streaming kernels on the
+    # medium dragon's and the wide kernel on the dragon's extension cast;
+    # every cast is in phase 5's lines
+    rows = (
+        ("brute", "brute.cu", "brute_pallas.py:29",
+         timing["brute", "connection"]),
+        ("bvh2", "traverse_bvh2.cu", "traverse_pallas2.py:144",
+         timing["bvh2", "extension"]),
+        ("stream2", "traverse_stream2.cu", "traverse_stream2.py:191",
+         timing["stream2", "medium_dragon", "extension"]),
+        ("wide", "traverse_wide.cu", "traverse_wide.py:128",
+         timing["wide", "dragon", "extension"]),
+        ("stream", "traverse_stream.cu", "traverse_stream.py:104",
+         timing["stream", "medium_dragon", "extension"]))
     print(json.dumps({"kernels": [
-        dict(name="brute", route="cuda",
-             source="clive2_tpu_torch/csrc/brute.cu",
-             replaces="clive2_tpu/ops/brute_pallas.py:29",
-             launches=launches["brute"], max_abs_err=err["brute"],
-             ms=brute_ms[0], plain_ms=brute_ms[1]),
-        dict(name="bvh2", route="cuda",
-             source="clive2_tpu_torch/csrc/traverse_bvh2.cu",
-             replaces="clive2_tpu/ops/traverse_pallas2.py:144",
-             launches=launches["bvh2"], max_abs_err=err["bvh2"],
-             ms=bvh2_ms[0], plain_ms=bvh2_ms[1]),
-        dict(name="stream2", route="cuda",
-             source="clive2_tpu_torch/csrc/traverse_stream2.cu",
-             replaces="clive2_tpu/ops/traverse_stream2.py:191",
-             launches=launches["stream2"], max_abs_err=err["stream2"],
-             ms=stream2_ms[0], plain_ms=stream2_ms[1]),
-    ]}), flush=True)
+        dict(name=name, route="cuda", source=f"clive2_tpu_torch/csrc/{src}",
+             replaces=f"clive2_tpu/ops/{tpu}", launches=launches[name],
+             max_abs_err=err[name], ms=ms, plain_ms=plain_ms)
+        for name, src, tpu, (ms, plain_ms) in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     try:

@@ -5,7 +5,9 @@ numpy (for example ``jax.tree.map(np.asarray, scene.data)``) and returns the
 port's scene dict on ``device``, adding the kernel tables the device needs.
 The JAX package's own traversal tables for TPU kernels are not used: the
 port derives what it needs from the gather walk's rows, which every JAX BVH
-scene carries.  This module imports no JAX.
+scene carries, through ``scene.traversal_tables``, so a converted scene
+follows the same selectors (``CLIVE2_TRAVERSAL``, ``CLIVE2_STREAM_IMPL``)
+as one the port builds.  This module imports no JAX.
 """
 
 from __future__ import annotations

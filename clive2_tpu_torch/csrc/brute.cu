@@ -27,12 +27,12 @@
 // file is compiled with --fmad=false, so both round identically.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr float kDelta = 1e-4f;     // self-hit epsilon (constants.DELTA)
 constexpr int kThreads = 256;
 constexpr int kMaxTris = 256;       // ops/brute.py:MAX_TRIS, a 10 KB table
 
@@ -66,26 +66,10 @@ __global__ void brute_kernel(const float* __restrict__ origin,
       const float dy = direction[3 * r + 1];
       const float dz = direction[3 * r + 2];
       for (int k = 0; k < n_tris; ++k) {
-        const float* tr = s_tris + 10 * k;
-        const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-        const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-        const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-        const float hx = dy * e2z - dz * e2y;
-        const float hy = dz * e2x - dx * e2z;
-        const float hz = dx * e2y - dy * e2x;
-        const float a = e1x * hx + e1y * hy + e1z * hz;
-        const float f = 1.0f / a;
-        const float sx = ox - v0x;
-        const float sy = oy - v0y;
-        const float sz = oz - v0z;
-        const float u = f * (sx * hx + sy * hy + sz * hz);
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = f * (dx * qx + dy * qy + dz * qz);
-        const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-        if (u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-            t > kDelta && t < bt) {
+        float t, u, v;
+        if (moller_trumbore(s_tris + 10 * k, ox, oy, oz, dx, dy, dz, t, u,
+                            v) &&
+            t < bt) {
           bt = t;
           bi = k;
           bu = u;

@@ -42,37 +42,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr float kDelta = 1e-4f;     // self-hit epsilon (constants.DELTA)
 constexpr int kThreads = 128;
 constexpr int kStackSize = 64;      // ops/traverse_bvh2.py:STACK_SIZE
 constexpr int kLeafSlots = 8;
-
-__device__ __forceinline__ float safe_inverse(float d) {
-  const float tiny = 1e-30f;
-  const float x = fabsf(d) < tiny ? (d < 0.0f ? -tiny : tiny) : d;
-  return 1.0f / x;
-}
-
-// Slab test of one AABB (b: min(3) max(3)); returns the entry distance, or
-// +inf when the box is missed or lies beyond bt.
-__device__ __forceinline__ float box_entry(const float* __restrict__ b,
-                                           float ox, float oy, float oz,
-                                           float ix, float iy, float iz,
-                                           float bt) {
-  const float t0x = (b[0] - ox) * ix;
-  const float t1x = (b[3] - ox) * ix;
-  const float t0y = (b[1] - oy) * iy;
-  const float t1y = (b[4] - oy) * iy;
-  const float t0z = (b[2] - oz) * iz;
-  const float t1z = (b[5] - oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), 0.0f));
-  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fminf(fmaxf(t0z, t1z), bt));
-  return tmin <= tmax ? tmin : INFINITY;
-}
 
 template <bool kAnyHit>
 __global__ void bvh2_kernel(const float* __restrict__ origin,
@@ -132,28 +108,11 @@ __global__ void bvh2_kernel(const float* __restrict__ origin,
         const float* lf = leaves + (long long)(-(ref + 1)) * (kLeafSlots * 10);
         for (int k = 0; k < kLeafSlots; ++k) {
           const float* tr = lf + 10 * k;
-          const float tri = tr[9];
-          const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-          const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-          const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-          const float hx = dy * e2z - dz * e2y;
-          const float hy = dz * e2x - dx * e2z;
-          const float hz = dx * e2y - dy * e2x;
-          const float a = e1x * hx + e1y * hy + e1z * hz;
-          const float f = 1.0f / a;
-          const float sx = ox - v0x;
-          const float sy = oy - v0y;
-          const float sz = oz - v0z;
-          const float u = f * (sx * hx + sy * hy + sz * hz);
-          const float qx = sy * e1z - sz * e1y;
-          const float qy = sz * e1x - sx * e1z;
-          const float qz = sx * e1y - sy * e1x;
-          const float v = f * (dx * qx + dy * qy + dz * qz);
-          const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-          if (u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-              t > kDelta && t < bt && tri >= 0.0f) {
+          float t, u, v;
+          if (moller_trumbore(tr, ox, oy, oz, dx, dy, dz, t, u, v) &&
+              t < bt && tr[9] >= 0.0f) {
             bt = t;
-            bi = (int)tri;
+            bi = (int)tr[9];
             bu = u;
             bv = v;
           }
@@ -161,16 +120,7 @@ __global__ void bvh2_kernel(const float* __restrict__ origin,
         if (kAnyHit && bi >= 0) break;
       }
       // pop the next entry that can still hold a closer hit
-      bool found = false;
-      while (sp > 0) {
-        --sp;
-        if (stack_t[sp] <= bt) {
-          ref = stack_ref[sp];
-          found = true;
-          break;
-        }
-      }
-      if (!found) break;
+      if (!pop_entry(stack_ref, stack_t, sp, bt, ref)) break;
     }
   }
   out_i[r] = bi;

@@ -49,38 +49,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr float kDelta = 1e-4f;     // self-hit epsilon (constants.DELTA)
 constexpr float kCapClamp = 1e30f;  // ops/traverse_stream2.py:CAP_CLAMP
 constexpr int kThreads = 128;
 constexpr int kStackSize = 64;      // ops/traverse_stream2.py:STACK_SIZE
 constexpr int kFeatRow = 5;         // float4s per 20-float feature row
-
-__device__ __forceinline__ float safe_inverse(float d) {
-  const float tiny = 1e-30f;
-  const float x = fabsf(d) < tiny ? (d < 0.0f ? -tiny : tiny) : d;
-  return 1.0f / x;
-}
-
-// Slab test of one AABB (b: min(3) max(3)); returns the entry distance, or
-// +inf when the box is missed or lies beyond bt.
-__device__ __forceinline__ float box_entry(const float* __restrict__ b,
-                                           float ox, float oy, float oz,
-                                           float ix, float iy, float iz,
-                                           float bt) {
-  const float t0x = (b[0] - ox) * ix;
-  const float t1x = (b[3] - ox) * ix;
-  const float t0y = (b[1] - oy) * iy;
-  const float t1y = (b[4] - oy) * iy;
-  const float t0z = (b[2] - oz) * iz;
-  const float t1z = (b[5] - oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), 0.0f));
-  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fminf(fmaxf(t0z, t1z), bt));
-  return tmin <= tmax ? tmin : INFINITY;
-}
 
 template <bool kAnyHit>
 __global__ void stream2_kernel(const float* __restrict__ origin,
@@ -176,38 +152,13 @@ __global__ void stream2_kernel(const float* __restrict__ origin,
         if (kAnyHit && bc >= 0) break;
       }
       // pop the next entry that can still hold a better hit
-      bool found = false;
-      while (sp > 0) {
-        --sp;
-        if (stack_t[sp] <= bt) {
-          ref = stack_ref[sp];
-          found = true;
-          break;
-        }
-      }
-      if (!found) break;
+      if (!pop_entry(stack_ref, stack_t, sp, bt, ref)) break;
     }
 
     if (bc >= 0) {
       // exact Möller-Trumbore on the winner (the plain version's _mt order)
-      const float* tr = slot_mt + 9 * (long long)bc;
-      const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-      const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-      const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = e1x * hx + e1y * hy + e1z * hz;
-      const float f = 1.0f / a;
-      const float qsx = ox - v0x;
-      const float qsy = oy - v0y;
-      const float qsz = oz - v0z;
-      ui = f * (qsx * hx + qsy * hy + qsz * hz);
-      const float qx = qsy * e1z - qsz * e1y;
-      const float qy = qsz * e1x - qsx * e1z;
-      const float qz = qsx * e1y - qsy * e1x;
-      vi = f * (dx * qx + dy * qy + dz * qz);
-      ti = f * (e2x * qx + e2y * qy + e2z * qz);
+      moller_trumbore(slot_mt + 9 * (long long)bc, ox, oy, oz, dx, dy, dz, ti,
+                      ui, vi);
       tri = slot_tri[bc];
     }
   }

@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA kernels (``csrc/*.cu``).
 
-At first use ``nvcc`` compiles each source in ``csrc/`` into an object, one
-``nvcc`` per source, all started together, and links the objects into one
+At first use ``nvcc`` compiles each ``.cu`` source in ``csrc/`` (which share
+the device helpers of ``common.cuh``) into an object, one ``nvcc`` per
+source, all started together, and links the objects into one
 shared library with a plain C interface, in ``clive2_tpu_torch/build/``
 (ignored by git), named by a hash of the sources and flags so an edit
 rebuilds it.  ``ctypes`` loads it.  Pointers are ``tensor.data_ptr()`` and
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "clive2_brute": _RAYS + [_P, ctypes.c_int] + _OUTS + [_P],
     "clive2_bvh2": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
     "clive2_stream2": _RAYS + [_P] * 7 + [ctypes.c_int] + _OUTS + [_P],
+    "clive2_wide": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
+    "clive2_stream": _RAYS + [_P] * 6 + [ctypes.c_int] + _OUTS + [_P],
 }
 
 _lib = None
@@ -182,6 +185,16 @@ def ray_args(origin, direction, active=None, t_max=None) -> RayArgs:
     on_device(t_max, dev, "t_max")
     return RayArgs(origin.contiguous(), direction.contiguous(),
                    active.contiguous(), t_max.contiguous())
+
+
+def check_tables(tables, spec, what: str):
+    """Raise unless every table ``(name, dtype, shape past dim 0)`` of
+    ``spec`` has its dtype and shape."""
+    for k, dtype, shape in spec:
+        t = tables[k]
+        if t.dtype != dtype or tuple(t.shape[1:]) != shape:
+            raise ValueError(f"{what} table {k} must be {dtype} of shape "
+                             f"[N, *{shape}], got {tuple(t.shape)} {t.dtype}")
 
 
 def on_device(t, device, name: str):

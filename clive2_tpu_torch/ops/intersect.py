@@ -43,6 +43,31 @@ def ray_box_test(origin, inv_dir, bmin, bmax, t_max):
     return tmin_f <= tmax_f
 
 
+def box_entry(o, inv, box, bt):
+    """Slab test of [..., 6] boxes (min(3) max(3)) for rays o/inv [..., 3]
+    capped at bt [...]: the entry distance, or inf when missed or beyond bt
+    (csrc/common.cuh:box_entry)."""
+    t0 = (box[..., 0:3] - o) * inv
+    t1 = (box[..., 3:6] - o) * inv
+    tmin = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)
+    tmax = torch.minimum(torch.maximum(t0, t1).amin(-1), bt)
+    return torch.where(tmin <= tmax, tmin, INF)
+
+
+def pop_stack(rays, ref, sp, stack_ref, stack_t, bt):
+    """One lockstep pop for ``rays`` of the plain walks: the topmost stack
+    entry whose entry distance is at most the ray's best t becomes its next
+    ``ref``, and the entries above it are dropped, as the kernels' pop loop
+    does.  Returns the bool mask of the rays that found one."""
+    levels = torch.arange(stack_t.shape[1], device=rays.device)
+    ok = (levels < sp[rays, None]) & (stack_t[rays] <= bt[rays, None])
+    j = (ok * (levels + 1)).amax(1) - 1
+    found = j >= 0
+    ref[rays[found]] = stack_ref[rays[found], j[found]].to(ref.dtype)
+    sp[rays] = j.clamp(min=0)
+    return found
+
+
 def _mt(o, d, v0, e1, e2):
     """Möller-Trumbore on component tuples (each entry broadcasts).
     Returns (geometric hit, t, u, v); t is not yet masked."""
@@ -219,30 +244,32 @@ def intersect_scene(origin, direction, scene, active=None, t_max=None,
                     any_hit=False):
     """The dispatch behind every cast, keyed by the scene's tables.
 
-    A ``brute`` table (scenes of at most 256 triangles) goes to the dense
-    brute-force intersector; a ``stream2`` table (large scenes) to the
-    fat-leaf traversal; every other scene to the BVH2 traversal.  BVH
-    scenes then merge the sensor-plane triangles (``camtri``).  Each
-    intersector runs its CUDA kernel on CUDA tensors and its plain version
-    on CPU tensors.  ``any_hit`` lets the traversals stop at the first hit
-    under ``t_max`` (visibility casts whose cap excludes the target); the
-    exhaustive paths return the closest hit, which is a valid answer too.
-    Rays stay in the caller's (raster) order: no kernel's answer depends
-    on it.
+    In the JAX package's order: a ``brute`` table (scenes of at most 256
+    triangles) goes to the dense brute-force intersector; a ``wide`` table
+    to the BVH8 traversal, a ``bvh2`` table to the BVH2 traversal, a
+    ``stream2`` table to the fat-leaf traversal and a ``stream`` table to
+    the streaming traversal; a scene with none of them to the BVH2
+    traversal's CPU path, the gather walk.  BVH scenes then merge the
+    sensor-plane triangles (``camtri``).  Each intersector runs its CUDA
+    kernel on CUDA tensors and its plain version on CPU tensors.
+    ``any_hit`` lets the traversals stop at the first hit under ``t_max``
+    (visibility casts whose cap excludes the target); the exhaustive paths
+    return the closest hit, which is a valid answer too.  Rays stay in the
+    caller's (raster) order: no kernel's answer depends on it.
     """
     if "brute" in scene:
         from .brute import intersect_brute
 
         return intersect_brute(origin, direction, scene["brute"]["tris"],
                                active=active, t_max=t_max)
-    if "stream2" in scene:
-        from .traverse_stream2 import intersect_stream2
-
-        hit = intersect_stream2(origin, direction, scene, active=active,
-                                t_max=t_max, any_hit=any_hit)
+    if "wide" in scene:
+        from .traverse_wide import intersect_wide as traverse
+    elif "bvh2" in scene or not ("stream2" in scene or "stream" in scene):
+        from .traverse_bvh2 import intersect_bvh2 as traverse
+    elif "stream2" in scene:
+        from .traverse_stream2 import intersect_stream2 as traverse
     else:
-        from .traverse_bvh2 import intersect_bvh2
-
-        hit = intersect_bvh2(origin, direction, scene, active=active,
-                             t_max=t_max, any_hit=any_hit)
+        from .traverse_stream import intersect_stream as traverse
+    hit = traverse(origin, direction, scene, active=active, t_max=t_max,
+                   any_hit=any_hit)
     return merge_camtri(origin, direction, scene["camtri"], hit, active)

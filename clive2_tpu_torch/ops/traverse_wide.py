@@ -1,0 +1,290 @@
+"""BVH8 (wide) traversal: the CUDA kernel in csrc/traverse_wide.cu, its
+collapse and packer, and its plain PyTorch version (``wide_plain``).
+
+Replaces the TPU kernel ``clive2_tpu/ops/traverse_wide.py:_kernel``.  The
+binary SAH tree is collapsed into 8-wide nodes (``collapse_bvh8``: the
+inner candidate with the largest surface area is expanded until a node has
+8 children; wide nodes are numbered in DFS preorder).  A ray pops a wide
+node, slab-tests its 8 child boxes against its best t, pushes the hit
+inner children with their entry distances, the nearest last so that it is
+popped first, and tests the 8 triangles of each hit leaf child.  A popped
+entry is skipped when its entry distance exceeds the best t.  The winner is
+the lexicographic minimum of (t, slot), a slot being the triangle's
+position in the gather walk's leaf rows (``leaf * 8 + k``), so no visit
+order decides a tie.  Leaf children point straight into the gather walk's
+``leaf_packed`` rows.
+
+Departures from the TPU kernel, each for a TPU limit the card does not have:
+
+* the [56, 128] lane tile of child boxes with its inner-flag rows: boxes
+  are [W, 8, 6] f32 rows read per node;
+* slot-aligned leaf pages (bin packing, children reordered to page slots,
+  ``lblocks``) and the compact 12-slot layout: a leaf child names its
+  gather-walk leaf row;
+* the ``group_gate``, ``pop2`` and ``bits`` variants, ``MAX_BLOCKS_PER_CALL``
+  launch splitting and the Morton sort of the rays: one thread per ray;
+* the tie rule: the TPU kernel takes the largest triangle id among equal t
+  within a leaf tile and the first tile visited across tiles.
+
+Kept: the collapse, the empty-child box sentinel min = max = +BIG (an
+inverted box would become an always-hit under the min/max slab test; empty
+slots are also skipped by their ``wchild`` value), and the pack-time stack
+bound, computed for this kernel's stack.  Any-hit stops after the first
+wide node whose leaf children leave a hit under the cap.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import itertools
+
+import numpy as np
+import torch
+
+from .intersect import INF, _mt, box_entry, pop_stack, safe_inverse
+from .traverse_stream import PLAIN_CHUNK, check_leaf_rows
+
+WIDE = 8            # children per wide node
+LEAF_SLOTS = 8      # triangles per leaf row of the gather walk
+STACK_SIZE = 96     # csrc/traverse_wide.cu:kStackSize
+BIG = 1e30          # empty-child box: min = max = +BIG
+EMPTY = -(1 << 31)  # wchild of an empty slot (leaves are -(leaf + 1) >= -2^24)
+
+
+def collapse_bvh8(node_packed):
+    """Collapse the binary tree of the gather walk's node rows into 8-wide
+    nodes, as ``clive2_tpu.ops.traverse_wide.collapse_bvh8`` does on the
+    FlatBVH: start from a root's two children, expand the inner child with
+    the largest surface area (the first of equal ones) until 8 children or
+    none is inner; inner children become wide nodes, numbered in DFS
+    preorder.  Inner node b's children are b + 1 and miss[b + 1].
+
+    Returns (wide_children: per wide node its child list of binary node
+    ids, wide_of: binary node -> wide id).
+    """
+    node_packed = np.asarray(node_packed, dtype=np.float32)
+    miss = node_packed[:, 6].astype(np.int64)
+    is_leaf = node_packed[:, 7] >= 0
+    if is_leaf[0]:
+        raise ValueError("BVH8 collapse requires an inner root")
+    ext = node_packed[:, 3:6] - node_packed[:, 0:3]
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 0] * ext[:, 2])
+    right = np.zeros(len(miss), dtype=np.int64)
+    inner = np.nonzero(~is_leaf)[0]
+    right[inner] = miss[inner + 1]
+    leaf_l, area_l, right_l = is_leaf.tolist(), area.tolist(), right.tolist()
+
+    wide_children = []
+    wide_of = {}
+    todo = [0]                       # binary roots of wide nodes, DFS
+    while todo:
+        root = todo.pop()
+        wide_of[root] = len(wide_children)
+        slots = [root + 1, right_l[root]]
+        while len(slots) < WIDE:
+            cand, cand_a = -1, -1.0
+            for k, b in enumerate(slots):
+                if not leaf_l[b] and area_l[b] > cand_a:
+                    cand, cand_a = k, area_l[b]
+            if cand < 0:
+                break
+            b = slots.pop(cand)
+            slots.extend((b + 1, right_l[b]))
+        wide_children.append(slots)
+        for b in reversed(slots):    # reversed: pops come in preorder
+            if not leaf_l[b]:
+                todo.append(b)
+    return wide_children, wide_of
+
+
+def stack_bound(wchild):
+    """The most stack entries a ray can hold: visiting wide node w pushes
+    its hit inner children, and each ancestor a on the way leaves at most
+    inner(a) - 1 entries (its other children) below them."""
+    n_inner = (wchild >= 0).sum(axis=1)
+    below = np.zeros(len(wchild), dtype=np.int64)
+    for w in range(len(wchild)):     # preorder: parents come first
+        kids = wchild[w][wchild[w] >= 0]
+        below[kids] = below[w] + n_inner[w] - 1
+    return int((below + n_inner).max(initial=0))
+
+
+def pack_bvh8(node_packed, leaf_packed):
+    """Kernel tables from the gather walk's packed rows.
+
+    Returns dict(wbox [W, 8, 6] f32: each child's min(3) max(3), +BIG for
+    an empty slot; wchild [W, 8] i32: >= 0 an inner wide node, < 0 leaf
+    row -(leaf + 1), EMPTY for an empty slot).  Wide node 0 is the root.
+    Raises when the root is a leaf, a ray could need more stack than the
+    kernel has, or a triangle id is past what an f32 leaf row holds
+    exactly.
+    """
+    node_packed = np.asarray(node_packed, dtype=np.float32)
+    check_leaf_rows(leaf_packed)
+    wide_children, wide_of = collapse_bvh8(node_packed)
+    n_wide = len(wide_children)
+    counts = [len(s) for s in wide_children]
+    flat = np.fromiter(itertools.chain.from_iterable(wide_children),
+                       dtype=np.int64, count=sum(counts))
+    w_idx = np.repeat(np.arange(n_wide), counts)
+    c_idx = np.concatenate([np.arange(c) for c in counts])
+
+    wide_id = np.full(node_packed.shape[0], -1, dtype=np.int64)
+    wide_id[list(wide_of)] = list(wide_of.values())
+    leaf_id = node_packed[flat, 7].astype(np.int64)
+    wbox = np.full((n_wide, WIDE, 6), BIG, dtype=np.float32)
+    wbox[w_idx, c_idx] = node_packed[flat, 0:6]
+    wchild = np.full((n_wide, WIDE), EMPTY, dtype=np.int64)
+    wchild[w_idx, c_idx] = np.where(leaf_id >= 0, -(leaf_id + 1),
+                                    wide_id[flat])
+    need = stack_bound(wchild)
+    if need > STACK_SIZE:
+        raise ValueError(f"BVH8 traversal may need {need} stack entries, "
+                         f"past the wide kernel's {STACK_SIZE}")
+    return dict(wbox=wbox, wchild=wchild.astype(np.int32))
+
+
+def wide_plain(origin, direction, tables, bvh, active=None, t_max=None,
+               any_hit=False):
+    """Plain PyTorch version of the kernel on ``tables`` (``pack_bvh8``)
+    and the gather walk's rows ``bvh``: the same stack machine (all 8 child
+    boxes against the best t at the visit, hit inner children pushed in
+    child order with the nearest last, then the hit leaf children's
+    Möller-Trumbore in ``_mt``'s order), the same (t, slot) rule and
+    any-hit stop.  Rays advance in lockstep, one wide node per step."""
+    wide_plain.calls += 1
+    dev = origin.device
+    n = origin.shape[0]
+    leaves = bvh["leaf_packed"].reshape(-1, LEAF_SLOTS, 10)
+    wbox, wchild = tables["wbox"], tables["wchild"].long()
+    cc = torch.arange(WIDE, device=dev)
+    kk = torch.arange(LEAF_SLOTS, device=dev)
+
+    act = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
+           else active.bool())
+    bt = (torch.full((n,), INF, device=dev) if t_max is None
+          else t_max.to(torch.float32).clone())
+    bs = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bi = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    bu = torch.zeros(n, device=dev)
+    bv = torch.zeros(n, device=dev)
+    inv = safe_inverse(direction)
+    ref = torch.zeros(n, dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    stack_ref = torch.zeros(n, STACK_SIZE, dtype=torch.int32, device=dev)
+    stack_t = torch.zeros(n, STACK_SIZE, device=dev)
+
+    def visit(ci):
+        r = ref[ci]
+        ch = wchild[r]                                        # [m, 8]
+        o, iv = origin[ci], inv[ci]
+        tc = box_entry(o[:, None, :], iv[:, None, :], wbox[r],
+                       bt[ci, None])
+        tc = torch.where(ch == EMPTY, INF, tc)
+        hitc = tc < INF
+        inner = hitc & (ch >= 0)
+        best = torch.where(inner, tc, INF).argmin(1)          # first minimum
+        has_best = inner.any(1)
+        push = inner & ((cc != best[:, None]) | ~has_best[:, None])
+        rr, c = torch.nonzero(push, as_tuple=True)
+        pos = sp[ci][rr] + push.cumsum(1)[rr, c] - 1
+        stack_ref[ci[rr], pos] = ch[rr, c].int()
+        stack_t[ci[rr], pos] = tc[rr, c]
+        top = sp[ci] + push.sum(1)
+        hb = torch.nonzero(has_best).squeeze(1)
+        stack_ref[ci[hb], top[hb]] = ch[hb, best[hb]].int()
+        stack_t[ci[hb], top[hb]] = tc[hb, best[hb]]
+        sp[ci] = top + has_best
+
+        leafc = hitc & (ch < 0)
+        lr = torch.nonzero(leafc.any(1)).squeeze(1)
+        if not lr.numel():
+            return
+        li = ci[lr]
+        lid = torch.where(leafc[lr], -(ch[lr] + 1), 0)       # [k, 8]
+        rows = leaves[lid]                                    # [k, 8, 8, 10]
+        oc = tuple(x[:, None, None] for x in origin[li].unbind(-1))
+        dc = tuple(x[:, None, None] for x in direction[li].unbind(-1))
+        hit, t, u, v = _mt(oc, dc, rows[..., 0:3].unbind(-1),
+                           rows[..., 3:6].unbind(-1),
+                           rows[..., 6:9].unbind(-1))
+        tri = rows[..., 9]
+        ok = (hit & (tri >= 0) & leafc[lr][:, :, None]).flatten(1)
+        slot = (lid[:, :, None] * LEAF_SLOTS + kk).flatten(1)
+        t = torch.where(ok, t.flatten(1), INF)
+        t_best = t.amin(1)
+        first = (t == t_best[:, None]) & ok
+        s_best = torch.where(first, slot, slot.max() + 1).amin(1)
+        sel = (first & (slot == s_best[:, None])).int().argmax(1, True)
+        cur_t, cur_s = bt[li], bs[li]
+        better = ok.any(1) & ((t_best < cur_t) | (
+            (t_best == cur_t) & (s_best < cur_s)))
+        bt[li] = torch.where(better, t_best, cur_t)
+        bs[li] = torch.where(better, s_best, cur_s)
+        bi[li] = torch.where(better, tri.flatten(1).gather(1, sel)[:, 0].int(),
+                             bi[li])
+        bu[li] = torch.where(better, u.flatten(1).gather(1, sel)[:, 0],
+                             bu[li])
+        bv[li] = torch.where(better, v.flatten(1).gather(1, sel)[:, 0],
+                             bv[li])
+
+    live = torch.nonzero(act).squeeze(1)
+    while live.numel():
+        for k in range(0, live.numel(), PLAIN_CHUNK):
+            visit(live[k:k + PLAIN_CHUNK])
+        done = (bs[live] >= 0) & any_hit
+        pi = live[~done]
+        if pi.numel():
+            done[~done] = ~pop_stack(pi, ref, sp, stack_ref, stack_t, bt)
+        live = live[~done]
+
+    hit = bs >= 0
+    return (torch.where(hit, bi, -1), torch.where(hit, bt, INF),
+            torch.where(hit, bu, 0.0), torch.where(hit, bv, 0.0))
+
+
+wide_plain.calls = 0
+
+
+# the kernel's tables in argument order: (name, dtype, shape past dim 0)
+_KERNEL_TABLES = (("wbox", torch.float32, (WIDE, 6)),
+                  ("wchild", torch.int32, (WIDE,)))
+_BVH_TABLES = (("leaf_packed", torch.float32, (LEAF_SLOTS * 10,)),)
+
+
+def intersect_wide(origin, direction, scene, active=None, t_max=None,
+                   any_hit=False):
+    """Closest hit (or, with ``any_hit``, a hit under ``t_max``) of the
+    scene's BVH triangles through its ``wide`` tables and the gather walk's
+    leaf rows; the sensor plane is not in the tree.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    raise if the scene has no ``wide`` tables or the kernel cannot launch).
+    """
+    if "wide" not in scene:
+        raise ValueError("scene has no wide tables: build it with "
+                         "CLIVE2_TRAVERSAL=wide or traversal='wide'")
+    tables, bvh = scene["wide"], scene["bvh"]
+    if origin.device.type == "cpu":
+        return wide_plain(origin, direction, tables, bvh, active=active,
+                          t_max=t_max, any_hit=any_hit)
+    from .. import kernels
+
+    kernels.check_tables(tables, _KERNEL_TABLES, "wide")
+    kernels.check_tables(bvh, _BVH_TABLES, "bvh")
+    rays = kernels.ray_args(origin, direction, active, t_max)
+    args = ([kernels.on_device(tables[k].contiguous(), origin.device, k)
+             for k, _, _ in _KERNEL_TABLES]
+            + [kernels.on_device(bvh[k].contiguous(), origin.device, k)
+               for k, _, _ in _BVH_TABLES])
+    out = kernels.hit_outputs(origin)
+    if rays.n:
+        kernels.call("clive2_wide", origin.device, *rays.pointers(),
+                     *map(kernels.ptr, args), ctypes.c_int(int(any_hit)),
+                     *map(kernels.ptr, out))
+        intersect_wide.launches += 1
+    return out
+
+
+intersect_wide.launches = 0

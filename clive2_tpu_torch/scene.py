@@ -10,10 +10,13 @@ depends on its size and on that device:
   CUDA: the brute kernel);
 * otherwise the gather walk's tables (``bvh``), the sensor-plane
   triangles (``camtri``) and one traversal's tables (``traversal_tables``):
-  scenes of at least ``STREAM2_MIN_TRIS`` world triangles get the
-  fat-leaf traversal's ``stream2`` (on the CPU its plain version, on CUDA
-  its kernel); smaller ones get, on CUDA, the BVH2 kernel's ``bvh2`` (on
-  the CPU they take the gather walk).
+  by default scenes of at least ``STREAM2_MIN_TRIS`` world triangles get
+  the fat-leaf traversal's ``stream2`` (on the CPU its plain version, on
+  CUDA its kernel); smaller ones get, on CUDA, the BVH2 kernel's ``bvh2``
+  (on the CPU they take the gather walk).  ``CLIVE2_TRAVERSAL`` and
+  ``CLIVE2_STREAM_IMPL`` select the others as the JAX package does
+  (``selected_traversal``): the BVH8 kernel's ``wide`` and the streaming
+  kernel's ``stream``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from .ops.brute import MAX_TRIS as BRUTE_FORCE_MAX_TRIS
 from .ops.brute import pack_brute
 from .ops.intersect import pack_gather_walk
 from .ops.traverse_bvh2 import pack_bvh2
+from .ops.traverse_stream import pack_stream
 from .ops.traverse_stream2 import pack_stream2
+from .ops.traverse_wide import pack_bvh8
 
 RESOURCE_DIR = os.environ.get(
     "CLIVE2_RESOURCES",
@@ -46,6 +51,11 @@ RESOURCE_DIR = os.environ.get(
 # world triangle count from which a scene takes the fat-leaf traversal: the
 # JAX package's packet-kernel ceiling (clive2_tpu/scene.py:37-39)
 STREAM2_MIN_TRIS = 100_000
+
+# CLIVE2_TRAVERSAL's values ("" = unset) and each traversal table's packer
+TRAVERSALS = ("", "wide", "pallas2", "stream")
+PACKERS = dict(wide=pack_bvh8, bvh2=pack_bvh2, stream=pack_stream,
+               stream2=pack_stream2)
 
 
 @dataclasses.dataclass
@@ -81,13 +91,48 @@ def camtri_arrays(cam_soup, ids):
                 ids=np.asarray(ids, dtype=np.int32))
 
 
-def traversal_tables(bvh_rows, n_world: int, cuda: bool):
+def selected_traversal(n_world: int, cuda: bool) -> Optional[str]:
+    """The traversal table a BVH scene with ``n_world`` triangles in its
+    tree takes, by the JAX package's selectors (clive2_tpu/scene.py:263-372):
+
+    * ``CLIVE2_TRAVERSAL=wide``: ``wide`` at any size;
+    * ``CLIVE2_TRAVERSAL=pallas2``: ``bvh2`` at any size on CUDA (the CPU
+      takes the gather walk: None);
+    * ``CLIVE2_TRAVERSAL=stream``: a streaming table at any size the cut
+      accepts;
+    * unset: a streaming table from ``STREAM2_MIN_TRIS`` world triangles,
+      else ``bvh2`` on CUDA and the gather walk on the CPU.
+
+    A streaming table is ``stream`` under ``CLIVE2_STREAM_IMPL=1``, else
+    ``stream2``.  Unlike the JAX package, ``CLIVE2_STREAM_IMPL=1`` needs no
+    ``CLIVE2_STREAM1_FORCE`` (that fence guards a TPU fault), and an
+    unknown ``CLIVE2_TRAVERSAL`` raises instead of taking the streaming
+    path.
+    """
+    force = os.environ.get("CLIVE2_TRAVERSAL", "")
+    if force not in TRAVERSALS:
+        raise ValueError(f"CLIVE2_TRAVERSAL={force!r}: expected one of "
+                         f"{', '.join(t for t in TRAVERSALS if t)} or unset")
+    if force == "wide":
+        return "wide"
+    if force == "stream" or (not force and n_world >= STREAM2_MIN_TRIS):
+        impl = os.environ.get("CLIVE2_STREAM_IMPL") or "2"
+        return "stream" if impl == "1" else "stream2"
+    return "bvh2" if cuda else None
+
+
+def traversal_tables(bvh_rows, n_world: int, cuda: bool,
+                     traversal: Optional[str] = None):
     """The traversal tables of a BVH scene with ``n_world`` triangles in
-    its tree, from the gather walk's rows ``bvh_rows``."""
-    rows = (bvh_rows["node_packed"], bvh_rows["leaf_packed"])
-    if n_world >= STREAM2_MIN_TRIS:
-        return dict(stream2=pack_stream2(*rows))
-    return dict(bvh2=pack_bvh2(*rows)) if cuda else {}
+    its tree, packed from the gather walk's rows ``bvh_rows``: those of
+    ``traversal`` (``wide``, ``bvh2``, ``stream`` or ``stream2``) when it
+    is given, else of ``selected_traversal``."""
+    traversal = traversal or selected_traversal(n_world, cuda)
+    if traversal is None:
+        return {}
+    rows = (np.asarray(bvh_rows["node_packed"]),
+            np.asarray(bvh_rows["leaf_packed"]))
+    return {traversal: PACKERS[traversal](*rows)}
 
 
 def _build_scene_arrays(soup: TriangleSoup, materials: MaterialTable,

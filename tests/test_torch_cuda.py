@@ -5,9 +5,10 @@ suite's conftest:
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Each kernel must match its plain PyTorch version on every ray (ids; t, u, v
-to 1e-6; built with --fmad=false both round alike; the fat-leaf kernel's
-any-hit ids too, since both stop after the same fat leaf), and a small
-render on the card must match the same render on the CPU.
+to 1e-6; built with --fmad=false both round alike; the fat-leaf, streaming
+and wide kernels' any-hit ids too, since each stops where its plain version
+does), and a small render on the card must match the same render on the
+CPU.
 """
 
 import numpy as np
@@ -18,7 +19,8 @@ import clive2_tpu_torch as ct
 from clive2_tpu_torch.bvh.build import build_bvh, leaf_tables
 from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
-from clive2_tpu_torch.ops import traverse_stream2
+from clive2_tpu_torch.ops import traverse_stream, traverse_stream2
+from clive2_tpu_torch.ops import traverse_wide
 
 pytestmark = pytest.mark.cuda
 
@@ -107,6 +109,59 @@ def test_stream2_kernel_matches_plain(dev, any_hit):
                                           any_hit=any_hit)
     _assert_same(got, want)
     assert (got[0] >= 0).sum() > 1000
+
+
+def _scene_tables(dev, seed, traversal, pack):
+    soup = _soup(seed, 5000)
+    bvh = build_bvh(soup)
+    rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    return dict(
+        bvh={k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
+        **{traversal: {
+            k: torch.from_numpy(v).to(dev) for k, v in
+            pack(rows["node_packed"], rows["leaf_packed"]).items()}})
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", ["wide", "stream"])
+def test_wide_and_stream_kernels_match_plain(dev, name, any_hit):
+    module, wrapper, plain, pack = {
+        "wide": (traverse_wide, "intersect_wide", "wide_plain",
+                 traverse_wide.pack_bvh8),
+        "stream": (traverse_stream, "intersect_stream", "stream_plain",
+                   traverse_stream.pack_stream)}[name]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    scene = _scene_tables(dev, 4, name, pack)
+    o, d, active, t_max = _rays(gen, 50_000, dev)
+    kernel = getattr(module, wrapper)
+    before = kernel.launches
+    got = kernel(o, d, scene, active=active, t_max=t_max, any_hit=any_hit)
+    assert kernel.launches == before + 1
+    want = getattr(module, plain)(o, d, scene[name], scene["bvh"],
+                                  active=active, t_max=t_max, any_hit=any_hit)
+    _assert_same(got, want)
+    assert (got[0] >= 0).sum() > 1000
+    if not any_hit:
+        _assert_same(got, intersect.intersect_bvh_packed(
+            o, d, scene["bvh"], active=active, t_max=t_max))
+
+
+@pytest.mark.parametrize("name", ["wide", "stream"])
+def test_wide_and_stream_wrappers_raise(dev, name):
+    """CUDA rays never fall back: a scene without the kernel's tables, or
+    with its tables on the CPU, raises."""
+    module, wrapper, pack = {
+        "wide": (traverse_wide, "intersect_wide", traverse_wide.pack_bvh8),
+        "stream": (traverse_stream, "intersect_stream",
+                   traverse_stream.pack_stream)}[name]
+    kernel = getattr(module, wrapper)
+    scene = _scene_tables(dev, 5, name, pack)
+    o, d, _, _ = _rays(torch.Generator(device=dev).manual_seed(5), 64, dev)
+    with pytest.raises(ValueError, match=f"no {name} tables"):
+        kernel(o, d, dict(bvh=scene["bvh"]))
+    on_cpu = {k: v.cpu() for k, v in scene[name].items()}
+    with pytest.raises(ValueError, match="is on cpu"):
+        kernel(o, d, dict(scene, **{name: on_cpu}))
 
 
 def test_render_on_the_card_matches_the_cpu(dev):
