@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from clive2_tpu_torch/csrc, holds each
+Builds the port's CUDA kernels from clive2_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (on synthetic ray sets, then
 on the casts the main path itself gives the kernel, recorded from one
-sample of each configuration), times both on those casts (and, on the BVH
-scenes' casts, the other kernels that can carry the scene as an A/B),
+sample of each configuration; the queued fat-leaf traversal also kernel by
+kernel on one round of the first chunk of each of its casts), times both on those casts (and,
+on the BVH scenes' casts, the other kernels that can carry the scene as an
+A/B: on the fat-leaf casts also the per-thread fat-leaf kernel, the
+FP32-only leaf test and other tail sizes),
 renders the main-path configurations through ``create_scene_from_preset``
 -> ``Renderer.run_sample()`` with launch counters proving which kernel
 carried every cast, 2 samples each: Cornell ``empty`` at 1920x1080 and
 ``teapots`` at 512x512 (brute and BVH2 kernels); ``medium-dragon`` at
-512x512 and ``sponza`` at 1920x1080 (fat-leaf kernel), each followed by the
-same render on BVH2 tables as an A/B; and the JAX package's two A/B
+512x512 and ``sponza`` at 1920x1080 (the queued fat-leaf traversal, and
+on the medium dragon's small extension casts the per-thread fat-leaf
+kernel), each followed by the same render on BVH2 tables as an A/B; and the
+JAX package's two A/B
 traversal paths: ``dragon`` at 512x512 under ``CLIVE2_TRAVERSAL=wide``
 (BVH8 kernel), ``medium-dragon`` at 512x512 under ``CLIVE2_STREAM_IMPL=1``
 and ``sponza`` at 1920x1080 on the same tables (streaming kernel).  Then it
@@ -20,7 +25,13 @@ compares a small render on the card with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
 phase prints one JSON line; any failure exits non-zero without the final
-line.  The last line is
+line.  Before the last line it prints the ``kernels`` line (each kernel's
+launches on the main path, error, time, plain time, the time of the one
+PyTorch call that computes the same function where there is one, and the
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s of FP32, counted from the work the plain walks
+did) and the
+card's name and power limit.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports no JAX.
 """
@@ -35,8 +46,39 @@ import sys
 import time
 
 
+# the bound's rates (H100 SXM, 700 W) and operations per unit of work the
+# plain walks count (ops/intersect.py:WORK), from the kernels' sources: a
+# slab test of one AABB (common.cuh:box_entry: 6 subtractions, 6
+# multiplications, 12 min/max, 1 compare), a Möller-Trumbore test
+# (common.cuh:moller_trumbore) and a bilinear slot test
+# (stream2.cuh:slot_test)
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS_S = 67e12
+OPS = dict(boxes=25, triangles=50, slots=40)
+
+
 def emit(**kv):
     print(json.dumps(kv), flush=True)
+
+
+def work_ops(work, scale=1):
+    """Operations of the work a plain walk counted, times ``scale``."""
+    return scale * sum(OPS[k] * v for k, v in work.items())
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: (ms, what binds)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_FLOPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cast_bytes(c, tables):
+    """Bytes a cast must move: each ray's origin, direction, active flag
+    and cap read once, its id, t, u, v written once, the tables read once."""
+    n = c["origin"].shape[0]
+    return n * (12 + 12 + 1 + 4 + 16) + sum(
+        t.numel() * t.element_size() for t in tables.values())
 
 
 def cuda_time(fn, iters: int):
@@ -211,6 +253,301 @@ def compare_hits(got, want, label, closest=True):
     return 0.0
 
 
+def event_ms(fn, states, make):
+    """Mean milliseconds of ``fn(state)`` over fresh states from
+    ``make()`` (one per call; each call changes its state), timed with CUDA
+    events around the call alone; returns (ms, the last state)."""
+    import torch
+
+    total = 0.0
+    for _ in range(states):
+        st = make()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(st)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / states, st
+
+
+def same_state(a, b, label):
+    """The walk's state fields equal, and the stacks below each ray's
+    depth."""
+    import torch
+
+    for name in ("ray", "bt", "bc", "ref", "sp", "leaf"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            bad = int((getattr(a, name) != getattr(b, name)).sum())
+            raise AssertionError(f"{label}: {name} differs on {bad} rays")
+    level = torch.arange(a.stack_t.shape[0], device=a.sp.device)[:, None]
+    used = level < a.sp[None, :]
+    if not (torch.equal(a.stack_ref[used], b.stack_ref[used])
+            and torch.equal(a.stack_t[used], b.stack_t[used])):
+        raise AssertionError(f"{label}: the stacks differ")
+
+
+def queue_sorted(st):
+    """The queued rays, each fat leaf's sorted (the scatter kernel's order
+    within a fat leaf is arbitrary)."""
+    import torch
+
+    from clive2_tpu_torch.ops import traverse_stream2 as s2
+
+    pos, f = s2.queue_positions(st)
+    return torch.sort(f * (st.n + 1) + st.queue[pos].long()).values
+
+
+def stream2_parts(c, tables, label, states=3):
+    """One round of the queued fat-leaf traversal on cast ``c`` (at most
+    one chunk of rays), kernel by kernel against its plain step on the same
+    state: the first walk, the count, plan and scatter kernels of the
+    binning, both leaf-test instances, the second walk, and the tail.  Each
+    kernel is timed over ``states`` fresh copies of its input state, its
+    plain step once.  Returns {part: dict(ms, plain_ms, bytes, ops, ...)} and the
+    prefilter's figures."""
+    import torch
+
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.ops import traverse_stream2 as s2
+    from clive2_tpu_torch.ops.intersect import WORK
+
+    r = kernels.ray_args(c["origin"], c["direction"], c["active"],
+                         c["t_max"])
+    rays = (r.origin, r.direction, r.active, r.t_max)
+    n, any_hit = r.n, c["any_hit"]
+    if n > s2.CHUNK:
+        raise ValueError("one round of one chunk: pass at most CHUNK rays")
+    steps = s2.PlainSteps(tables, any_hit)
+    n_fat = tables["fat_start"].numel() - 1
+    parts = {}
+
+    def run(name, kernel, plain, before, nbytes, compare):
+        """Time kernel and plain on copies of ``before``; compare; keep
+        the figures.  Returns the kernel's state."""
+        ms, got = event_ms(kernel, states, before.clone)
+        want = before.clone()
+        WORK.clear()
+        plain_ms, _ = event_ms(lambda st: plain(st), 1, lambda: want)
+        # the comparisons raise on a difference; the tail's returns its
+        # max |t| error, the others compare exactly
+        e = compare(got, want) or 0.0
+        parts[name] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                           ops=work_ops(WORK), max_abs_err=e)
+        return got
+
+    empty = steps.state(n)
+    walked = run("walk", lambda st: s2.walk_to_leaf(st, tables, any_hit, rays),
+                 lambda st: s2.walk_to_leaf_plain(st, tables, any_hit, rays),
+                 empty, n * (29 + 64 + 20),
+                 lambda a, b: same_state(a, b, f"{label} walk"))
+    live = int((walked.leaf >= 0).sum())
+
+    # the binning: the count, plan and scatter kernels
+    def count_plain(st):
+        f = st.leaf[st.leaf >= 0].long()
+        st.hist.copy_(torch.bincount(f, minlength=n_fat))
+
+    def same(*names):
+        def check(a, b):
+            for name in names:
+                if not torch.equal(getattr(a, name), getattr(b, name)):
+                    raise AssertionError(f"{label}: {name} differs")
+        return check
+
+    counted = run("count", s2.count_by_leaf, count_plain, walked,
+                  4 * (n + n_fat), same("hist"))
+    parts["count"]["ops"] = live
+    # the one PyTorch call that computes the same histogram: bincount of
+    # the fat-leaf ids shifted by one, so that -1 (no fat leaf) falls into
+    # bin 0 (the shift is made before the timing)
+    shifted = walked.leaf + 1
+    lib_ms, lib = cuda_time(
+        lambda: torch.bincount(shifted, minlength=n_fat + 1), 5)
+    if not torch.equal(lib[1:].int(), counted.hist):
+        raise AssertionError(f"{label}: bincount differs from the count")
+    parts["count"]["library_ms"] = lib_ms
+    del shifted, lib
+    planned = run("plan", s2.plan_tiles, s2.plan_tiles_plain, counted,
+                  16 * n_fat, same("offs", "cursor", "info"))
+    parts["plan"]["ops"] = 2 * n_fat
+
+    def scatter_cmp(a, b):
+        if not (torch.equal(a.cursor, b.offs + b.hist)
+                and torch.equal(queue_sorted(a), queue_sorted(b))):
+            raise AssertionError(f"{label}: scatter differs")
+
+    binned = run("scatter", s2.scatter_by_leaf, s2.bin_by_leaf_plain,
+                 planned, 4 * (n + 2 * n_fat + live), scatter_cmp)
+    parts["scatter"]["ops"] = live
+    tiles = int(binned.info[1])
+
+    # the leaf test: both instances against the plain step, on the same
+    # (kernel-binned) queue
+    keep = torch.zeros(binned.max_tiles * 128, 4, dtype=torch.int32,
+                       device=r.origin.device)
+
+    def same_best(a, b, what):
+        if not (torch.equal(a.bt, b.bt) and torch.equal(a.bc, b.bc)):
+            raise AssertionError(f"{label}: {what} leaf test differs")
+
+    pos, f_all = s2.queue_positions(binned)
+    touched = torch.unique(f_all)
+    fs = tables["fat_start"].long()
+    leaf_bytes = (pos.numel() * (4 + 64 + 8 + 8)
+                  + 80 * int((fs[touched + 1] - fs[touched]).sum()))
+    tested = run("leaf_tf32",
+                 lambda st: s2.leaf_test(st, tables, "tf32", keep),
+                 lambda st: s2.leaf_test_plain(st, tables), binned,
+                 leaf_bytes, lambda a, b: same_best(a, b, "tf32"))
+    run("leaf_fp32", lambda st: s2.leaf_test(st, tables, "fp32"),
+        lambda st: s2.leaf_test_plain(st, tables), binned,
+        leaf_bytes, lambda a, b: same_best(a, b, "fp32"))
+
+    # the prefilter: its survivors against the plain filter's, and every
+    # pair the exact test accepts under the tile's starting best t kept
+    width = s2._width(tables)
+    col = torch.arange(width, device=pos.device)
+    count = dict(pairs=0, kept=0, exact=0, missed=0, agree=0)
+    for k in range(0, pos.numel(), 1 << 16):
+        e = pos[k:k + (1 << 16)]
+        rr = binned.queue[e].long()
+        f = f_all[k:k + (1 << 16)]
+        kept = ((keep[e][:, col // 32] >> (col % 32)) & 1).bool()
+        row, bt = binned.ray[rr], binned.bt[rr]
+        plain_keep = s2.tf32_filter_plain(tables, f, row, bt, width)
+        ok, t, _ = s2.slot_pass(tables, f, row[:, 3:6].unbind(-1),
+                                row[:, 9:12].unbind(-1),
+                                row[:, 12:15].unbind(-1), width)
+        need = ok & (t <= bt[:, None])
+        valid = col < (fs[f + 1] - fs[f])[:, None]
+        count["pairs"] += int(valid.sum())
+        count["kept"] += int(kept.sum())
+        count["exact"] += int(need.sum())
+        count["missed"] += int((need & ~kept).sum()
+                               + (need & ~plain_keep).sum())
+        count["agree"] += int(((kept == plain_keep) & valid).sum())
+    if count["missed"]:
+        raise AssertionError(f"{label}: the prefilter rejected pairs the "
+                             f"exact test accepts: {count}")
+    filt = dict(pairs=count["pairs"],
+                pass_share=count["kept"] / count["pairs"],
+                exact_share=count["exact"] / count["pairs"],
+                agreement_with_plain=count["agree"] / count["pairs"])
+    if filt["agreement_with_plain"] < 0.999:
+        raise AssertionError(f"{label}: the prefilter disagrees with its "
+                             f"plain version: {filt}")
+    del keep
+
+    rewalked = run("walk2", lambda st: s2.walk_to_leaf(st, tables, any_hit),
+                   lambda st: s2.walk_to_leaf_plain(st, tables, any_hit),
+                   tested, n * (64 + 20 + 16),
+                   lambda a, b: same_state(a, b, f"{label} second walk"))
+
+    outs = {}
+
+    def tail_kernel(st):
+        outs["kernel"] = kernels.hit_outputs(r.origin)
+        s2.stream2_tail(st, tables, any_hit, outs["kernel"])
+
+    def tail_plain(st):
+        outs["plain"] = kernels.hit_outputs(r.origin)
+        steps.tail(st, outs["plain"])
+
+    run("tail", tail_kernel, tail_plain, rewalked, n * (64 + 20 + 16),
+        lambda a, b: compare_hits(outs["kernel"], outs["plain"],
+                                  f"{label} tail"))
+    WORK.clear()
+    return parts, dict(filt, live_after_walk=live, tiles=tiles)
+
+
+def stream2_variant(c, data, instance=None, tail_min=None, steps=None,
+                    per_thread=False):
+    """Cast ``c`` through the queued fat-leaf traversal with a leaf-test
+    instance, tail size or steps class of its own (the A/Bs), or through
+    the per-thread kernel whole.  Returns (outputs, dict(rounds, tail_rays)
+    or None)."""
+    from clive2_tpu_torch.ops import traverse_stream2 as s2
+
+    rays, tables, out = s2.kernel_args(c["origin"], c["direction"], data,
+                                       c["active"], c["t_max"])
+    if per_thread:
+        s2.stream2_thread(rays, tables, c["any_hit"], out)
+        return out, None
+    stats = s2.queued_cast(
+        (rays.origin, rays.direction, rays.active, rays.t_max),
+        (steps or s2.KernelSteps)(tables, c["any_hit"],
+                                  instance or s2.LEAF_TEST), out,
+        tail_min=s2.TAIL_MIN if tail_min is None else tail_min)
+    return out, dict(zip(("rounds", "tail_rays"), stats))
+
+
+def stream2_breakdown(c, data):
+    """Where one queued fat-leaf cast's time goes: CUDA events around each
+    step (walk; the binning's count, plan and scatter kernels; leaf test;
+    tail, which runs on a side stream beside the next chunk's rounds),
+    summed by step and by round over the chunks, beside the host clock
+    around the whole cast."""
+    import torch
+
+    from clive2_tpu_torch.ops import traverse_stream2 as s2
+
+    events, rounds = [], [0]
+
+    def timed(name, fn, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args)
+        b.record()
+        events.append((name, rounds[0], a, b))
+        return out
+
+    class Timed(s2.KernelSteps):
+        def walk(self, st, rays=None):
+            rounds[0] = 0 if rays is not None else rounds[0] + 1
+            timed("walk", super().walk, st, rays)
+
+        def bin(self, st):
+            timed("count", s2.count_by_leaf, st)
+            timed("plan", s2.plan_tiles, st)
+            timed("scatter", s2.scatter_by_leaf, st)
+            return self.read_info(st)
+
+        def leaf_test(self, st):
+            timed("leaf_test", super().leaf_test, st)
+
+        def tail(self, st, out):
+            # on the side stream the tail runs on, after what it waits for
+            side = self.side_stream(st.ray.device)
+            side.wait_stream(torch.cuda.current_stream(st.ray.device))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(side)
+            super().tail(st, out)
+            b.record(side)
+            events.append(("tail_on_side_stream", rounds[0], a, b))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, stats = stream2_variant(c, data, steps=Timed)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    ms, calls, by_round = {}, {}, {}
+    for name, r, a, b in events:
+        t = a.elapsed_time(b)
+        ms[name] = ms.get(name, 0.0) + t
+        calls[name] = calls.get(name, 0) + 1
+        if name != "tail_on_side_stream":
+            by_round[r] = by_round.get(r, 0.0) + t
+    return dict(wall_ms=wall, steps_ms=ms, calls=calls,
+                main_stream_ms_by_round=by_round,
+                main_stream_idle_ms=wall - sum(by_round.values()),
+                **stats)
+
+
 def main() -> int:
     import torch
 
@@ -234,6 +571,7 @@ def main() -> int:
     from clive2_tpu_torch.ops import (brute, intersect, traverse_bvh2,
                                       traverse_stream, traverse_stream2,
                                       traverse_wide)
+    from clive2_tpu_torch.ops.intersect import WORK
     from clive2_tpu_torch.scene import PACKERS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -258,7 +596,13 @@ def main() -> int:
     wrappers = dict(brute=brute.intersect_brute, **{
         name: getattr(module, f"intersect_{name}")
         for name, module in modules.items()})
-    err = dict.fromkeys(wrappers, 0.0)
+    # the errors by kernel; a fat-leaf cast under QUEUE_MIN rays takes the
+    # per-thread kernel (stream2_thread), a larger one the queued kernels
+    err = dict.fromkeys([*wrappers, "stream2_thread"], 0.0)
+
+    def err_key(name, c):
+        small = c["origin"].shape[0] < traverse_stream2.QUEUE_MIN
+        return "stream2_thread" if name == "stream2" and small else name
 
     # ---- 3. brute kernel vs plain ----------------------------------------
     cornell = ct.create_scene_from_preset("empty", 1920, 1080, device=dev)
@@ -409,13 +753,14 @@ def main() -> int:
                 want = plains[name](c, scene.data)
                 e = compare_hits(got, want, f"{name} {rname} {variant}",
                                  closest=not any_hit)
-                err[name] = max(err[name], e)
+                err[err_key(name, c)] = max(err[err_key(name, c)], e)
                 any_ids_equal &= bool(torch.equal(got[0], want[0]))
                 hits[f"{rname} {variant}"] = int((want[0] >= 0).sum())
                 checks += 1
         torch.cuda.synchronize()
         emit(phase=f"kernel_{name}_vs_plain", scene_tris=scene.n_triangles,
-             checks=checks, hits=hits, max_abs_err_t=err[name],
+             checks=checks, hits=hits,
+             max_abs_err_t=err[err_key(name, c)],
              ids_equal=True, any_hit_verdicts_equal=True,
              any_hit_ids_equal=any_ids_equal)
         del sets, cam, got, want
@@ -436,12 +781,14 @@ def main() -> int:
             c["origin"], c["direction"], teapots.data["bvh"],
             active=c["active"], t_max=c["t_max"])
 
-    timing = {}
-    for name, scene, w, h, module, wrapper, kernel_fn, plain_fn in (
+    timing, bounds, compared = {}, {}, {}
+    for name, scene, w, h, module, wrapper, kernel_fn, plain_fn, tables in (
             ("brute", cornell, 1920, 1080, brute, "intersect_brute",
-             brute_cast(brute.intersect_brute), brute_cast(brute.brute_plain)),
+             brute_cast(brute.intersect_brute), brute_cast(brute.brute_plain),
+             cornell.data["brute"]),
             ("bvh2", teapots, 512, 512, traverse_bvh2, "intersect_bvh2",
-             lambda c: launch("bvh2", c, teapots.data), bvh2_plain)):
+             lambda c: launch("bvh2", c, teapots.data), bvh2_plain,
+             teapots.data["bvh2"])):
         casts = record_casts(module, wrapper, ct.Renderer(scene, seed=1,
                                                           device=dev))
         n = w * h
@@ -451,16 +798,22 @@ def main() -> int:
                                  f"expected {sorted(shapes)}")
         for rays, c in sorted(casts.items()):
             ms, got = cuda_time(lambda: kernel_fn(c), 5)
+            WORK.clear()
             plain_ms, want = cuda_time(lambda: plain_fn(c), 1)
             label = f"{name} {shapes[rays]} cast"
             e = compare_hits(got, want, label, closest=not c["any_hit"])
             err[name] = max(err[name], e)
             timing[name, shapes[rays]] = (ms, plain_ms)
+            compared[name, shapes[rays]] = rays
+            bounds[name, shapes[rays]] = bound(cast_bytes(c, tables),
+                                               work_ops(WORK))
             emit(phase="main_path_cast", kernel=name, cast=shapes[rays],
                  rays=rays, any_hit=c["any_hit"],
                  active=rays if c["active"] is None else int(c["active"].sum()),
                  capped=c["t_max"] is not None, ms=ms, plain_ms=plain_ms,
                  mrays_s=rays / ms / 1e3, plain_mrays_s=rays / plain_ms / 1e3,
+                 bound_ms=bounds[name, shapes[rays]][0],
+                 bound_by=bounds[name, shapes[rays]][1], work=dict(WORK),
                  max_abs_err_t=e, matches_plain=True)
             del got, want
         del casts, c
@@ -488,11 +841,13 @@ def main() -> int:
     ab_scenes = {"medium_dragon": with_traversal(dragon, "bvh2"),
                  "sponza": with_traversal(sponza, "bvh2"),
                  "dragon": with_traversal(dragon_w, "bvh2")}
+    s2 = traverse_stream2
+    parts_of = {}
     for name, sname, scene, w, h, ab in (
             ("stream2", "medium_dragon", dragon, 512, 512,
-             dict(bvh2=ab_scenes["medium_dragon"])),
+             dict(bvh2=ab_scenes["medium_dragon"], stream=dragon_s1)),
             ("stream2", "sponza", sponza, 1920, 1080,
-             dict(bvh2=ab_scenes["sponza"])),
+             dict(bvh2=ab_scenes["sponza"], stream=sponza_s1)),
             ("wide", "dragon", dragon_w, 512, 512,
              dict(bvh2=ab_scenes["dragon"])),
             ("stream", "medium_dragon", dragon_s1, 512, 512,
@@ -508,25 +863,84 @@ def main() -> int:
                                  f"rays, expected {sorted(shapes)}")
         for rays, c in sorted(casts.items()):
             ms, got = cuda_time(lambda: launch(name, c, scene.data), 5)
+            last = s2.intersect_stream2.last if name == "stream2" else None
             stride = -(-rays // (1 << 20))
             part = strided(c, stride)
+            WORK.clear()
             plain_ms, want = cuda_time(lambda: plains[name](part, scene.data),
                                        1)
             got_part = tuple(x[::stride] for x in got)
             m = part["origin"].shape[0]
             label = f"{name} {sname} {shapes[rays]} cast"
             e = compare_hits(got_part, want, label, closest=not c["any_hit"])
-            err[name] = max(err[name], e)
+            err[err_key(name, c)] = max(err[err_key(name, c)], e)
+            work = dict(WORK)
             timing[name, sname, shapes[rays]] = (ms, plain_ms)
+            compared[name, sname, shapes[rays]] = m
+            bounds[name, sname, shapes[rays]] = bound(
+                cast_bytes(c, scene.data[name]), work_ops(work, stride))
+
+            def same_as(out):
+                return ((out[0] >= 0) == (got[0] >= 0) if c["any_hit"]
+                        else out[0] == got[0])
+
             abs_ = {}
             for ab_name, ab_scene in ab.items():
                 ab_ms, ab_out = cuda_time(
                     lambda: launch(ab_name, c, ab_scene.data), 5)
-                same = ((ab_out[0] >= 0) == (got[0] >= 0) if c["any_hit"]
-                        else ab_out[0] == got[0])
-                abs_[ab_name] = dict(ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
-                                     agreement=float(same.float().mean()))
-                del ab_out, same
+                abs_[ab_name] = dict(
+                    ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
+                    agreement=float(same_as(ab_out).float().mean()))
+                del ab_out
+            if name == "stream2":
+                # the per-thread kernel, the other leaf-test instance, and
+                # other tail sizes, on the same cast: all equal the
+                # default's ids
+                other = "tf32" if s2.LEAF_TEST == "fp32" else "fp32"
+                for key, kw in (("per_thread", dict(per_thread=True)),
+                                (f"{other}_leaf_test", dict(instance=other)),
+                                *((f"tail_min_{t}", dict(tail_min=t))
+                                  for t in (0, 1 << 12, 1 << 14, 1 << 18))):
+                    v_ms, (v_out, stats) = cuda_time(
+                        lambda: stream2_variant(c, scene.data, **kw), 5)
+                    ids = float((v_out[0] == got[0]).float().mean())
+                    if ids != 1.0:
+                        raise AssertionError(f"{label}: {key} ids agree on "
+                                             f"{ids} of the rays")
+                    if key == "per_thread":
+                        # the per-thread kernel's own error against the
+                        # plain walk: t on every compared hit with the same
+                        # id, on any-hit casts too
+                        v_part = tuple(x[::stride] for x in v_out)
+                        compare_hits(v_part, want, f"{label} per-thread",
+                                     closest=not c["any_hit"])
+                        hit = (want[0] >= 0) & (v_part[0] == want[0])
+                        e_t = float((v_part[1][hit] - want[1][hit]).abs()
+                                    .max()) if hit.any() else 0.0
+                        err["stream2_thread"] = max(err["stream2_thread"],
+                                                    e_t)
+                        del v_part
+                    timing[name, sname, f"{shapes[rays]} {key}"] = v_ms
+                    abs_[key] = dict(ms=v_ms, mrays_s=rays / v_ms / 1e3,
+                                     ids_agreement=ids, **(stats or {}))
+                    del v_out
+                emit(phase="stream2_breakdown", scene=sname,
+                     cast=shapes[rays], rays=rays,
+                     **stream2_breakdown(c, scene.data))
+                # one round, kernel by kernel, on the cast's first chunk:
+                # the shapes the main path's first launches get
+                head = {k: v if k == "any_hit" or v is None
+                        else v[:s2.CHUNK] for k, v in c.items()}
+                parts, filt = stream2_parts(head, scene.data["stream2"],
+                                            label)
+                parts_of[sname, shapes[rays]] = parts
+                emit(phase="kernel_stream2_parts_vs_plain", scene=sname,
+                     cast=shapes[rays], rays=rays,
+                     chunk_rays=head["origin"].shape[0],
+                     parts={k: dict(v, bound_ms=bound(v["bytes"],
+                                                      v["ops"])[0])
+                            for k, v in parts.items()},
+                     prefilter=filt, equal=True)
             cap = c["t_max"]
             emit(phase="main_path_cast", kernel=name, scene=sname,
                  cast=shapes[rays], rays=rays, compared_rays=m,
@@ -539,7 +953,12 @@ def main() -> int:
                  cap_max_finite=None if cap is None
                  else float(cap[torch.isfinite(cap)].max()),
                  ms=ms, mrays_s=rays / ms / 1e3, plain_ms=plain_ms,
-                 plain_mrays_s=m / plain_ms / 1e3, ab=abs_,
+                 plain_mrays_s=m / plain_ms / 1e3,
+                 bound_ms=bounds[name, sname, shapes[rays]][0],
+                 bound_by=bounds[name, sname, shapes[rays]][1],
+                 work=work, work_stride=stride,
+                 rounds=last and last["rounds"],
+                 tail_share=last and last["tail_rays"] / rays, ab=abs_,
                  max_abs_err_t=e, matches_plain=True,
                  any_hit_ids_equal=bool(torch.equal(got_part[0], want[0])))
             del got, got_part, want, part
@@ -547,7 +966,18 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- 6./7. the main path at full size ----------------------------------
-    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
+    # the queued fat-leaf traversal's kernels, counted apart from its casts
+    # (intersect_stream2.launches counts casts)
+    s2_kernels = dict(stream2_walk=s2.walk_to_leaf,
+                      stream2_count=s2.count_by_leaf,
+                      stream2_plan=s2.plan_tiles,
+                      stream2_scatter=s2.scatter_by_leaf,
+                      stream2_leaf=s2.leaf_test, stream2_tail=s2.stream2_tail,
+                      stream2_thread=s2.stream2_thread)
+    queued = ("stream2", "stream2_walk", "stream2_count", "stream2_plan",
+              "stream2_scatter", "stream2_leaf", "stream2_tail")
+    kernel_names = {**wrappers, **s2_kernels}
+    counters = {name: (fn, "launches") for name, fn in kernel_names.items()}
     counters.update({
         "brute_plain": (brute.brute_plain, "calls"),
         "gather_walk": (intersect.intersect_bvh_packed, "calls"),
@@ -555,24 +985,26 @@ def main() -> int:
         "wide_plain": (traverse_wide.wide_plain, "calls"),
         "stream_plain": (traverse_stream.stream_plain, "calls"),
     })
-    plain = [k for k in counters if k not in wrappers]
+    plain = [k for k in counters if k not in kernel_names]
 
     # the two large default slices are each followed by their A/B: the same
     # render on the BVH2 kernel's tables, whose launches stay out of the
-    # main path's counts
+    # main path's counts; the medium dragon's extension casts (524,288 rays)
+    # are under QUEUE_MIN and take the per-thread fat-leaf kernel
     slices, launches = {}, dict.fromkeys(counters, 0)
     for name, scene, w, h, kernel in (
-            ("cornell_1080p", cornell, 1920, 1080, "brute"),
-            ("teapots_512", teapots, 512, 512, "bvh2"),
-            ("medium_dragon_512", dragon, 512, 512, "stream2"),
+            ("cornell_1080p", cornell, 1920, 1080, ("brute",)),
+            ("teapots_512", teapots, 512, 512, ("bvh2",)),
+            ("medium_dragon_512", dragon, 512, 512,
+             queued + ("stream2_thread",)),
             ("medium_dragon_512_bvh2_ab", ab_scenes["medium_dragon"], 512,
-             512, "bvh2"),
-            ("sponza_1080p", sponza, 1920, 1080, "stream2"),
+             512, ("bvh2",)),
+            ("sponza_1080p", sponza, 1920, 1080, queued),
             ("sponza_1080p_bvh2_ab", ab_scenes["sponza"], 1920, 1080,
-             "bvh2"),
-            ("dragon_512_wide", dragon_w, 512, 512, "wide"),
-            ("medium_dragon_512_stream1", dragon_s1, 512, 512, "stream"),
-            ("sponza_1080p_stream1", sponza_s1, 1920, 1080, "stream")):
+             ("bvh2",)),
+            ("dragon_512_wide", dragon_w, 512, 512, ("wide",)),
+            ("medium_dragon_512_stream1", dragon_s1, 512, 512, ("stream",)),
+            ("sponza_1080p_stream1", sponza_s1, 1920, 1080, ("stream",))):
         ab = name.endswith("_ab")
         for fn, attr in counters.values():    # counted from 0 per path
             setattr(fn, attr, 0)
@@ -599,11 +1031,14 @@ def main() -> int:
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
             scene_tris=scene.n_triangles)
         emit(**slices[name])
-        if ran[kernel] <= 0:
-            raise AssertionError(f"{name}: the {kernel} kernel never ran")
+        idle = [k for k in kernel if ran[k] <= 0]
+        if idle:
+            raise AssertionError(f"{name}: the {idle} kernels never ran")
         if any(ran[k] for k in plain):
             raise AssertionError(f"{name}: a plain version ran: {ran}")
-        if any(ran[k] for k in wrappers if k != kernel):
+        allowed = set(kernel) | (set(s2_kernels) if "stream2" in kernel
+                                 else set())
+        if any(ran[k] for k in kernel_names if k not in allowed):
             raise AssertionError(f"{name}: another kernel ran: {ran}")
         if not np.isfinite(img).all():
             raise AssertionError(f"{name}: non-finite image")
@@ -636,25 +1071,85 @@ def main() -> int:
 
     # ---- 9. summary ------------------------------------------------------
     # times: brute on Cornell 1080p's connection cast (where its time goes),
-    # BVH2 on teapots 512's, the fat-leaf and streaming kernels on the
-    # medium dragon's and the wide kernel on the dragon's extension cast;
-    # every cast is in phase 5's lines
-    rows = (
-        ("brute", "brute.cu", "brute_pallas.py:29",
-         timing["brute", "connection"]),
-        ("bvh2", "traverse_bvh2.cu", "traverse_pallas2.py:144",
-         timing["bvh2", "extension"]),
-        ("stream2", "traverse_stream2.cu", "traverse_stream2.py:191",
-         timing["stream2", "medium_dragon", "extension"]),
-        ("wide", "traverse_wide.cu", "traverse_wide.py:128",
-         timing["wide", "dragon", "extension"]),
-        ("stream", "traverse_stream.cu", "traverse_stream.py:104",
-         timing["stream", "medium_dragon", "extension"]))
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=f"clive2_tpu_torch/csrc/{src}",
-             replaces=f"clive2_tpu/ops/{tpu}", launches=launches[name],
-             max_abs_err=err[name], ms=ms, plain_ms=plain_ms)
-        for name, src, tpu, (ms, plain_ms) in rows]}), flush=True)
+    # BVH2 on teapots 512's, the streaming kernel on the medium dragon's and
+    # the wide kernel on the dragon's extension cast (plain versions on
+    # every ray), the queued fat-leaf traversal and the per-thread fat-leaf
+    # kernel on sponza 1080p's connection cast (the plain walk on every 72nd
+    # ray: plain_rays), and the queued traversal's kernels on one round of
+    # its first chunk (2^22 rays); every cast is in phase 5's lines.
+    # library_ms: one PyTorch call that computes the same function, where
+    # there is one, else null and library_note says why
+    no_cast_call = ("no PyTorch call computes a closest-hit or any-hit "
+                    "cast against triangles")
+    notes = dict(
+        stream2_walk="no PyTorch call walks a BVH",
+        stream2_plan=("no single PyTorch call pads counts to whole tiles "
+                      "and scans them (torch.cumsum is the scan alone)"),
+        stream2_scatter=("no single PyTorch call places rays into padded "
+                         "per-leaf ranges (a stable sort gives the order "
+                         "alone)"),
+        stream2_leaf=no_cast_call, stream2_tail=no_cast_call)
+
+    def cast_row(name, src, tpu, key):
+        ms, plain_ms = timing[key]
+        b_ms, b_by = bounds[key]
+        return dict(name=name, route="cuda",
+                    source=f"clive2_tpu_torch/csrc/{src}",
+                    replaces=f"clive2_tpu/ops/{tpu}", launches=launches[name],
+                    max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    library_note=no_cast_call,
+                    cast=" ".join(key[1:]), plain_rays=compared[key])
+
+    rows = [
+        cast_row("brute", "brute.cu", "brute_pallas.py:29",
+                 ("brute", "connection")),
+        cast_row("bvh2", "traverse_bvh2.cu", "traverse_pallas2.py:144",
+                 ("bvh2", "extension")),
+        cast_row("stream2", "stream2_queue.cu", "traverse_stream2.py:191",
+                 ("stream2", "sponza", "connection")),
+        cast_row("wide", "traverse_wide.cu", "traverse_wide.py:128",
+                 ("wide", "dragon", "extension")),
+        cast_row("stream", "traverse_stream.cu", "traverse_stream.py:104",
+                 ("stream", "medium_dragon", "extension"))]
+    rows[2]["launches_are"] = ("queued casts; their kernels' launches are "
+                               "the stream2_* rows")
+    sponza_parts = parts_of["sponza", "connection"]
+    for name, part, src in (
+            ("stream2_walk", "walk", "stream2_queue.cu"),
+            ("stream2_count", "count", "stream2_queue.cu"),
+            ("stream2_plan", "plan", "stream2_queue.cu"),
+            ("stream2_scatter", "scatter", "stream2_queue.cu"),
+            ("stream2_leaf", f"leaf_{s2.LEAF_TEST}", "stream2_queue.cu"),
+            ("stream2_tail", "tail", "traverse_stream2.cu")):
+        v = sponza_parts[part]
+        b_ms, b_by = bound(v["bytes"], v["ops"])
+        lib_ms = v.get("library_ms")
+        rows.append(dict(
+            name=name, route="cuda", source=f"clive2_tpu_torch/csrc/{src}",
+            replaces="clive2_tpu/ops/traverse_stream2.py:191",
+            launches=launches[name], max_abs_err=v["max_abs_err"],
+            ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms,
+            **({"library_call": "torch.bincount"} if lib_ms is not None
+               else {"library_note": notes[name]}),
+            cast="sponza connection, first chunk, one round"))
+    other = "tf32" if s2.LEAF_TEST == "fp32" else "fp32"
+    rows[-2][f"ab_{other}_ms"] = sponza_parts[f"leaf_{other}"]["ms"]
+    # the per-thread kernel: the whole of sponza's connection cast (A/B)
+    thread_ms = timing["stream2", "sponza", "connection per_thread"]
+    b_ms, b_by = bounds["stream2", "sponza", "connection"]
+    rows.append(dict(
+        name="stream2_thread", route="cuda",
+        source="clive2_tpu_torch/csrc/traverse_stream2.cu",
+        replaces="clive2_tpu/ops/traverse_stream2.py:191",
+        launches=launches["stream2_thread"],
+        max_abs_err=err["stream2_thread"], ms=thread_ms,
+        plain_ms=timing["stream2", "sponza", "connection"][1],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note=no_cast_call, cast="sponza connection",
+        plain_rays=compared["stream2", "sponza", "connection"]))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -42,6 +42,16 @@ _SIGNATURES = {
     "clive2_stream2": _RAYS + [_P] * 7 + [ctypes.c_int] + _OUTS + [_P],
     "clive2_wide": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
     "clive2_stream": _RAYS + [_P] * 6 + [ctypes.c_int] + _OUTS + [_P],
+    # the queued fat-leaf traversal (ops/traverse_stream2.py)
+    "clive2_stream2_tail": [ctypes.c_int64] + [_P] * 13 + [ctypes.c_int]
+    + _OUTS + [_P],
+    "clive2_s2q_walk": [_P] * 4 + [ctypes.c_int64, ctypes.c_int] + [_P] * 11
+    + [ctypes.c_int, _P],
+    "clive2_s2q_count": [_P, ctypes.c_int64, _P, _P],
+    "clive2_s2q_plan": [_P, ctypes.c_int, _P, _P, _P, _P],
+    "clive2_s2q_scatter": [_P, ctypes.c_int64, _P, _P, _P],
+    "clive2_s2q_leaf_tf32": [_P] * 4 + [ctypes.c_int64] + [_P] * 8,
+    "clive2_s2q_leaf_fp32": [_P] * 4 + [ctypes.c_int64] + [_P] * 8,
 }
 
 _lib = None

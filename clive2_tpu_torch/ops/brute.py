@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from .intersect import _finish, _init_best, _mt
+from .intersect import WORK, _finish, _init_best, _mt
 
 # scenes at or below this triangle count intersect by dense Möller-Trumbore;
 # the kernel stages the table (10 KB at this size) into static shared
@@ -40,6 +40,8 @@ def brute_plain(origin, direction, tris, active=None, t_max=None):
     best_t, best_i, best_u, best_v = _init_best(origin, t_max)
     o = origin.unbind(-1)
     d = direction.unbind(-1)
+    WORK["triangles"] += tris.shape[0] * (
+        origin.shape[0] if active is None else int(active.sum()))
     for k in range(tris.shape[0]):
         row = tris[k]
         hit, t, u, v = _mt(o, d, row[0:3].unbind(), row[3:6].unbind(),

@@ -16,11 +16,18 @@ plain version round identically.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..constants import DELTA
 
 INF = float("inf")
+
+# work the plain walks did since it was cleared: AABB slab tests ("boxes"),
+# Möller-Trumbore tests ("triangles") and bilinear slot tests ("slots");
+# chip_smoke.py derives the kernels' operation counts from it
+WORK = collections.Counter()
 
 
 def safe_inverse(d):
@@ -155,6 +162,7 @@ def intersect_bvh_packed(origin, direction, bvh, active=None, t_max=None):
                                bt)
         is_leaf = lid >= 0
         do_leaf = box_hit & is_leaf
+        WORK["boxes"] += live.numel()
 
         lrow = leaf_packed[lid.clamp(min=0)].reshape(-1, k, 10)
         ti = lrow[:, :, 9].to(torch.int32)
@@ -165,6 +173,7 @@ def intersect_bvh_packed(origin, direction, bvh, active=None, t_max=None):
             lrow[:, :, 6:9].unbind(-1),
         )
         valid = hit & (ti >= 0) & do_leaf[:, None]
+        WORK["triangles"] += int(((ti >= 0) & do_leaf[:, None]).sum())
         t = torch.where(valid, t, INF)
         t_leaf, kk = t.min(dim=1)
         better = t_leaf < bt

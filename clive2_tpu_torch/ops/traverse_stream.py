@@ -45,7 +45,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .intersect import INF, _mt, box_entry, pop_stack, safe_inverse
+from .intersect import INF, WORK, _mt, box_entry, pop_stack, safe_inverse
 
 STACK_SIZE = 64     # csrc/traverse_stream.cu:kStackSize
 SUB_SLOTS = 8       # triangles per SAH leaf (gather-walk leaf rows)
@@ -92,7 +92,8 @@ def top_tree(node_packed, max_subleaves, stack_size):
     above it.  Returns dict(nodebox [I, 12] f32 (both children's min(3)
     max(3)), childs [I, 2] i32 (>= 0 top node, -(f + 1) fat leaf f),
     leaf_nodes [L] (every SAH leaf's node index, in preorder), fat_ids [L]
-    (the fat leaf holding each, non-decreasing), n_fat).  Raises when the
+    (the fat leaf holding each, non-decreasing), n_fat, depth (the most
+    stack entries a walk of the top tree pushes)).  Raises when the
     root is a leaf, the scene is too small to cut, or the top tree is deeper
     than ``stack_size``."""
     node_packed = np.asarray(node_packed, dtype=np.float32)
@@ -144,7 +145,8 @@ def top_tree(node_packed, max_subleaves, stack_size):
             [node_packed[left, 0:6], node_packed[right, 0:6]], axis=1)),
         childs=np.stack([encode(left), encode(right)], axis=1).astype(
             np.int32),
-        leaf_nodes=leaf_nodes, fat_ids=fat_ids, n_fat=len(cuts))
+        leaf_nodes=leaf_nodes, fat_ids=fat_ids, n_fat=len(cuts),
+        depth=max_depth)
 
 
 def pack_stream(node_packed, leaf_packed, blocks_per_leaf=1):
@@ -198,6 +200,7 @@ def walk_top_tree(origin, direction, tables, bt, best, active, any_hit,
         at_node = r >= 0
         ni = live[at_node]
         if ni.numel():
+            WORK["boxes"] += 2 * ni.numel()
             nr = r[at_node]
             o_i, inv_i, bt_i = origin[ni], inv[ni], bt[ni]
             ta = box_entry(o_i, inv_i, nodebox[nr, 0:6], bt_i)
@@ -271,6 +274,8 @@ def stream_plain(origin, direction, tables, bvh, active=None, t_max=None,
             lid = row[:, 7].long().clamp(min=0)
             lrow = leaves[lid]                                   # [k, 8, 10]
             tri = lrow[:, :, 9]
+            WORK["boxes"] += int(valid.sum())
+            WORK["triangles"] += int(((tri >= 0) & enter[:, None]).sum())
             hit, t, u, v = _mt(oc, dc, lrow[:, :, 0:3].unbind(-1),
                                lrow[:, :, 3:6].unbind(-1),
                                lrow[:, :, 6:9].unbind(-1))

@@ -41,7 +41,7 @@ import itertools
 import numpy as np
 import torch
 
-from .intersect import INF, _mt, box_entry, pop_stack, safe_inverse
+from .intersect import INF, WORK, _mt, box_entry, pop_stack, safe_inverse
 from .traverse_stream import PLAIN_CHUNK, check_leaf_rows
 
 WIDE = 8            # children per wide node
@@ -182,6 +182,7 @@ def wide_plain(origin, direction, tables, bvh, active=None, t_max=None,
         tc = box_entry(o[:, None, :], iv[:, None, :], wbox[r],
                        bt[ci, None])
         tc = torch.where(ch == EMPTY, INF, tc)
+        WORK["boxes"] += int((ch != EMPTY).sum())
         hitc = tc < INF
         inner = hitc & (ch >= 0)
         best = torch.where(inner, tc, INF).argmin(1)          # first minimum
@@ -210,6 +211,7 @@ def wide_plain(origin, direction, tables, bvh, active=None, t_max=None,
                            rows[..., 3:6].unbind(-1),
                            rows[..., 6:9].unbind(-1))
         tri = rows[..., 9]
+        WORK["triangles"] += int(((tri >= 0) & leafc[lr][:, :, None]).sum())
         ok = (hit & (tri >= 0) & leafc[lr][:, :, None]).flatten(1)
         slot = (lid[:, :, None] * LEAF_SLOTS + kk).flatten(1)
         t = torch.where(ok, t.flatten(1), INF)

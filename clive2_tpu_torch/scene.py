@@ -208,9 +208,10 @@ def create_scene(
     extra_geometry: Optional[TriangleSoup] = None,
     box_kwargs: Optional[dict] = None,
     soup_transform=None,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
-    """Assemble a scene on ``device``.
+    """Assemble a scene on ``device`` (the card unless the caller asks for
+    the CPU; raises when ``device`` is CUDA and there is no card).
 
     Always injects the camera-plane triangles and the Cornell-style room
     with its ceiling light, then merges any mesh files from ``file_specs``
@@ -326,7 +327,9 @@ scene_presets: Dict[str, dict] = {
 
 
 def create_scene_from_preset(preset_name: str, pixel_width=1280,
-                             pixel_height=720, device="cpu") -> Scene:
+                             pixel_height=720, device="cuda") -> Scene:
+    """``create_scene`` with a preset's camera and meshes, on ``device``
+    (the card unless the caller asks for the CPU)."""
     preset = scene_presets.get(preset_name)
     if not preset:
         raise ValueError(f"Preset '{preset_name}' not found.")

@@ -7,8 +7,9 @@ suite's conftest:
 Each kernel must match its plain PyTorch version on every ray (ids; t, u, v
 to 1e-6; built with --fmad=false both round alike; the fat-leaf, streaming
 and wide kernels' any-hit ids too, since each stops where its plain version
-does), and a small render on the card must match the same render on the
-CPU.
+does), each kernel of the queued fat-leaf traversal its plain step on the
+same state, and a small render on the card must match the same render on
+the CPU.
 """
 
 import numpy as np
@@ -174,3 +175,135 @@ def test_render_on_the_card_matches_the_cpu(dev):
     close = np.isclose(imgs["cuda"], imgs["cpu"], rtol=1e-3, atol=1e-6)
     assert close.all(-1).mean() >= 0.99
     assert abs(imgs["cuda"].mean() / imgs["cpu"].mean() - 1) < 1e-3
+
+
+def _stream2_case(dev, seed, n=50_000):
+    soup = _soup(seed, 5000)
+    bvh = build_bvh(soup)
+    rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              traverse_stream2.pack_stream2(rows["node_packed"],
+                                            rows["leaf_packed"]).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tables, _rays(gen, n, dev)
+
+
+QUEUED = {"tf32": (0, 1 << 22), "fp32": (0, 1 << 22),
+          "tf32-tail": (2000, 7000), "fp32-tail": (2000, 7000)}
+# instance: (tail_min, chunk)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", list(QUEUED) + ["wrapper"])
+def test_stream2_queued_matches_plain(dev, case, any_hit, monkeypatch):
+    """The queued traversal (walk, bin, leaf test, tail) equals the plain
+    walk on every ray, each of its kernels ran, and the wrapper takes it;
+    a cast under QUEUE_MIN takes the per-thread kernel whole."""
+    s2 = traverse_stream2
+    monkeypatch.setattr(s2, "QUEUE_MIN", 50_000)
+    tables, (o, d, active, t_max) = _stream2_case(dev, 6, n=100_000)
+    scene = dict(stream2=tables)
+    wrappers = (s2.walk_to_leaf, s2.count_by_leaf, s2.plan_tiles,
+                s2.scatter_by_leaf, s2.leaf_test, s2.stream2_tail)
+    before = [w.launches for w in wrappers]
+    if case == "wrapper":
+        got = s2.intersect_stream2(o, d, scene, active=active, t_max=t_max,
+                                   any_hit=any_hit)
+        assert s2.intersect_stream2.last["rounds"] > 0
+        n = s2.QUEUE_MIN - 1
+        threads = s2.stream2_thread.launches
+        small = s2.intersect_stream2(o[:n], d[:n], scene, active=active[:n],
+                                     t_max=t_max[:n], any_hit=any_hit)
+        assert s2.stream2_thread.launches == threads + 1
+        assert s2.intersect_stream2.last is None
+        _assert_same(small, tuple(x[:n] for x in got))
+        # an empty cast launches nothing and counts nothing
+        casts = s2.intersect_stream2.launches
+        s2.intersect_stream2(o[:0], d[:0], scene, any_hit=any_hit)
+        assert s2.intersect_stream2.launches == casts
+        assert s2.stream2_thread.launches == threads + 1
+    else:
+        tail_min, chunk = QUEUED[case]
+        rays, tables, got = s2.kernel_args(o, d, scene, active, t_max)
+        rounds, _ = s2.queued_cast(
+            (rays.origin, rays.direction, rays.active, rays.t_max),
+            s2.KernelSteps(tables, any_hit, case[:4]), got, chunk=chunk,
+            tail_min=tail_min)
+        assert rounds > 0
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    want = s2.stream2_plain(o, d, tables, active=active, t_max=t_max,
+                            any_hit=any_hit)
+    _assert_same(got, want)
+    assert (got[0] >= 0).sum() > 1000
+
+
+def _state_equal(a, b):
+    for name in ("ray", "bt", "bc", "ref", "sp", "leaf"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    level = torch.arange(a.stack_t.shape[0], device=a.sp.device)[:, None]
+    used = level < a.sp[None, :]
+    assert torch.equal(a.stack_ref[used], b.stack_ref[used])
+    assert torch.equal(a.stack_t[used], b.stack_t[used])
+
+
+def _queue_sorted(st):
+    """The queued rays, each fat leaf's in ascending order (the scatter
+    kernel's order within a fat leaf is arbitrary)."""
+    pos, f = traverse_stream2.queue_positions(st)
+    return torch.sort(f * (st.n + 1) + st.queue[pos].long()).values
+
+
+def test_stream2_parts_match_plain(dev):
+    """One round of the queued traversal, kernel by kernel, against the
+    plain steps on the same state; the prefilter keeps every slot the
+    exact test accepts."""
+    s2 = traverse_stream2
+    tables, (o, d, active, t_max) = _stream2_case(dev, 7)
+    rays = (o, d, active, t_max)
+    steps = s2.PlainSteps(tables, False)
+    st_k, st_p = steps.state(o.shape[0]), steps.state(o.shape[0])
+    s2.walk_to_leaf(st_k, tables, False, rays)
+    s2.walk_to_leaf_plain(st_p, tables, False, rays)
+    _state_equal(st_k, st_p)
+    s2.bin_by_leaf(st_k)
+    s2.bin_by_leaf_plain(st_p)
+    for name in ("hist", "offs", "info"):
+        assert torch.equal(getattr(st_k, name), getattr(st_p, name)), name
+    assert torch.equal(st_k.cursor, st_p.offs + st_p.hist)
+    assert torch.equal(_queue_sorted(st_k), _queue_sorted(st_p))
+
+    st_p = st_k.clone()
+    before = st_k.clone()
+    keep = torch.zeros(st_k.max_tiles * 128, 4, dtype=torch.int32,
+                       device=dev)
+    fp32 = st_k.clone()
+    s2.leaf_test(st_k, tables, "tf32", keep)
+    s2.leaf_test(fp32, tables, "fp32")
+    s2.leaf_test_plain(st_p, tables)
+    for st in (st_k, fp32):
+        assert torch.equal(st.bt, st_p.bt) and torch.equal(st.bc, st_p.bc)
+
+    pos, f = s2.queue_positions(before)
+    r = before.queue[pos].long()
+    width = s2._width(tables)
+    col = torch.arange(width, device=dev)
+    kept = ((keep[pos][:, col // 32] >> (col % 32)) & 1).bool()
+    row = before.ray[r]
+    plain = s2.tf32_filter_plain(tables, f, row, before.bt[r], width)
+    ok, t, _ = s2.slot_pass(tables, f, row[:, 3:6].unbind(-1),
+                            row[:, 9:12].unbind(-1),
+                            row[:, 12:15].unbind(-1), width)
+    need = ok & (t <= before.bt[r, None])
+    assert not (need & ~kept).any() and not (need & ~plain).any()
+    assert (kept == plain).float().mean() > 0.999
+    pairs = (tables["fat_start"][f + 1] - tables["fat_start"][f]).sum()
+    assert kept.sum() < 0.5 * pairs
+
+    s2.walk_to_leaf(st_k, tables, False)
+    s2.walk_to_leaf_plain(st_p, tables, False)
+    _state_equal(st_k, st_p)
+    out_k, out_p = ([torch.empty_like(x) for x in
+                     (st_k.bc, st_k.bt, st_k.bt, st_k.bt)] for _ in range(2))
+    s2.stream2_tail(st_k, tables, False, out_k)
+    steps.tail(st_p, out_p)
+    _assert_same(tuple(out_k), tuple(out_p))

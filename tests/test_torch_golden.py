@@ -58,11 +58,12 @@ def _check(golden_file, jr, tr, near):
 def test_golden_cornell():
     jr, tr, near = _render_both(
         c2.create_scene_from_preset("empty", SIZE, SIZE),
-        ct.create_scene_from_preset("empty", SIZE, SIZE), seed=1234)
+        ct.create_scene_from_preset("empty", SIZE, SIZE, device="cpu"),
+        seed=1234)
     _check("golden_cornell.npz", jr, tr, near)
 
 
-def _glass_scene(pkg, soup_cls):
+def _glass_scene(pkg, soup_cls, **kw):
     v, f = icosphere(1)
     soup = soup_cls.from_vertices(
         (v[f] * 1.6 + np.array([0.0, 0.6, 1.0])).astype(np.float32),
@@ -71,11 +72,11 @@ def _glass_scene(pkg, soup_cls):
         pixel_width=SIZE, pixel_height=SIZE,
         cam_center=np.array([0, 1.5, 6]),
         cam_direction=np.array([0, 0, -1.0]),
-        extra_geometry=soup,
+        extra_geometry=soup, **kw,
     )
 
 
 def test_golden_glass():
     jr, tr, near = _render_both(_glass_scene(c2, JaxSoup),
-                                _glass_scene(ct, TorchSoup), seed=4321)
+                                _glass_scene(ct, TorchSoup, device="cpu"), seed=4321)
     _check("golden_glass.npz", jr, tr, near)

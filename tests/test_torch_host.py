@@ -37,12 +37,12 @@ def _kwargs(name):
 def _scenes(name):
     kw, extra = _kwargs(name)
     if extra is None:
-        return c2.create_scene(**kw), ct.create_scene(**kw)
+        return c2.create_scene(**kw), ct.create_scene(device="cpu", **kw)
     verts, mat = extra
     return (c2.create_scene(extra_geometry=JaxSoup.from_vertices(
                 verts, material=mat), **kw),
             ct.create_scene(extra_geometry=TorchSoup.from_vertices(
-                verts, material=mat), **kw))
+                verts, material=mat), device="cpu", **kw))
 
 
 def _np(tree):

@@ -256,7 +256,8 @@ def test_intersect_scene_bvh_matches_jax():
     kw = dict(pixel_width=16, pixel_height=16, cam_center=[0, 1.5, 6],
               cam_direction=[0, 0, -1.0])
     js = c2.create_scene(extra_geometry=JaxSoup.from_vertices(extra), **kw)
-    ts = ct.create_scene(extra_geometry=TriangleSoup.from_vertices(extra), **kw)
+    ts = ct.create_scene(extra_geometry=TriangleSoup.from_vertices(extra),
+                         device="cpu", **kw)
     assert "camtri" in ts.data and "brute" not in ts.data
     rng = np.random.default_rng(8)
     o, d = _rays(rng, 1200, spread=6.0)

@@ -141,7 +141,8 @@ def test_filter(size):
     import clive2_tpu_torch as ct
 
     cam = {k: np.asarray(v, np.float32) for k, v in
-           ct.create_scene_from_preset("empty", w, h).camera.to_pytree()
+           ct.create_scene_from_preset("empty", w, h, device="cpu").camera
+           .to_pytree()
            .items()}
     jcam = {k: jnp.asarray(v) for k, v in cam.items()}
     tcam = {k: torch.from_numpy(v) for k, v in cam.items()}

@@ -38,7 +38,7 @@ FIELDS = ("summed_image", "summed_weight", "summed_unidirectional",
           "summed_sq", "pixel_count")
 
 
-def _bvh_scene(pkg, soup_cls):
+def _bvh_scene(pkg, soup_cls, **kw):
     v, f = icosphere(2)
     soup = soup_cls.from_vertices(
         (v[f] * 1.5 + np.array([0.0, 1.0, 0.0])).astype(np.float32),
@@ -46,14 +46,14 @@ def _bvh_scene(pkg, soup_cls):
     return pkg.create_scene(pixel_width=W, pixel_height=H,
                             cam_center=np.array([0, 1.5, 6]),
                             cam_direction=np.array([0, 0, -1.0]),
-                            extra_geometry=soup)
+                            extra_geometry=soup, **kw)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Sample 0 on both renderers, a JAX checkpoint, then sample 1 on the
     JAX renderer and on a port renderer resumed from that checkpoint."""
-    js, ts = _bvh_scene(c2, JaxSoup), _bvh_scene(ct, TorchSoup)
+    js, ts = _bvh_scene(c2, JaxSoup), _bvh_scene(ct, TorchSoup, device="cpu")
     assert "camtri" in ts.data and "brute" not in ts.data
     jax_renderer._make_step.cache_clear()    # trace anew, with recording
     jax.clear_caches()
@@ -104,7 +104,7 @@ def test_jax_checkpoint_resumes_in_the_port(runs):
 
 
 def test_port_checkpoint_round_trip(tmp_path):
-    scene = ct.create_scene_from_preset("empty", 8, 8)
+    scene = ct.create_scene_from_preset("empty", 8, 8, device="cpu")
     a = ct.Renderer(scene, seed=5)
     a.run_sample()
     path = str(tmp_path / "port.npz")
@@ -141,7 +141,8 @@ def test_port_imports_no_jax():
 
 def test_reference_estimator_is_refused(monkeypatch):
     monkeypatch.setattr(constants, "REFERENCE_MIS", True)
-    r = ct.Renderer(ct.create_scene_from_preset("empty", 4, 4), seed=0)
+    r = ct.Renderer(ct.create_scene_from_preset("empty", 4, 4, device="cpu"),
+                    seed=0)
     with pytest.raises(NotImplementedError, match="CLIVE2_REFERENCE_MIS"):
         r.run_sample()
 
@@ -151,6 +152,11 @@ def test_cuda_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ct.create_scene_from_preset("empty", 4, 4, device="cuda")
-    scene = ct.create_scene_from_preset("empty", 4, 4)
+    # the card is the default: without one a bare call raises too
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.create_scene_from_preset("empty", 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ct.create_scene(pixel_width=4, pixel_height=4)
+    scene = ct.create_scene_from_preset("empty", 4, 4, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ct.Renderer(scene, device="cuda")

@@ -294,7 +294,8 @@ def test_port_recovers_the_winners_own_triangle(monkeypatch):
     mesh = _soup(rng, 1200, spread=1.5, size=0.2) + np.float32([0, 1.5, 0])
     scene = ct.create_scene(pixel_width=16, pixel_height=16,
                             cam_center=[0, 1.5, 6], cam_direction=[0, 0, -1.0],
-                            extra_geometry=TriangleSoup.from_vertices(mesh))
+                            extra_geometry=TriangleSoup.from_vertices(mesh),
+                            device="cpu")
     assert "stream2" in scene.data and "bvh2" not in scene.data
     assert len(scene.camera_tri_ids) > 0
     o = np.broadcast_to(np.float32([0, 1.5, 5.5]), (800, 3)).copy()
@@ -323,7 +324,8 @@ def test_converted_jax_scene_gets_the_same_stream2_tables(monkeypatch):
     kw = dict(pixel_width=8, pixel_height=8, cam_center=[0, 1.5, 6],
               cam_direction=[0, 0, -1.0])
     js = c2.create_scene(extra_geometry=JaxSoup.from_vertices(mesh), **kw)
-    ts = ct.create_scene(extra_geometry=TriangleSoup.from_vertices(mesh), **kw)
+    ts = ct.create_scene(extra_geometry=TriangleSoup.from_vertices(mesh),
+                         device="cpu", **kw)
     converted = scene_data_from_jax(jax.tree.map(np.asarray, js.data))
     assert "bvh2" not in converted and "stream2" not in js.data
     for k, v in ts.data["stream2"].items():

@@ -38,7 +38,7 @@ MAX_DIFFERING_RAYS = 10       # about 3x the measured 3
 def sample():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_scene, "STREAM2_MIN_TRIS", 300)
-        ts = _bvh_scene(ct, TorchSoup)
+        ts = _bvh_scene(ct, TorchSoup, device="cpu")
     js = _bvh_scene(c2, JaxSoup)
     assert "stream2" in ts.data and "bvh2" not in ts.data
     jax_renderer._make_step.cache_clear()    # trace anew, with recording
@@ -83,7 +83,7 @@ def test_dispatch_threshold(monkeypatch, threshold, want):
     mesh = TorchSoup.from_vertices(
         (rng.uniform(-1, 1, (300, 1, 3)) + rng.uniform(-0.2, 0.2, (300, 3, 3))
          ).astype(np.float32))
-    cam = ct.create_scene(pixel_width=4, pixel_height=4).camera
+    cam = ct.create_scene(pixel_width=4, pixel_height=4, device="cpu").camera
     soup = camera_geometry(cam) + box_geometry() + mesh
     n_world = int((~soup.is_camera).sum())
     monkeypatch.setattr(port_scene, "STREAM2_MIN_TRIS", n_world + threshold)

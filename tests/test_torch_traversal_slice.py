@@ -72,7 +72,7 @@ def samples():
         with pytest.MonkeyPatch.context() as mp:
             for k, v in env.items():
                 mp.setenv(k, v)
-            ts = _bvh_scene(ct, TorchSoup)
+            ts = _bvh_scene(ct, TorchSoup, device="cpu")
         tr = ct.Renderer(ts, seed=SEED)
         calls, walks = plain.calls, intersect.intersect_bvh_packed.calls
         with NearTies() as ties:
@@ -124,7 +124,7 @@ def _soup_parts():
     rng = np.random.default_rng(41)
     mesh = (rng.uniform(-1, 1, (400, 1, 3))
             + rng.uniform(-0.2, 0.2, (400, 3, 3))).astype(np.float32)
-    cam = ct.create_scene(pixel_width=4, pixel_height=4).camera
+    cam = ct.create_scene(pixel_width=4, pixel_height=4, device="cpu").camera
     soup = camera_geometry(cam) + box_geometry() + TorchSoup.from_vertices(
         mesh)
     return mesh, cam, soup
@@ -226,7 +226,8 @@ def test_converted_jax_scene_gets_the_same_tables(monkeypatch, selector):
     js = c2.create_scene(extra_geometry=JaxSoup.from_vertices(mesh), **kw)
     for k, v in selector.items():
         monkeypatch.setenv(k, v)
-    ts = ct.create_scene(extra_geometry=TorchSoup.from_vertices(mesh), **kw)
+    ts = ct.create_scene(extra_geometry=TorchSoup.from_vertices(mesh),
+                         device="cpu", **kw)
     np_tree = jax.tree.map(np.asarray, js.data)
     for cuda in (False, True):
         converted = scene_data_from_jax(np_tree)
