@@ -10,6 +10,9 @@ kernel on one round of the first chunk of each of its casts), times both on thos
 on the BVH scenes' casts, the other kernels that can carry the scene as an
 A/B: on the fat-leaf casts also the per-thread fat-leaf kernel, the
 FP32-only leaf test and other tail sizes),
+with the BVH2 kernel's A/B instances (the first design, ``pr1``, and
+``one_per_ray``, the walk without the ray fetch) on its casts and a soup
+of exact ties,
 renders the main-path configurations through ``create_scene_from_preset``
 -> ``Renderer.run_sample()`` with launch counters proving which kernel
 carried every cast, 2 samples each: Cornell ``empty`` at 1920x1080 and
@@ -165,6 +168,58 @@ def environment(**env):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def bvh2_table_bytes(tables):
+    """Bytes of the BVH2 kernel's tables and of the first design's."""
+    def size(keys):
+        return sum(tables[k].numel() * tables[k].element_size() for k in keys)
+
+    return dict(kernel=size(("nodes", "tris")),
+                first_design=size(("nodebox", "childs", "leaves")))
+
+
+def bvh2_ab(c, data, ref, label):
+    """The BVH2 kernel's A/B instances on cast ``c`` (``pr1``, the first
+    design; ``one_per_ray``, the walk without the ray fetch), each timed
+    over 5 launches and held to ``ref``, the default's outputs (ids, t, u,
+    v on closest-hit casts, verdicts on any-hit ones).  ``pr1`` resolves
+    exact ties in visit order, so where its closest-hit ids differ the
+    default is held to the gather walk on those rays instead.  Returns
+    {instance: dict(ms, mrays_s, ids_equal)}, with pr1's differing rays and
+    how many of them it got right."""
+    import torch
+
+    from clive2_tpu_torch.ops import traverse_bvh2 as tb
+    from clive2_tpu_torch.ops.intersect import intersect_bvh_packed
+
+    out, rays = {}, c["origin"].shape[0]
+    for name in ("pr1", "one_per_ray"):
+        ms, got = cuda_time(lambda: tb.intersect_bvh2(
+            c["origin"], c["direction"], data, active=c["active"],
+            t_max=c["t_max"], any_hit=c["any_hit"], instance=name), 5)
+        out[name] = dict(ms=ms, mrays_s=rays / ms / 1e3,
+                         ids_equal=bool(torch.equal(got[0], ref[0])))
+        if name == "pr1" and not c["any_hit"]:
+            diff = torch.nonzero(got[0] != ref[0]).squeeze(1)
+            sub = {k: v if k == "any_hit" or v is None else v[diff]
+                   for k, v in c.items()}
+            want = intersect_bvh_packed(sub["origin"], sub["direction"],
+                                        data["bvh"], active=sub["active"],
+                                        t_max=sub["t_max"])
+            compare_hits(tuple(x[diff] for x in ref), want,
+                         f"{label} bvh2 where pr1 differs")
+            same = got[0] == ref[0]
+            compare_hits(tuple(x[same] for x in got),
+                         tuple(x[same] for x in ref), f"{label} bvh2 pr1")
+            out[name].update(differing_rays=int(diff.numel()),
+                             pr1_equals_gather_walk_on=int(
+                                 (got[0][diff] == want[0]).sum()))
+        else:
+            compare_hits(got, ref, f"{label} bvh2 {name}",
+                         closest=not c["any_hit"])
+        del got
+    return out
 
 
 def write_assets(resource_dir):
@@ -573,6 +628,7 @@ def main() -> int:
                                       traverse_wide)
     from clive2_tpu_torch.ops.intersect import WORK
     from clive2_tpu_torch.scene import PACKERS
+    from clive2_tpu_torch.testing import tie_soup
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -588,6 +644,15 @@ def main() -> int:
     emit(phase="build", library=os.path.relpath(so),
          sources=[os.path.relpath(src) for src in kernels.sources()],
          nvcc_seconds=nvcc_s, seconds=time.perf_counter() - t0)
+    # the BVH2 kernel's resources: ptxas's report (registers, shared memory,
+    # spills) and what the runtime reports per instance (resident blocks)
+    ptxas = kernels.ptxas_report("traverse_bvh2.cu")
+    emit(phase="bvh2_resources",
+         ptxas=[ln.strip() for ln in ptxas.splitlines()
+                if "Used" in ln or "spill" in ln or "Compiling" in ln],
+         runtime={f"{'any_hit' if a else 'closest'} {i or 'default'}":
+                  traverse_bvh2.kernel_info(any_hit=a, instance=i)
+                  for a in (False, True) for i in (None, "one_per_ray")})
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     modules = dict(bvh2=traverse_bvh2, stream2=traverse_stream2,
@@ -657,27 +722,68 @@ def main() -> int:
         "coherent": (cam_t["origin"], cam_t["direction"]),
         "incoherent": random_rays(1 << 18, lo, hi, gen, dev),
     }
+    # every instance of the kernel (the default and the two A/B instances)
+    # on each set: closest-hit, and any-hit under a finite cap
+    # (visibility casts)
     checks = 0
     for rname, (o, d) in sets.items():
         n = o.shape[0]
         active = torch.rand(n, generator=gen, device=dev) < 0.8
-        want = intersect.intersect_bvh_packed(o, d, teapots.data["bvh"],
-                                              active=active)
-        got = traverse_bvh2.intersect_bvh2(o, d, teapots.data, active=active)
-        e = compare_hits(got, want, f"bvh2 {rname} closest")
-        err["bvh2"] = max(err["bvh2"], e)
-        # visibility casts: any-hit under a finite cap
         t_max = torch.rand(n, generator=gen, device=dev) * 12
         want = intersect.intersect_bvh_packed(o, d, teapots.data["bvh"],
-                                              active=active, t_max=t_max)
-        got = traverse_bvh2.intersect_bvh2(o, d, teapots.data, active=active,
-                                           t_max=t_max, any_hit=True)
-        compare_hits(got, want, f"bvh2 {rname} any-hit", closest=False)
-        checks += 2
+                                              active=active)
+        want_any = intersect.intersect_bvh_packed(
+            o, d, teapots.data["bvh"], active=active, t_max=t_max)
+        for instance in traverse_bvh2.INSTANCES:
+            got = traverse_bvh2.intersect_bvh2(o, d, teapots.data,
+                                               active=active,
+                                               instance=instance)
+            e = compare_hits(got, want, f"bvh2 {instance} {rname} closest")
+            err["bvh2"] = max(err["bvh2"], e)
+            got = traverse_bvh2.intersect_bvh2(
+                o, d, teapots.data, active=active, t_max=t_max,
+                any_hit=True, instance=instance)
+            compare_hits(got, want_any, f"bvh2 {instance} {rname} any-hit",
+                         closest=False)
+            checks += 2
+    # the tie soup: 5,000 triangles twice, ids swapped in half the pairs;
+    # every hit an exact tie, won by the lower slot
+    rows, lower = tie_soup(9, 5000)
+    ties = dict(bvh={k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
+                bvh2={k: torch.from_numpy(v).to(dev) for k, v in
+                      traverse_bvh2.pack_bvh2(rows["node_packed"],
+                                              rows["leaf_packed"]).items()})
+    o, _ = random_rays(1 << 18, -8.0, 8.0, gen, dev)
+    aim = torch.rand(1 << 18, 3, generator=gen, device=dev) * 10 - 5 - o
+    d = aim / aim.norm(dim=1, keepdim=True)
+    want = intersect.intersect_bvh_packed(o, d, ties["bvh"])
+    tie_hits = int((want[0] >= 0).sum())
+    pr1_lower = None
+    for instance in traverse_bvh2.INSTANCES:
+        got = traverse_bvh2.intersect_bvh2(o, d, ties, instance=instance)
+        ids = got[0][got[0] >= 0].cpu().numpy()
+        if instance == "pr1":
+            # the first design resolves ties in visit order: reported
+            pr1_lower = float((ids == lower(ids)).mean())
+            continue
+        e = compare_hits(got, want, f"bvh2 {instance} tie soup")
+        err["bvh2"] = max(err["bvh2"], e)
+        if not (ids == lower(ids)).all():
+            raise AssertionError(f"bvh2 {instance} tie soup: a tie went to "
+                                 "the higher slot")
+        checks += 1
+    if tie_hits < 10_000:
+        raise AssertionError(f"tie soup: only {tie_hits} hits")
     torch.cuda.synchronize()
     emit(phase="kernel_bvh2_vs_plain", checks=checks, scene_tris=
          teapots.n_triangles, scene_build_s=build_s,
+         instances=[str(i) for i in traverse_bvh2.INSTANCES],
+         tie_soup=dict(tris=10_000, rays=1 << 18, hits=tie_hits,
+                       lower_slot_wins=True,
+                       pr1_lower_slot_share=pr1_lower),
+         bvh2_table_bytes=bvh2_table_bytes(teapots.data["bvh2"]),
          max_abs_err_t=err["bvh2"], ids_equal=True, any_hit_verdicts_equal=True)
+    del ties, rows, o, d, aim, want, want_any, got
 
     # ---- 4b. the traversal kernels of the large and A/B paths vs plain ----
     # Each kernel against its plain version on 512^2 camera rays and 2^18
@@ -788,7 +894,7 @@ def main() -> int:
              cornell.data["brute"]),
             ("bvh2", teapots, 512, 512, traverse_bvh2, "intersect_bvh2",
              lambda c: launch("bvh2", c, teapots.data), bvh2_plain,
-             teapots.data["bvh2"])):
+             {k: teapots.data["bvh2"][k] for k in ("nodes", "tris")})):
         casts = record_casts(module, wrapper, ct.Renderer(scene, seed=1,
                                                           device=dev))
         n = w * h
@@ -807,13 +913,22 @@ def main() -> int:
             compared[name, shapes[rays]] = rays
             bounds[name, shapes[rays]] = bound(cast_bytes(c, tables),
                                                work_ops(WORK))
+            work, ab = dict(WORK), {}
+            if name == "bvh2":
+                # the A/B instances, then the default once more (kernel,
+                # A/Bs, kernel)
+                ab = bvh2_ab(c, scene.data, got, label)
+                ab["default_again"] = dict(ms=cuda_time(
+                    lambda: kernel_fn(c), 5)[0])
+                for variant, v in ab.items():
+                    timing[name, shapes[rays], variant] = v["ms"]
             emit(phase="main_path_cast", kernel=name, cast=shapes[rays],
                  rays=rays, any_hit=c["any_hit"],
                  active=rays if c["active"] is None else int(c["active"].sum()),
                  capped=c["t_max"] is not None, ms=ms, plain_ms=plain_ms,
                  mrays_s=rays / ms / 1e3, plain_mrays_s=rays / plain_ms / 1e3,
                  bound_ms=bounds[name, shapes[rays]][0],
-                 bound_by=bounds[name, shapes[rays]][1], work=dict(WORK),
+                 bound_by=bounds[name, shapes[rays]][1], work=work, ab=ab,
                  max_abs_err_t=e, matches_plain=True)
             del got, want
         del casts, c
@@ -841,8 +956,12 @@ def main() -> int:
     ab_scenes = {"medium_dragon": with_traversal(dragon, "bvh2"),
                  "sponza": with_traversal(sponza, "bvh2"),
                  "dragon": with_traversal(dragon_w, "bvh2")}
+    for sname, ab_scene in ab_scenes.items():
+        emit(phase="bvh2_tables", scene=sname,
+             scene_tris=ab_scene.n_triangles,
+             bvh2_table_bytes=bvh2_table_bytes(ab_scene.data["bvh2"]))
     s2 = traverse_stream2
-    parts_of = {}
+    parts_of, bvh2_casts = {}, set()
     for name, sname, scene, w, h, ab in (
             ("stream2", "medium_dragon", dragon, 512, 512,
              dict(bvh2=ab_scenes["medium_dragon"], stream=dragon_s1)),
@@ -891,6 +1010,29 @@ def main() -> int:
                 abs_[ab_name] = dict(
                     ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
                     agreement=float(same_as(ab_out).float().mean()))
+                key = (sname, shapes[rays])
+                if ab_name == "bvh2" and key not in bvh2_casts:
+                    # once per scene and cast: the BVH2 kernel against the
+                    # gather walk on the same strided rays, and its A/B
+                    # instances beside it
+                    bvh2_casts.add(key)
+                    want_b = intersect.intersect_bvh_packed(
+                        part["origin"], part["direction"],
+                        ab_scene.data["bvh"], active=part["active"],
+                        t_max=part["t_max"])
+                    e_b = compare_hits(tuple(x[::stride] for x in ab_out),
+                                       want_b, f"{label} on bvh2",
+                                       closest=not c["any_hit"])
+                    err["bvh2"] = max(err["bvh2"], e_b)
+                    variants = bvh2_ab(c, ab_scene.data, ab_out,
+                                       f"{label} on")
+                    emit(phase="bvh2_ab_cast", scene=sname,
+                         cast=shapes[rays], rays=rays, any_hit=c["any_hit"],
+                         ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
+                         compared_rays=m, compared_stride=stride,
+                         max_abs_err_t=e_b, matches_plain=True,
+                         variants=variants)
+                    del want_b
                 del ab_out
             if name == "stream2":
                 # the per-thread kernel, the other leaf-test instance, and
@@ -1070,13 +1212,14 @@ def main() -> int:
         raise AssertionError("card and CPU renders disagree")
 
     # ---- 9. summary ------------------------------------------------------
-    # times: brute on Cornell 1080p's connection cast (where its time goes),
-    # BVH2 on teapots 512's, the streaming kernel on the medium dragon's and
-    # the wide kernel on the dragon's extension cast (plain versions on
-    # every ray), the queued fat-leaf traversal and the per-thread fat-leaf
-    # kernel on sponza 1080p's connection cast (the plain walk on every 72nd
-    # ray: plain_rays), and the queued traversal's kernels on one round of
-    # its first chunk (2^22 rays); every cast is in phase 5's lines.
+    # times: brute on Cornell 1080p's and BVH2 on teapots 512's connection
+    # casts (where their time goes; BVH2 with its A/B instances' times), the
+    # streaming kernel on the medium dragon's and the wide kernel on the
+    # dragon's extension cast (plain versions on every ray), the queued
+    # fat-leaf traversal and the per-thread fat-leaf kernel on sponza
+    # 1080p's connection cast (the plain walk on every 72nd ray:
+    # plain_rays), and the queued traversal's kernels on one round of its
+    # first chunk (2^22 rays); every cast is in phase 5's lines.
     # library_ms: one PyTorch call that computes the same function, where
     # there is one, else null and library_note says why
     no_cast_call = ("no PyTorch call computes a closest-hit or any-hit "
@@ -1105,13 +1248,15 @@ def main() -> int:
         cast_row("brute", "brute.cu", "brute_pallas.py:29",
                  ("brute", "connection")),
         cast_row("bvh2", "traverse_bvh2.cu", "traverse_pallas2.py:144",
-                 ("bvh2", "extension")),
+                 ("bvh2", "connection")),
         cast_row("stream2", "stream2_queue.cu", "traverse_stream2.py:191",
                  ("stream2", "sponza", "connection")),
         cast_row("wide", "traverse_wide.cu", "traverse_wide.py:128",
                  ("wide", "dragon", "extension")),
         cast_row("stream", "traverse_stream.cu", "traverse_stream.py:104",
                  ("stream", "medium_dragon", "extension"))]
+    for variant in ("pr1", "one_per_ray"):
+        rows[1][f"ab_{variant}_ms"] = timing["bvh2", "connection", variant]
     rows[2]["launches_are"] = ("queued casts; their kernels' launches are "
                                "the stream2_* rows")
     sponza_parts = parts_of["sponza", "connection"]

@@ -20,18 +20,19 @@ __device__ __forceinline__ float safe_inverse(float d) {
   return 1.0f / x;
 }
 
-// Slab test of one AABB (b: min(3) max(3)); returns the entry distance, or
+// Slab test of one AABB given by its corners; returns the entry distance, or
 // +inf when the box is missed or lies beyond bt.
-__device__ __forceinline__ float box_entry(const float* __restrict__ b,
+__device__ __forceinline__ float box_entry(float lox, float loy, float loz,
+                                           float hix, float hiy, float hiz,
                                            float ox, float oy, float oz,
                                            float ix, float iy, float iz,
                                            float bt) {
-  const float t0x = (b[0] - ox) * ix;
-  const float t1x = (b[3] - ox) * ix;
-  const float t0y = (b[1] - oy) * iy;
-  const float t1y = (b[4] - oy) * iy;
-  const float t0z = (b[2] - oz) * iz;
-  const float t1z = (b[5] - oz) * iz;
+  const float t0x = (lox - ox) * ix;
+  const float t1x = (hix - ox) * ix;
+  const float t0y = (loy - oy) * iy;
+  const float t1y = (hiy - oy) * iy;
+  const float t0z = (loz - oz) * iz;
+  const float t1z = (hiz - oz) * iz;
   const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
                            fmaxf(fminf(t0z, t1z), 0.0f));
   const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
@@ -39,15 +40,21 @@ __device__ __forceinline__ float box_entry(const float* __restrict__ b,
   return tmin <= tmax ? tmin : INFINITY;
 }
 
-// Möller-Trumbore of one triangle row tr = v0(3) e1(3) e2(3): sets t, u, v
-// and returns whether the ray hits it (inside the triangle, t past kDelta).
-__device__ __forceinline__ bool moller_trumbore(const float* __restrict__ tr,
-                                                float ox, float oy, float oz,
-                                                float dx, float dy, float dz,
-                                                float& t, float& u, float& v) {
-  const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+// The same test of a box row b: min(3) max(3).
+__device__ __forceinline__ float box_entry(const float* __restrict__ b,
+                                           float ox, float oy, float oz,
+                                           float ix, float iy, float iz,
+                                           float bt) {
+  return box_entry(b[0], b[1], b[2], b[3], b[4], b[5], ox, oy, oz, ix, iy,
+                   iz, bt);
+}
+
+// Möller-Trumbore of one triangle given by v0, e1, e2: sets t, u, v and
+// returns whether the ray hits it (inside the triangle, t past kDelta).
+__device__ __forceinline__ bool moller_trumbore(
+    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+    float dy, float dz, float& t, float& u, float& v) {
   const float hx = dy * e2z - dz * e2y;
   const float hy = dz * e2x - dx * e2z;
   const float hz = dx * e2y - dy * e2x;
@@ -63,6 +70,15 @@ __device__ __forceinline__ bool moller_trumbore(const float* __restrict__ tr,
   v = f * (dx * qx + dy * qy + dz * qz);
   t = f * (e2x * qx + e2y * qy + e2z * qz);
   return u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > kDelta;
+}
+
+// The same test of a triangle row tr = v0(3) e1(3) e2(3).
+__device__ __forceinline__ bool moller_trumbore(const float* __restrict__ tr,
+                                                float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                float& t, float& u, float& v) {
+  return moller_trumbore(tr[0], tr[1], tr[2], tr[3], tr[4], tr[5], tr[6],
+                         tr[7], tr[8], ox, oy, oz, dx, dy, dz, t, u, v);
 }
 
 // Pops the topmost stack entry whose entry distance is at most bt into ref,

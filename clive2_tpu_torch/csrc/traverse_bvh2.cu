@@ -1,44 +1,82 @@
-// Binary BVH traversal, closest-hit and any-hit.
+// Binary BVH traversal for Hopper, closest-hit and any-hit: persistent warps
+// that fetch rays, vector-loaded node and triangle records, a stack in
+// shared memory, and the (t, slot) tie rule.
 //
-// Replaces the TPU kernel clive2_tpu/ops/traverse_pallas2.py:_kernel (entry
-// intersect_pallas2, packer pack_bvh2, helpers for_set_bits and
-// bit_index16).  The plain PyTorch version is the gather walk,
-// clive2_tpu_torch/ops/intersect.py:intersect_bvh_packed.
+// Replaces the TPU kernel clive2_tpu/ops/traverse_pallas2.py:_kernel (:144,
+// pallas_call in _traverse_blocks :396; entry intersect_pallas2, packer
+// pack_bvh2).  The plain PyTorch version is the gather walk,
+// clive2_tpu_torch/ops/intersect.py:intersect_bvh_packed.  The first design
+// (one thread per ray, stack in local memory) is traverse_bvh2_first.cu.
 //
-// Tables (clive2_tpu_torch/ops/traverse_bvh2.py:pack_bvh2):
-//   nodebox [inner, 12] f32  both children's AABBs: min(3) max(3) of the
-//                            left child, then of the right child
-//   childs  [inner, 2]  i32  child >= 0 is an inner node id, child < 0 is
-//                            leaf -(child + 1); node 0 is the root
-//   leaves  [L, 8, 10]  f32  8 slots of v0(3) e1(3) e2(3) tri id(1);
-//                            tri id -1 marks a padding slot
+// Tables (clive2_tpu_torch/ops/traverse_bvh2.py:pack_bvh2), 16-byte rows:
+//   nodes [inner, 16] f32  one 64-byte record per inner node, read as four
+//                          float4: (A.lo.x, A.hi.x, A.lo.y, A.hi.y),
+//                          (B.lo.x, B.hi.x, B.lo.y, B.hi.y),
+//                          (A.lo.z, A.hi.z, B.lo.z, B.hi.z) for the children
+//                          A and B, then the two child references as int
+//                          bits and two zeros.  A reference >= 0 is an inner
+//                          node (node 0 is the root); a leaf is
+//                          ~(first << kLeafBits | count): its triangles are
+//                          rows first .. first + count - 1 of tris
+//   tris  [rows, 12] f32   one 48-byte row per real slot of the gather
+//                          walk's leaves, in slot order: v0(3) tri id(1),
+//                          e1(3) 0, e2(3) 0; padding slots have no row
 //
-// What bounds it on the H100: memory latency and divergence, not flops.
-// Every step is a dependent 48-byte node load or a 320-byte leaf load, and
-// the lanes of a warp walk different nodes once rays decohere.  The scene
-// tables of the mid-size scenes (the 6,320-triangle teapots: about 150 KB)
-// fit in the 50 MB L2 many times over, so node fetches hit L1/L2.
+// What bounds it on the H100: the latency of dependent loads and the
+// divergence of the lanes of a warp, not operations or bytes.  Every step
+// is a node record or a leaf's rows that the next step waits for, and rays
+// that finish early leave their lanes idle.  The tables of the scenes this
+// kernel carries (teapots, 12,656 triangles: under 1 MB) sit in L2; on
+// sponza's 1.3M triangles they are larger than the 50 MB L2.
 //
-// Design: one thread per ray with a short per-thread stack, which is the
-// traversal of the reference renderer's Metal kernel.  A pop tests both
-// children's boxes (slab test as in the TPU kernel: tmin clamped at 0, tmax
-// clamped at the current best t, with the 1e-30 direction nudge), descends
-// into the nearer hit child and pushes the farther one with its entry
-// distance; a popped entry is skipped when that distance now exceeds the
-// best t.  Leaves run the brute kernel's Möller-Trumbore per slot in slot
-// order with a strict-< update.  The any-hit variant returns at the first
-// leaf that records a hit under t_max.  The packer bounds the tree depth by
-// kStackSize, so the stack cannot overflow.
+// What the design does about it:
+//  1. A node visit is four 16-byte loads of one aligned 64-byte record
+//     (the first design: 14 scalar loads from two arrays, 48-byte box rows
+//     across cache lines); a triangle is three 16-byte loads, and a leaf's
+//     (first, count) reference skips its padding slots entirely.
+//  2. Persistent warps: the grid is what the card holds resident (SMs x
+//     the occupancy the runtime reports).  A warp takes the next rays from
+//     a global counter (one atomicAdd by lane 0, broadcast by shuffle)
+//     whenever at least kRefill of its lanes are free, so a warp no longer
+//     lives as long as its slowest ray, and inactive rays are written as
+//     misses when fetched, at no traversal cost.  kRefill = 8 was best or
+//     within 3% of the best of 1, 8, 16, 24 and 32 on the BVH2 casts of
+//     teapots, the dragons and sponza; 32, waiting for the whole warp, took
+//     up to 43% longer.  The "one_per_ray" instance gives each lane one ray
+//     by its index instead.  clive2_bvh2 zeroes the counter on the launch's
+//     stream before each launch.
+//  3. The stack: entry j of a lane lives in shared memory at j * kThreads +
+//     lane (no bank conflicts) for j < kSharedStack, deeper entries in a
+//     local array that only the deepest paths touch.  Capacity kStackSize
+//     matches the packer's depth bound, and a lane's stack holds at most
+//     one entry per level above its node, so it cannot overflow.  Entries
+//     keep their f32 entry distance: nothing is rounded.
+//  4. While-while traversal: a lane walks inner nodes until it finds a
+//     leaf, postpones that leaf and walks on while other lanes of its warp
+//     still search; the warp tests leaves once no lane is searching.  Node
+//     and leaf work no longer alternate between lanes on every step.
+//  5. Ties: a row replaces the best hit when (t, row) is lexicographically
+//     smaller, so the answer does not depend on visit order or on the fetch
+//     schedule.  It equals the gather walk's: (a) the gather walk visits
+//     leaves in preorder, leaf ids are assigned in preorder, it keeps the
+//     first minimum inside a leaf and replaces across leaves only on a
+//     strictly smaller t, so it returns the lexicographic minimum of (t,
+//     slot), slot = leaf * 8 + k, over the slots it tests; (b) the compact
+//     rows list the real slots in slot order, so row order is slot order;
+//     (c) no box or stack entry whose entry distance equals the best t is
+//     culled (the slab test keeps tmin <= min(tmax, best t), a popped entry
+//     is kept when its distance is <= best t), so a leaf that could hold a
+//     tie is always tested.  Hits at exactly t_max are rejected, as there.
+//  6. Any-hit stops a ray after the first leaf test that records a hit
+//     under its cap.  Both casts walk the nearer child first: on any-hit
+//     casts the left child first was slower on every cast measured.
 //
-// TPU workarounds dropped: 16 x 128-ray packets sharing one SMEM stack, the
-// QUAD=8 batched pops, row gating of the leaf phase with for_set_bits and
-// bit_index16, the tri-major [8, 16 * L] leaf layout, MAX_BLOCKS_PER_CALL
-// launch splitting for the TPU watchdog, and the Morton sort of rays.
-//
-// Rounding: compiled with --fmad=false, in the plain version's expression
-// order, so box decisions and hits match the gather walk exactly.
+// Rounding: compiled with --fmad=false; the slab test and Möller-Trumbore
+// are common.cuh's, in the plain version's expression order, so every box
+// decision and t, u, v match the gather walk exactly.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -48,105 +86,291 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kStackSize = 64;      // ops/traverse_bvh2.py:STACK_SIZE
-constexpr int kLeafSlots = 8;
+constexpr int kSharedStack = 16;    // entries per lane in shared memory
+constexpr int kLeafBits = 4;        // ops/traverse_bvh2.py:LEAF_BITS
+constexpr int kRefill = 8;          // free lanes before a warp fetches rays
+constexpr int kNone = INT_MIN;      // no node
+constexpr unsigned kWarp = 0xffffffffu;
 
-template <bool kAnyHit>
-__global__ void bvh2_kernel(const float* __restrict__ origin,
-                            const float* __restrict__ direction,
-                            const uint8_t* __restrict__ active,
-                            const float* __restrict__ t_max,
-                            long long n_rays,
-                            const float* __restrict__ nodebox,
-                            const int* __restrict__ childs,
-                            const float* __restrict__ leaves,
-                            int* __restrict__ out_i,
-                            float* __restrict__ out_t,
-                            float* __restrict__ out_u,
-                            float* __restrict__ out_v) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  float bt = t_max[r];
-  int bi = -1;
-  float bu = 0.0f, bv = 0.0f;
-  if (active[r]) {
-    const float ox = origin[3 * r + 0];
-    const float oy = origin[3 * r + 1];
-    const float oz = origin[3 * r + 2];
-    const float dx = direction[3 * r + 0];
-    const float dy = direction[3 * r + 1];
-    const float dz = direction[3 * r + 2];
-    const float ix = safe_inverse(dx);
-    const float iy = safe_inverse(dy);
-    const float iz = safe_inverse(dz);
+__device__ __forceinline__ bool is_leaf(int ref) {
+  return ref < 0 && ref != kNone;
+}
 
-    int stack_ref[kStackSize];
-    float stack_t[kStackSize];
-    int sp = 0;
-    int ref = 0;                        // the root is inner node 0
+// The shared part of the block's stacks: entry j of thread x at
+// j * kThreads + x, so the lanes of a warp hit 32 different banks.
+__shared__ int stack_ref[kSharedStack * kThreads];
+__shared__ float stack_t[kSharedStack * kThreads];
+
+// One lane's stack of (reference, entry distance): the first kSharedStack
+// entries in shared memory, the rest in local memory.
+struct Stack {
+  int sp;
+  int deep_ref[kStackSize - kSharedStack];
+  float deep_t[kStackSize - kSharedStack];
+
+  __device__ __forceinline__ void push(int r, float tt) {
+    if (sp < kSharedStack) {
+      stack_ref[sp * kThreads + threadIdx.x] = r;
+      stack_t[sp * kThreads + threadIdx.x] = tt;
+    } else {
+      deep_ref[sp - kSharedStack] = r;
+      deep_t[sp - kSharedStack] = tt;
+    }
+    ++sp;
+  }
+
+  // The topmost entry whose entry distance is at most bt, dropping the
+  // entries above it; kNone when none is left.
+  __device__ __forceinline__ int pop(float bt) {
+    while (sp > 0) {
+      --sp;
+      if (sp < kSharedStack) {
+        const int j = sp * kThreads + threadIdx.x;
+        if (stack_t[j] <= bt) return stack_ref[j];
+      } else if (deep_t[sp - kSharedStack] <= bt) {
+        return deep_ref[sp - kSharedStack];
+      }
+    }
+    return kNone;
+  }
+};
+
+template <bool kAnyHit, bool kPersistent>
+__global__ void __launch_bounds__(kThreads)
+bvh2_kernel(const float* __restrict__ origin,
+            const float* __restrict__ direction,
+            const uint8_t* __restrict__ active,
+            const float* __restrict__ t_max, long long n_rays,
+            const float4* __restrict__ nodes,
+            const float4* __restrict__ tris,
+            unsigned long long* __restrict__ next_ray,
+            int* __restrict__ out_i,
+            float* __restrict__ out_t, float* __restrict__ out_u,
+            float* __restrict__ out_v) {
+  const int lane = threadIdx.x & 31;
+  Stack st;
+  st.sp = 0;
+
+  long long r = 0;          // this lane's ray while has_ray
+  bool has_ray = false;
+  bool drained = false;     // warp-uniform: no ray is left to fetch
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float ix = 0.0f, iy = 0.0f, iz = 0.0f;
+  float bt = 0.0f, bu = 0.0f, bv = 0.0f;
+  int bs = -1, bi = -1;     // best row (slot order) and its triangle id
+  int ref = kNone;          // the node being walked
+  int leaf = kNone;         // a postponed leaf
+
+  while (true) {
+    // ---- fetch rays into free lanes (warp-uniform decisions) ----
+    if (!drained) {
+      const unsigned free_lanes = __ballot_sync(kWarp, !has_ray);
+      const int n_free = __popc(free_lanes);
+      if (!kPersistent || n_free >= kRefill) {
+        long long base;
+        if (kPersistent) {
+          unsigned long long b = 0;
+          if (lane == 0) b = atomicAdd(next_ray, (unsigned long long)n_free);
+          base = (long long)__shfl_sync(kWarp, b, 0);
+          drained = base + n_free >= n_rays;
+        } else {
+          base = (long long)blockIdx.x * kThreads + (threadIdx.x & ~31);
+          drained = true;
+        }
+        if (!has_ray) {
+          r = kPersistent ? base + __popc(free_lanes & ((1u << lane) - 1u))
+                          : base + lane;
+          if (r < n_rays) {
+            if (active[r]) {
+              ox = origin[3 * r + 0];
+              oy = origin[3 * r + 1];
+              oz = origin[3 * r + 2];
+              dx = direction[3 * r + 0];
+              dy = direction[3 * r + 1];
+              dz = direction[3 * r + 2];
+              ix = safe_inverse(dx);
+              iy = safe_inverse(dy);
+              iz = safe_inverse(dz);
+              bt = t_max[r];
+              bs = -1;
+              bi = -1;
+              bu = 0.0f;
+              bv = 0.0f;
+              ref = 0;
+              leaf = kNone;
+              st.sp = 0;
+              has_ray = true;
+            } else {                    // inactive: a miss, no traversal
+              out_i[r] = -1;
+              out_t[r] = INFINITY;
+              out_u[r] = 0.0f;
+              out_v[r] = 0.0f;
+            }
+          }
+        }
+      }
+    }
+    if (!__any_sync(kWarp, has_ray)) {
+      if (drained) return;
+      continue;
+    }
+
+    // ---- walk inner nodes until no lane of the warp searches a leaf ----
     while (true) {
-      if (ref >= 0) {
-        const float* nb = nodebox + 12 * (long long)ref;
-        const float ta = box_entry(nb, ox, oy, oz, ix, iy, iz, bt);
-        const float tb = box_entry(nb + 6, ox, oy, oz, ix, iy, iz, bt);
-        const int ca = childs[2 * ref];
-        const int cb = childs[2 * ref + 1];
+      if (has_ray && ref >= 0) {
+        const float4* nd = nodes + 4 * (long long)ref;
+        const float4 xa = __ldg(nd);
+        const float4 xb = __ldg(nd + 1);
+        const float4 z = __ldg(nd + 2);
+        const float4 c = __ldg(nd + 3);
+        const float ta = box_entry(xa.x, xa.z, z.x, xa.y, xa.w, z.y, ox, oy,
+                                   oz, ix, iy, iz, bt);
+        const float tb = box_entry(xb.x, xb.z, z.z, xb.y, xb.w, z.w, ox, oy,
+                                   oz, ix, iy, iz, bt);
+        const int ca = __float_as_int(c.x);
+        const int cb = __float_as_int(c.y);
         const bool ha = ta < INFINITY;
         const bool hb = tb < INFINITY;
         if (ha && hb) {
-          const bool a_near = ta <= tb;
-          stack_ref[sp] = a_near ? cb : ca;
-          stack_t[sp] = a_near ? tb : ta;
-          ++sp;
-          ref = a_near ? ca : cb;
-          continue;
-        }
-        if (ha || hb) {
+          const bool a_first = ta <= tb;
+          st.push(a_first ? cb : ca, a_first ? tb : ta);
+          ref = a_first ? ca : cb;
+        } else if (ha || hb) {
           ref = ha ? ca : cb;
-          continue;
+        } else {
+          ref = st.pop(bt);
         }
-      } else {
-        const float* lf = leaves + (long long)(-(ref + 1)) * (kLeafSlots * 10);
-        for (int k = 0; k < kLeafSlots; ++k) {
-          const float* tr = lf + 10 * k;
-          float t, u, v;
-          if (moller_trumbore(tr, ox, oy, oz, dx, dy, dz, t, u, v) &&
-              t < bt && tr[9] >= 0.0f) {
-            bt = t;
-            bi = (int)tr[9];
-            bu = u;
-            bv = v;
-          }
+        if (is_leaf(ref) && leaf == kNone) {   // postpone the first leaf
+          leaf = ref;
+          ref = st.pop(bt);
         }
-        if (kAnyHit && bi >= 0) break;
       }
-      // pop the next entry that can still hold a closer hit
-      if (!pop_entry(stack_ref, stack_t, sp, bt, ref)) break;
+      if (!__any_sync(kWarp, has_ray && ref >= 0 && leaf == kNone)) break;
+    }
+
+    // ---- test the postponed leaves ----
+    while (leaf != kNone) {
+      const int code = ~leaf;
+      const int first = code >> kLeafBits;
+      const int count = code & ((1 << kLeafBits) - 1);
+      const float4* row = tris + 3 * (long long)first;
+      for (int k = 0; k < count; ++k) {
+        const float4 p = __ldg(row + 3 * k);
+        const float4 q = __ldg(row + 3 * k + 1);
+        const float4 s = __ldg(row + 3 * k + 2);
+        const int slot = first + k;
+        float t, u, v;
+        if (moller_trumbore(p.x, p.y, p.z, q.x, q.y, q.z, s.x, s.y, s.z, ox,
+                            oy, oz, dx, dy, dz, t, u, v) &&
+            (t < bt || (t == bt && slot < bs))) {
+          bt = t;
+          bs = slot;
+          bi = (int)p.w;
+          bu = u;
+          bv = v;
+        }
+      }
+      if (kAnyHit && bs >= 0) {
+        ref = kNone;
+        leaf = kNone;
+      } else if (is_leaf(ref)) {        // a second leaf was found meanwhile
+        leaf = ref;
+        ref = st.pop(bt);
+      } else {
+        leaf = kNone;
+      }
+    }
+
+    // ---- write finished rays ----
+    if (has_ray && ref == kNone && leaf == kNone) {
+      out_i[r] = bi;
+      out_t[r] = bs >= 0 ? bt : INFINITY;
+      out_u[r] = bu;
+      out_v[r] = bv;
+      has_ray = false;
     }
   }
-  out_i[r] = bi;
-  out_t[r] = bi >= 0 ? bt : INFINITY;
-  out_u[r] = bu;
-  out_v[r] = bv;
+}
+
+template <bool kAnyHit, bool kPersistent>
+cudaError_t launch(const float* origin, const float* direction,
+                   const uint8_t* active, const float* t_max,
+                   long long n_rays, const float* nodes, const float* tris,
+                   unsigned long long* next_ray, int* out_i, float* out_t, float* out_u, float* out_v,
+                   cudaStream_t s) {
+  const auto kernel = bvh2_kernel<kAnyHit, kPersistent>;
+  long long blocks = (n_rays + kThreads - 1) / kThreads;
+  if (kPersistent) {
+    int dev = 0, sms = 0, resident = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                        kThreads, 0);
+    if (e != cudaSuccess) return e;
+    const long long card = (long long)sms * (resident > 1 ? resident : 1);
+    if (blocks > card) blocks = card;
+  }
+  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+      origin, direction, active, t_max, n_rays,
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), next_ray, out_i, out_t, out_u,
+      out_v);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// next_ray: the persistent instance's ray counter, 8 bytes that this call
+// zeroes on `stream` before the launch (unused with persistent = 0).
 extern "C" int clive2_bvh2(const float* origin, const float* direction,
                            const uint8_t* active, const float* t_max,
-                           long long n_rays, const float* nodebox,
-                           const int* childs, const float* leaves,
-                           int any_hit, int* out_i, float* out_t,
-                           float* out_u, float* out_v, void* stream) {
-  const long long blocks = (n_rays + kThreads - 1) / kThreads;
+                           long long n_rays, const float* nodes,
+                           const float* tris, unsigned long long* next_ray,
+                           int any_hit, int persistent, int* out_i,
+                           float* out_t, float* out_u, float* out_v,
+                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (any_hit) {
-    bvh2_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        origin, direction, active, t_max, n_rays, nodebox, childs, leaves,
-        out_i, out_t, out_u, out_v);
-  } else {
-    bvh2_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        origin, direction, active, t_max, n_rays, nodebox, childs, leaves,
-        out_i, out_t, out_u, out_v);
+  if (persistent) {
+    if (next_ray == nullptr) return (int)cudaErrorInvalidValue;
+    cudaError_t z = cudaMemsetAsync(next_ray, 0, sizeof(*next_ray), s);
+    if (z != cudaSuccess) return (int)z;
   }
-  return (int)cudaGetLastError();
+#define CLIVE2_BVH2_LAUNCH(A, P)                                            \
+  launch<A, P>(origin, direction, active, t_max, n_rays, nodes, tris,       \
+               next_ray, out_i, out_t, out_u, out_v, s)
+  cudaError_t e;
+  if (any_hit) {
+    e = persistent ? CLIVE2_BVH2_LAUNCH(true, true)
+                   : CLIVE2_BVH2_LAUNCH(true, false);
+  } else {
+    e = persistent ? CLIVE2_BVH2_LAUNCH(false, true)
+                   : CLIVE2_BVH2_LAUNCH(false, false);
+  }
+#undef CLIVE2_BVH2_LAUNCH
+  return (int)e;
+}
+
+// What the runtime reports of one instance: registers per thread, static
+// shared bytes per block, local bytes per thread, resident blocks per SM
+// and the SMs of the current device.
+extern "C" int clive2_bvh2_info(int any_hit, int persistent, int* out) {
+  const void* fn =
+      any_hit ? (persistent ? (const void*)bvh2_kernel<true, true>
+                            : (const void*)bvh2_kernel<true, false>)
+              : (persistent ? (const void*)bvh2_kernel<false, true>
+                            : (const void*)bvh2_kernel<false, false>);
+  cudaFuncAttributes a;
+  int dev = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], fn, kThreads, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[4], cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
 }

@@ -12,7 +12,9 @@ entry point launches one kernel, does not synchronise, and returns
 
 Flags: ``sm_90a`` (Hopper) and ``--fmad=false``, so that a kernel rounds
 exactly as its plain PyTorch version (separate multiplies and adds) and
-their hit ids can be held equal on every ray.
+their hit ids can be held equal on every ray.  The compiles also ask ptxas
+for its resource report (``-Xptxas -v``: registers, shared memory, spills
+per kernel), kept beside the library (``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,10 @@ _RAYS = [_P, _P, _P, _P, ctypes.c_int64]     # origin, direction, active,
 _OUTS = [_P, _P, _P, _P]                     # t_max, n | i, t, u, v
 _SIGNATURES = {
     "clive2_brute": _RAYS + [_P, ctypes.c_int] + _OUTS + [_P],
-    "clive2_bvh2": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
+    # nodes, tris, ray counter | any_hit, persistent
+    "clive2_bvh2": _RAYS + [_P] * 3 + [ctypes.c_int] * 2 + _OUTS + [_P],
+    "clive2_bvh2_first": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
+    "clive2_bvh2_info": [ctypes.c_int, ctypes.c_int, _P],
     "clive2_stream2": _RAYS + [_P] * 7 + [ctypes.c_int] + _OUTS + [_P],
     "clive2_wide": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
     "clive2_stream": _RAYS + [_P] * 6 + [ctypes.c_int] + _OUTS + [_P],
@@ -84,7 +89,7 @@ def library_path() -> str:
 
 def _run_all(commands):
     """Run the commands at once; raise with the output of those that
-    failed."""
+    failed, else return their outputs."""
     procs = []
     try:
         for cmd in commands:
@@ -102,6 +107,7 @@ def _run_all(commands):
               for c, p, out in zip(commands, procs, outs) if p.returncode]
     if errors:
         raise RuntimeError("\n".join(errors))
+    return outs
 
 
 def build() -> tuple[str, float]:
@@ -115,12 +121,25 @@ def build() -> tuple[str, float]:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cus = [s for s in sources() if s.endswith(".cu")]
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cus]
-        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", o, s]
-                  for s, o in zip(cus, objs)])
+        outs = _run_all([[nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                          o, s] for s, o in zip(cus, objs)])
         lib = os.path.join(tmp, "lib.so")
         _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        with open(os.path.join(tmp, "ptxas.txt"), "w") as f:
+            f.writelines(f"== {os.path.basename(s)}\n{out}"
+                         for s, out in zip(cus, outs))
+        os.replace(os.path.join(tmp, "ptxas.txt"), so + ".ptxas.txt")
         os.replace(lib, so)          # atomic: concurrent builds race safely
     return so, time.perf_counter() - t0
+
+
+def ptxas_report(source: str) -> str:
+    """ptxas's report (``-Xptxas -v``) on the kernels of ``source`` (a file
+    name in ``csrc/``) from the build of the current sources."""
+    with open(library_path() + ".ptxas.txt") as f:
+        text = f.read()
+    part = text.split(f"== {source}\n", 1)[1]
+    return part.split("\n== ", 1)[0]
 
 
 def load():

@@ -22,6 +22,7 @@ from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
 from clive2_tpu_torch.ops import traverse_stream, traverse_stream2
 from clive2_tpu_torch.ops import traverse_wide
+from clive2_tpu_torch.testing import tie_soup
 
 pytestmark = pytest.mark.cuda
 
@@ -71,23 +72,68 @@ def test_brute_kernel_matches_plain(dev, masked):
     _assert_same(got, brute.brute_plain(o, d, tris, **kw))
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_bvh2_kernel_matches_gather_walk(dev, any_hit):
-    gen = torch.Generator(device=dev).manual_seed(2)
-    soup = _soup(2, 3000)
-    bvh = build_bvh(soup)
-    rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
-    scene = dict(
+def _bvh2_scene(dev, rows):
+    return dict(
         bvh={k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
         bvh2={k: torch.from_numpy(v).to(dev) for k, v in
               traverse_bvh2.pack_bvh2(rows["node_packed"],
                                       rows["leaf_packed"]).items()})
-    o, d, active, t_max = _rays(gen, 50_000, dev)
+
+
+BVH2_CASES = ["closest", "capped", "any_hit", "ties", "odd_count",
+              "all_inactive", "empty"]
+
+
+@pytest.mark.parametrize("case", BVH2_CASES)
+@pytest.mark.parametrize("instance", traverse_bvh2.INSTANCES)
+def test_bvh2_kernel_matches_gather_walk(dev, instance, case):
+    """Every instance equals the gather walk on every ray (any-hit: the
+    verdicts); on the tie soup every hit of the default and ``one_per_ray``
+    is the id at the lower slot, while ``pr1``, which breaks ties in its
+    visit order, hits the same pair at the same t; a cast of no rays
+    launches nothing, an all-inactive one writes misses."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if case == "ties":
+        rows, lower = tie_soup(2, 2000)
+    else:
+        soup = _soup(2, 3000)
+        bvh = build_bvh(soup)
+        rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    scene = _bvh2_scene(dev, rows)
+    n = {"odd_count": 50_001, "empty": 0}.get(case, 50_000)
+    o, d, active, t_max = _rays(gen, n, dev)
+    if case == "ties":
+        aim = (torch.rand(n, 3, generator=gen, device=dev) * 10 - 5) - o
+        d = aim / aim.norm(dim=1, keepdim=True)
+        active, t_max = None, None
+    elif case == "closest":
+        t_max = None
+    elif case == "all_inactive":
+        active = torch.zeros_like(active)
+    any_hit = case == "any_hit"
+    before = traverse_bvh2.intersect_bvh2.launches
     got = traverse_bvh2.intersect_bvh2(o, d, scene, active=active,
-                                       t_max=t_max, any_hit=any_hit)
+                                       t_max=t_max, any_hit=any_hit,
+                                       instance=instance)
+    assert traverse_bvh2.intersect_bvh2.launches == before + (n > 0)
     want = intersect.intersect_bvh_packed(o, d, scene["bvh"], active=active,
                                           t_max=t_max)
+    hits = int((got[0] >= 0).sum())
+    if case == "all_inactive":
+        assert hits == 0 and not torch.isfinite(got[1]).any()
+    elif n:
+        assert hits > 1000
+    if case == "ties" and instance == "pr1":
+        hit = want[0] >= 0
+        assert torch.equal(got[0] >= 0, hit)
+        assert torch.equal(got[1][hit], want[1][hit])
+        np.testing.assert_array_equal(lower(got[0][hit].cpu().numpy()),
+                                      lower(want[0][hit].cpu().numpy()))
+        return
     _assert_same(got, want, closest=not any_hit)
+    if case == "ties":
+        ids = got[0][got[0] >= 0].cpu().numpy()
+        np.testing.assert_array_equal(ids, lower(ids))
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

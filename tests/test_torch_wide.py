@@ -25,6 +25,7 @@ import torch
 from clive2_tpu.ops import intersect as jax_isect
 from clive2_tpu.ops import traverse_wide as jax_wide
 from clive2_tpu_torch.ops import traverse_wide as tw
+from clive2_tpu_torch.testing import swap_pair_ids
 from test_pallas_kernels import _assert_hits_equal
 from test_torch_intersect import _rays, _soup, _t
 from test_torch_stream2 import _jax_tree
@@ -194,24 +195,13 @@ def tie_case(seed):
     rng = np.random.default_rng(seed)
     base = _soup(rng, 700)
     rows = dict(_jax_tree(np.concatenate([base, base]))[2])
-    flat = rows["leaf_packed"].reshape(-1, 10).copy()
-    swap = np.arange(1400)
-    half = np.nonzero(rng.uniform(size=700) < 0.5)[0]
-    swap[half], swap[half + 700] = half + 700, half
-    filled = flat[:, 9] >= 0
-    geom = flat[filled, 9].astype(np.int64)        # geometry of each slot
-    flat[filled, 9] = swap[geom]
-    rows["leaf_packed"] = flat.reshape(rows["leaf_packed"].shape)
-    slot_of = np.empty(1400, np.int64)              # geometry -> slot
-    slot_of[geom] = np.nonzero(filled)[0]
+    rows["leaf_packed"], lower = swap_pair_ids(rows["leaf_packed"], 700, rng)
     o, d = _aimed_rays(rng, 1500)
 
     def check(got):
         hit = got >= 0
         assert hit.sum() > 200
-        k = swap[got[hit]] % 700                    # the pair hit
-        lower = np.where(slot_of[k] < slot_of[k + 700], k, k + 700)
-        np.testing.assert_array_equal(got[hit], swap[lower])
+        np.testing.assert_array_equal(got[hit], lower(got[hit]))
         assert (got[hit] >= 700).any() and (got[hit] < 700).any()
 
     return rows, o, d, check
