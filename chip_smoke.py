@@ -6,13 +6,15 @@ Builds the port's CUDA kernels from clive2_tpu_torch/csrc, holds each
 against its plain PyTorch version on the card (on synthetic ray sets, then
 on the casts the main path itself gives the kernel, recorded from one
 sample of each configuration; the queued fat-leaf traversal also kernel by
-kernel on one round of the first chunk of each of its casts), times both on those casts (and,
-on the BVH scenes' casts, the other kernels that can carry the scene as an
-A/B: on the fat-leaf casts also the per-thread fat-leaf kernel, the
-FP32-only leaf test and other tail sizes),
-with the BVH2 kernel's A/B instances (the first design, ``pr1``, and
-``one_per_ray``, the walk without the ray fetch) on its casts and a soup
-of exact ties,
+kernel on one round of the first chunk of each of its casts), times both on
+those casts (and, on the BVH scenes' casts, the other kernels that can carry
+the scene as an A/B: on the fat-leaf casts also the per-thread fat-leaf
+kernel, the FP32-only leaf test and other tail sizes), holds the BVH2 and
+streaming kernels to a soup of exact ties, reports what an exact
+early-reject pre-test would end on the brute casts (by lane and by warp), a
+development build of it with ``--fmad=true`` beside the exact one, and the
+SASS instructions per triangle test, and the persistent traversal kernels'
+registers, shared memory, spills and resident blocks, then
 renders the main-path configurations through ``create_scene_from_preset``
 -> ``Renderer.run_sample()`` with launch counters proving which kernel
 carried every cast, 2 samples each: Cornell ``empty`` at 1920x1080 and
@@ -33,17 +35,24 @@ launches on the main path, error, time, plain time, the time of the one
 PyTorch call that computes the same function where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s of FP32, counted from the work the plain walks
-did) and the
-card's name and power limit.  The last line is
+did in one call) and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports no JAX.
+
+    python3 chip_smoke.py --sass LIBRARY
+
+prints the SASS figures of a built kernel library (any checkout's
+``clive2_tpu_torch/build/*.so``) and exits, so that two builds can be
+compared on one machine.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +108,25 @@ def cuda_time(fn, iters: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def plain_time(fn):
+    """One call of a plain version timed with CUDA events, the work it
+    counted (ops/intersect.py:WORK) cleared before it: (ms, output,
+    work)."""
+    import torch
+
+    from clive2_tpu_torch.ops.intersect import WORK
+
+    WORK.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out, dict(WORK)
 
 
 def record_casts(module, wrapper, renderer):
@@ -170,55 +198,123 @@ def environment(**env):
                 os.environ[k] = v
 
 
-def bvh2_table_bytes(tables):
-    """Bytes of the BVH2 kernel's tables and of the first design's."""
-    def size(keys):
-        return sum(tables[k].numel() * tables[k].element_size() for k in keys)
-
-    return dict(kernel=size(("nodes", "tris")),
-                first_design=size(("nodebox", "childs", "leaves")))
+def table_bytes(tables):
+    """Bytes of a kernel's tables."""
+    return sum(t.numel() * t.element_size() for t in tables.values())
 
 
-def bvh2_ab(c, data, ref, label):
-    """The BVH2 kernel's A/B instances on cast ``c`` (``pr1``, the first
-    design; ``one_per_ray``, the walk without the ray fetch), each timed
-    over 5 launches and held to ``ref``, the default's outputs (ids, t, u,
-    v on closest-hit casts, verdicts on any-hit ones).  ``pr1`` resolves
-    exact ties in visit order, so where its closest-hit ids differ the
-    default is held to the gather walk on those rays instead.  Returns
-    {instance: dict(ms, mrays_s, ids_equal)}, with pr1's differing rays and
-    how many of them it got right."""
+def brute_pretest(c, tris, warps=1 << 14):
+    """The exact pre-test of csrc/brute.cu's note (not run by the kernel;
+    ops/brute.py:pretest_stage) on every
+    k-th warp of cast ``c`` (32 consecutive rays, at most ``warps`` of
+    them): the share of the active lanes' triangle tests that end at each
+    stage, and the share of (warp, triangle) pairs in which some active
+    lane reaches each stage (a warp runs a stage when any lane does)."""
     import torch
 
-    from clive2_tpu_torch.ops import traverse_bvh2 as tb
-    from clive2_tpu_torch.ops.intersect import intersect_bvh_packed
+    from clive2_tpu_torch.ops import brute
 
-    out, rays = {}, c["origin"].shape[0]
-    for name in ("pr1", "one_per_ray"):
-        ms, got = cuda_time(lambda: tb.intersect_bvh2(
-            c["origin"], c["direction"], data, active=c["active"],
-            t_max=c["t_max"], any_hit=c["any_hit"], instance=name), 5)
-        out[name] = dict(ms=ms, mrays_s=rays / ms / 1e3,
-                         ids_equal=bool(torch.equal(got[0], ref[0])))
-        if name == "pr1" and not c["any_hit"]:
-            diff = torch.nonzero(got[0] != ref[0]).squeeze(1)
-            sub = {k: v if k == "any_hit" or v is None else v[diff]
-                   for k, v in c.items()}
-            want = intersect_bvh_packed(sub["origin"], sub["direction"],
-                                        data["bvh"], active=sub["active"],
-                                        t_max=sub["t_max"])
-            compare_hits(tuple(x[diff] for x in ref), want,
-                         f"{label} bvh2 where pr1 differs")
-            same = got[0] == ref[0]
-            compare_hits(tuple(x[same] for x in got),
-                         tuple(x[same] for x in ref), f"{label} bvh2 pr1")
-            out[name].update(differing_rays=int(diff.numel()),
-                             pr1_equals_gather_walk_on=int(
-                                 (got[0][diff] == want[0]).sum()))
-        else:
-            compare_hits(got, ref, f"{label} bvh2 {name}",
-                         closest=not c["any_hit"])
-        del got
+    n = c["origin"].shape[0] // 32 * 32
+    k = max(1, n // 32 // warps)
+    idx = (torch.arange(0, n // 32, k, device=c["origin"].device)[:, None]
+           * 32 + torch.arange(32, device=c["origin"].device)).ravel()
+    act = (torch.ones(idx.numel(), dtype=torch.bool, device=idx.device)
+           if c["active"] is None else c["active"][idx].bool())
+    stage = brute.pretest_stage(c["origin"][idx], c["direction"][idx], tris)
+    lanes = stage[act].long()
+    reach = torch.where(act[:, None], stage.long(), -1).reshape(
+        -1, 32, tris.shape[0]).amax(1)
+    return dict(
+        warps=int(idx.numel() // 32), warp_stride=k,
+        lane_end_share={s: float((lanes == i).float().mean())
+                        for i, s in enumerate(brute.STAGES)},
+        pretest_end_share=float((lanes < 3).float().mean()),
+        warp_reach_share={s: float((reach >= i).float().mean())
+                          for i, s in enumerate(brute.STAGES)})
+
+
+def brute_fmad(c, tris, ref):
+    """A development build of csrc/brute.cu with --fmad=true in place of
+    --fmad=false (not used by the port), timed on cast ``c`` over 5
+    launches beside the exact kernel's output ``ref``: the share of rays
+    whose ids agree and the largest |t| difference where they do."""
+    import torch
+
+    from clive2_tpu_torch import kernels
+
+    flags = ["--fmad=true" if f == "--fmad=false" else f
+             for f in kernels.NVCC_FLAGS]
+    so = os.path.join(kernels.BUILD_DIR, "brute_fmad_true.so")
+    t0 = time.perf_counter()
+    subprocess.run([kernels.nvcc(), *flags, "-shared", "-o", so,
+                    os.path.join(kernels.CSRC, "brute.cu")], check=True,
+                   capture_output=True, timeout=600)
+    build_s = time.perf_counter() - t0
+    fn = ctypes.CDLL(so).clive2_brute
+    fn.argtypes = kernels._SIGNATURES["clive2_brute"]
+    fn.restype = ctypes.c_int
+    rays = kernels.ray_args(c["origin"], c["direction"], c["active"],
+                            c["t_max"])
+
+    def run():
+        out = kernels.hit_outputs(c["origin"])
+        rc = fn(*rays.pointers(), kernels.ptr(tris),
+                ctypes.c_int(tris.shape[0]), *map(kernels.ptr, out),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"brute --fmad=true: CUDA error {rc}")
+        return out
+
+    ms, got = cuda_time(run, 5)
+    same = got[0] == ref[0]
+    hit = same & (ref[0] >= 0)
+    return dict(ms=ms, build_s=build_s,
+                ids_agree=float(same.float().mean()),
+                max_abs_t_diff=float((got[1][hit] - ref[1][hit]).abs().max())
+                if hit.any() else 0.0)
+
+
+def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
+                                      "stream_kernel")):
+    """SASS instruction counts of the named kernels in a built library
+    (``cuobjdump -sass``): per kernel instance, its instructions, and for
+    the innermost loop that holds a MUFU.RCP (the triangle test's
+    1 / a), its instructions, its MUFU.RCPs and their ratio, the
+    instructions per triangle test that reaches the division (the loop
+    unrolled k times holds k of them)."""
+    from clive2_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        short = next((k for k in kernels_of if k in name), None)
+        if short is None:
+            continue
+        code = [(int(a, 16), ins.strip()) for a, ins in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        addr = [a for a, _ in code]
+        loops = []
+        for a, ins in code:
+            m = re.search(r"\bBRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)", ins)
+            if m and int(m.group(1), 16) <= a:
+                loops.append((int(m.group(1), 16), a))
+        best = None
+        for lo, hi in loops:
+            if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                   for l2, h2 in loops):
+                continue                              # not innermost
+            body = [ins for a, ins in code if lo <= a <= hi]
+            rcp = sum("MUFU.RCP" in ins for ins in body)
+            if rcp and (best is None or len(body) > best["instructions"]):
+                best = dict(instructions=len(body), mufu_rcp=rcp,
+                            per_test=len(body) / rcp)
+        tag = "any_hit" if "ILb1E" in name else (
+            "closest" if "ILb0E" in name else "")
+        out[f"{short} {tag}".strip()] = dict(instructions=len(addr),
+                                             triangle_loop=best)
     return out
 
 
@@ -644,15 +740,20 @@ def main() -> int:
     emit(phase="build", library=os.path.relpath(so),
          sources=[os.path.relpath(src) for src in kernels.sources()],
          nvcc_seconds=nvcc_s, seconds=time.perf_counter() - t0)
-    # the BVH2 kernel's resources: ptxas's report (registers, shared memory,
-    # spills) and what the runtime reports per instance (resident blocks)
-    ptxas = kernels.ptxas_report("traverse_bvh2.cu")
-    emit(phase="bvh2_resources",
-         ptxas=[ln.strip() for ln in ptxas.splitlines()
-                if "Used" in ln or "spill" in ln or "Compiling" in ln],
-         runtime={f"{'any_hit' if a else 'closest'} {i or 'default'}":
-                  traverse_bvh2.kernel_info(any_hit=a, instance=i)
-                  for a in (False, True) for i in (None, "one_per_ray")})
+    # the persistent traversal kernels' and the brute kernel's resources:
+    # ptxas's report (registers, shared memory, spills), what the runtime
+    # reports (resident blocks), and their SASS instruction counts
+    for name, src, module in (("bvh2", "traverse_bvh2.cu", traverse_bvh2),
+                              ("stream", "traverse_stream.cu",
+                               traverse_stream), ("brute", "brute.cu", None)):
+        ptxas = kernels.ptxas_report(src)
+        emit(phase=f"{name}_resources",
+             ptxas=[ln.strip() for ln in ptxas.splitlines()
+                    if "Used" in ln or "spill" in ln or "Compiling" in ln],
+             runtime=None if module is None else {
+                 "any_hit" if a else "closest": module.kernel_info(any_hit=a)
+                 for a in (False, True)})
+    emit(phase="sass", library=os.path.relpath(so), kernels=sass_figures(so))
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     modules = dict(bvh2=traverse_bvh2, stream2=traverse_stream2,
@@ -683,7 +784,16 @@ def main() -> int:
         "random": random_rays(1 << 20, -10.0, 10.0, gen, dev),
         "camera": (cam_o["origin"], cam_o["direction"]),
     }
-    checks = 0
+    # the hand-built edges of the test (and of the pre-test), each against
+    # both edge triangles
+    from clive2_tpu_torch.testing import brute_edge_cases
+
+    eo, ed, etris = (torch.from_numpy(x).to(dev) for x in brute_edge_cases())
+    for k in range(etris.shape[0]):
+        got = brute.intersect_brute(eo, ed, etris[k:k + 1])
+        compare_hits(got, brute.brute_plain(eo, ed, etris[k:k + 1]),
+                     f"brute pre-test edges, triangle {k}")
+    checks = 2
     for tname, tris in (("cornell", cornell.data["brute"]["tris"]),
                         ("soup256", soup_tris)):
         for rname, (o, d) in ray_sets.items():
@@ -699,7 +809,7 @@ def main() -> int:
                 checks += 1
     torch.cuda.synchronize()
     emit(phase="kernel_brute_vs_plain", checks=checks,
-         max_abs_err_t=err["brute"], ids_equal=True)
+         edge_rays=eo.shape[0], max_abs_err_t=err["brute"], ids_equal=True)
 
     # ---- 4. BVH2 kernel vs the plain gather walk --------------------------
     from clive2_tpu_torch.load import write_obj
@@ -722,9 +832,8 @@ def main() -> int:
         "coherent": (cam_t["origin"], cam_t["direction"]),
         "incoherent": random_rays(1 << 18, lo, hi, gen, dev),
     }
-    # every instance of the kernel (the default and the two A/B instances)
-    # on each set: closest-hit, and any-hit under a finite cap
-    # (visibility casts)
+    # each set: closest-hit, and any-hit under a finite cap (visibility
+    # casts)
     checks = 0
     for rname, (o, d) in sets.items():
         n = o.shape[0]
@@ -734,56 +843,53 @@ def main() -> int:
                                               active=active)
         want_any = intersect.intersect_bvh_packed(
             o, d, teapots.data["bvh"], active=active, t_max=t_max)
-        for instance in traverse_bvh2.INSTANCES:
-            got = traverse_bvh2.intersect_bvh2(o, d, teapots.data,
-                                               active=active,
-                                               instance=instance)
-            e = compare_hits(got, want, f"bvh2 {instance} {rname} closest")
-            err["bvh2"] = max(err["bvh2"], e)
-            got = traverse_bvh2.intersect_bvh2(
-                o, d, teapots.data, active=active, t_max=t_max,
-                any_hit=True, instance=instance)
-            compare_hits(got, want_any, f"bvh2 {instance} {rname} any-hit",
-                         closest=False)
-            checks += 2
+        got = traverse_bvh2.intersect_bvh2(o, d, teapots.data, active=active)
+        e = compare_hits(got, want, f"bvh2 {rname} closest")
+        err["bvh2"] = max(err["bvh2"], e)
+        got = traverse_bvh2.intersect_bvh2(o, d, teapots.data, active=active,
+                                           t_max=t_max, any_hit=True)
+        compare_hits(got, want_any, f"bvh2 {rname} any-hit", closest=False)
+        checks += 2
     # the tie soup: 5,000 triangles twice, ids swapped in half the pairs;
     # every hit an exact tie, won by the lower slot
+    # the tie soup: 5,000 triangles twice, ids swapped in half the pairs;
+    # every hit an exact tie, won by the lower slot.  The BVH2 kernel here,
+    # the streaming kernel in phase 4b, on the same rays.
     rows, lower = tie_soup(9, 5000)
     ties = dict(bvh={k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
-                bvh2={k: torch.from_numpy(v).to(dev) for k, v in
-                      traverse_bvh2.pack_bvh2(rows["node_packed"],
-                                              rows["leaf_packed"]).items()})
+                **{name: {k: torch.from_numpy(v).to(dev) for k, v in
+                          pack(rows["node_packed"],
+                               rows["leaf_packed"]).items()}
+                   for name, pack in (("bvh2", traverse_bvh2.pack_bvh2),
+                                      ("stream",
+                                       traverse_stream.pack_stream))})
     o, _ = random_rays(1 << 18, -8.0, 8.0, gen, dev)
     aim = torch.rand(1 << 18, 3, generator=gen, device=dev) * 10 - 5 - o
-    d = aim / aim.norm(dim=1, keepdim=True)
-    want = intersect.intersect_bvh_packed(o, d, ties["bvh"])
-    tie_hits = int((want[0] >= 0).sum())
-    pr1_lower = None
-    for instance in traverse_bvh2.INSTANCES:
-        got = traverse_bvh2.intersect_bvh2(o, d, ties, instance=instance)
+    tie_rays = (o, aim / aim.norm(dim=1, keepdim=True))
+    tie_want = intersect.intersect_bvh_packed(*tie_rays, ties["bvh"])
+    tie_hits = int((tie_want[0] >= 0).sum())
+
+    def tie_check(got, label):
+        e = compare_hits(got, tie_want, f"{label} tie soup")
         ids = got[0][got[0] >= 0].cpu().numpy()
-        if instance == "pr1":
-            # the first design resolves ties in visit order: reported
-            pr1_lower = float((ids == lower(ids)).mean())
-            continue
-        e = compare_hits(got, want, f"bvh2 {instance} tie soup")
-        err["bvh2"] = max(err["bvh2"], e)
         if not (ids == lower(ids)).all():
-            raise AssertionError(f"bvh2 {instance} tie soup: a tie went to "
-                                 "the higher slot")
-        checks += 1
+            raise AssertionError(f"{label} tie soup: a tie went to the "
+                                 "higher slot")
+        return e
+
+    err["bvh2"] = max(err["bvh2"], tie_check(
+        traverse_bvh2.intersect_bvh2(*tie_rays, ties), "bvh2"))
+    checks += 1
     if tie_hits < 10_000:
         raise AssertionError(f"tie soup: only {tie_hits} hits")
     torch.cuda.synchronize()
     emit(phase="kernel_bvh2_vs_plain", checks=checks, scene_tris=
          teapots.n_triangles, scene_build_s=build_s,
-         instances=[str(i) for i in traverse_bvh2.INSTANCES],
          tie_soup=dict(tris=10_000, rays=1 << 18, hits=tie_hits,
-                       lower_slot_wins=True,
-                       pr1_lower_slot_share=pr1_lower),
-         bvh2_table_bytes=bvh2_table_bytes(teapots.data["bvh2"]),
+                       lower_slot_wins=True),
+         bvh2_table_bytes=table_bytes(teapots.data["bvh2"]),
          max_abs_err_t=err["bvh2"], ids_equal=True, any_hit_verdicts_equal=True)
-    del ties, rows, o, d, aim, want, want_any, got
+    del rows, o, aim, want, want_any, got
 
     # ---- 4b. the traversal kernels of the large and A/B paths vs plain ----
     # Each kernel against its plain version on 512^2 camera rays and 2^18
@@ -813,7 +919,9 @@ def main() -> int:
     emit(phase="scene", name="medium-dragon", selector="CLIVE2_STREAM_IMPL=1",
          scene_tris=dragon_s1.n_triangles, scene_build_s=build_s,
          bvh_build_s=bvh_s,
-         sub_leaves=dragon_s1.data["stream"]["sub_node"].numel())
+         sub_leaves=dragon_s1.data["stream"]["subs"].shape[0],
+         stream_table_bytes={k: table_bytes({k: v}) for k, v in
+                             dragon_s1.data["stream"].items()})
     for scene, want in ((dragon, "stream2"), (dragon_w, "wide"),
                         (dragon_s1, "stream")):
         got = sorted(set(scene.data) & set(PACKERS))
@@ -828,7 +936,7 @@ def main() -> int:
             c["origin"], c["direction"], data["wide"], data["bvh"],
             active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
         "stream": lambda c, data: traverse_stream.stream_plain(
-            c["origin"], c["direction"], data["stream"], data["bvh"],
+            c["origin"], c["direction"], data["stream"],
             active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
     }
 
@@ -863,6 +971,11 @@ def main() -> int:
                 any_ids_equal &= bool(torch.equal(got[0], want[0]))
                 hits[f"{rname} {variant}"] = int((want[0] >= 0).sum())
                 checks += 1
+        if name == "stream":
+            # the tie soup of phase 4, on the streaming kernel's tables
+            err["stream"] = max(err["stream"], tie_check(
+                traverse_stream.intersect_stream(*tie_rays, ties), "stream"))
+            checks += 1
         torch.cuda.synchronize()
         emit(phase=f"kernel_{name}_vs_plain", scene_tris=scene.n_triangles,
              checks=checks, hits=hits,
@@ -870,6 +983,7 @@ def main() -> int:
              ids_equal=True, any_hit_verdicts_equal=True,
              any_hit_ids_equal=any_ids_equal)
         del sets, cam, got, want
+    del ties, tie_rays, tie_want
 
     # ---- 5. the kernels on the main path's own casts ----------------------
     # One sample of each configuration runs with its kernel's wrapper
@@ -887,7 +1001,7 @@ def main() -> int:
             c["origin"], c["direction"], teapots.data["bvh"],
             active=c["active"], t_max=c["t_max"])
 
-    timing, bounds, compared = {}, {}, {}
+    timing, bounds, compared, pretest_of = {}, {}, {}, {}
     for name, scene, w, h, module, wrapper, kernel_fn, plain_fn, tables in (
             ("brute", cornell, 1920, 1080, brute, "intersect_brute",
              brute_cast(brute.intersect_brute), brute_cast(brute.brute_plain),
@@ -904,32 +1018,32 @@ def main() -> int:
                                  f"expected {sorted(shapes)}")
         for rays, c in sorted(casts.items()):
             ms, got = cuda_time(lambda: kernel_fn(c), 5)
-            WORK.clear()
-            plain_ms, want = cuda_time(lambda: plain_fn(c), 1)
+            plain_ms, want, work = plain_time(lambda: plain_fn(c))
             label = f"{name} {shapes[rays]} cast"
             e = compare_hits(got, want, label, closest=not c["any_hit"])
             err[name] = max(err[name], e)
             timing[name, shapes[rays]] = (ms, plain_ms)
             compared[name, shapes[rays]] = rays
             bounds[name, shapes[rays]] = bound(cast_bytes(c, tables),
-                                               work_ops(WORK))
-            work, ab = dict(WORK), {}
-            if name == "bvh2":
-                # the A/B instances, then the default once more (kernel,
-                # A/Bs, kernel)
-                ab = bvh2_ab(c, scene.data, got, label)
-                ab["default_again"] = dict(ms=cuda_time(
-                    lambda: kernel_fn(c), 5)[0])
-                for variant, v in ab.items():
-                    timing[name, shapes[rays], variant] = v["ms"]
+                                               work_ops(work))
+            extra = {}
+            if name == "brute":
+                # where an exact pre-test would end the tests, and a --fmad=true
+                # build timed beside the kernel (kernel, fmad, kernel)
+                tris = cornell.data["brute"]["tris"]
+                extra["pretest"] = brute_pretest(c, tris)
+                extra["fmad_true"] = brute_fmad(c, tris, got)
+                extra["ms_again"] = cuda_time(lambda: kernel_fn(c), 5)[0]
+                pretest_of[shapes[rays]] = extra["pretest"]
             emit(phase="main_path_cast", kernel=name, cast=shapes[rays],
                  rays=rays, any_hit=c["any_hit"],
                  active=rays if c["active"] is None else int(c["active"].sum()),
                  capped=c["t_max"] is not None, ms=ms, plain_ms=plain_ms,
                  mrays_s=rays / ms / 1e3, plain_mrays_s=rays / plain_ms / 1e3,
                  bound_ms=bounds[name, shapes[rays]][0],
-                 bound_by=bounds[name, shapes[rays]][1], work=work, ab=ab,
-                 max_abs_err_t=e, matches_plain=True)
+                 bound_by=bounds[name, shapes[rays]][1],
+                 bound_share=bounds[name, shapes[rays]][0] / ms, work=work,
+                 max_abs_err_t=e, matches_plain=True, **extra)
             del got, want
         del casts, c
     torch.cuda.empty_cache()
@@ -952,14 +1066,17 @@ def main() -> int:
     sponza_s1 = with_traversal(sponza, "stream")
     emit(phase="scene", name="sponza", selector="traversal='stream'",
          pack_s=time.perf_counter() - t0,
-         sub_leaves=sponza_s1.data["stream"]["sub_node"].numel())
+         sub_leaves=sponza_s1.data["stream"]["subs"].shape[0],
+         stream_table_bytes={k: table_bytes({k: v}) for k, v in
+                             sponza_s1.data["stream"].items()},
+         gather_walk_bytes=table_bytes(sponza.data["bvh"]))
     ab_scenes = {"medium_dragon": with_traversal(dragon, "bvh2"),
                  "sponza": with_traversal(sponza, "bvh2"),
                  "dragon": with_traversal(dragon_w, "bvh2")}
     for sname, ab_scene in ab_scenes.items():
         emit(phase="bvh2_tables", scene=sname,
              scene_tris=ab_scene.n_triangles,
-             bvh2_table_bytes=bvh2_table_bytes(ab_scene.data["bvh2"]))
+             bvh2_table_bytes=table_bytes(ab_scene.data["bvh2"]))
     s2 = traverse_stream2
     parts_of, bvh2_casts = {}, set()
     for name, sname, scene, w, h, ab in (
@@ -985,15 +1102,13 @@ def main() -> int:
             last = s2.intersect_stream2.last if name == "stream2" else None
             stride = -(-rays // (1 << 20))
             part = strided(c, stride)
-            WORK.clear()
-            plain_ms, want = cuda_time(lambda: plains[name](part, scene.data),
-                                       1)
+            plain_ms, want, work = plain_time(
+                lambda: plains[name](part, scene.data))
             got_part = tuple(x[::stride] for x in got)
             m = part["origin"].shape[0]
             label = f"{name} {sname} {shapes[rays]} cast"
             e = compare_hits(got_part, want, label, closest=not c["any_hit"])
             err[err_key(name, c)] = max(err[err_key(name, c)], e)
-            work = dict(WORK)
             timing[name, sname, shapes[rays]] = (ms, plain_ms)
             compared[name, sname, shapes[rays]] = m
             bounds[name, sname, shapes[rays]] = bound(
@@ -1013,8 +1128,7 @@ def main() -> int:
                 key = (sname, shapes[rays])
                 if ab_name == "bvh2" and key not in bvh2_casts:
                     # once per scene and cast: the BVH2 kernel against the
-                    # gather walk on the same strided rays, and its A/B
-                    # instances beside it
+                    # gather walk on the same strided rays
                     bvh2_casts.add(key)
                     want_b = intersect.intersect_bvh_packed(
                         part["origin"], part["direction"],
@@ -1024,14 +1138,11 @@ def main() -> int:
                                        want_b, f"{label} on bvh2",
                                        closest=not c["any_hit"])
                     err["bvh2"] = max(err["bvh2"], e_b)
-                    variants = bvh2_ab(c, ab_scene.data, ab_out,
-                                       f"{label} on")
                     emit(phase="bvh2_ab_cast", scene=sname,
                          cast=shapes[rays], rays=rays, any_hit=c["any_hit"],
                          ms=ab_ms, mrays_s=rays / ab_ms / 1e3,
                          compared_rays=m, compared_stride=stride,
-                         max_abs_err_t=e_b, matches_plain=True,
-                         variants=variants)
+                         max_abs_err_t=e_b, matches_plain=True)
                     del want_b
                 del ab_out
             if name == "stream2":
@@ -1098,6 +1209,7 @@ def main() -> int:
                  plain_mrays_s=m / plain_ms / 1e3,
                  bound_ms=bounds[name, sname, shapes[rays]][0],
                  bound_by=bounds[name, sname, shapes[rays]][1],
+                 bound_share=bounds[name, sname, shapes[rays]][0] / ms,
                  work=work, work_stride=stride,
                  rounds=last and last["rounds"],
                  tail_share=last and last["tail_rays"] / rays, ab=abs_,
@@ -1213,7 +1325,7 @@ def main() -> int:
 
     # ---- 9. summary ------------------------------------------------------
     # times: brute on Cornell 1080p's and BVH2 on teapots 512's connection
-    # casts (where their time goes; BVH2 with its A/B instances' times), the
+    # casts (where their time goes), the
     # streaming kernel on the medium dragon's and the wide kernel on the
     # dragon's extension cast (plain versions on every ray), the queued
     # fat-leaf traversal and the per-thread fat-leaf kernel on sponza
@@ -1255,8 +1367,11 @@ def main() -> int:
                  ("wide", "dragon", "extension")),
         cast_row("stream", "traverse_stream.cu", "traverse_stream.py:104",
                  ("stream", "medium_dragon", "extension"))]
-    for variant in ("pr1", "one_per_ray"):
-        rows[1][f"ab_{variant}_ms"] = timing["bvh2", "connection", variant]
+    rows[0]["pretest_end_share"] = pretest_of["connection"][
+        "pretest_end_share"]
+    rows[4]["sponza_connection"] = dict(
+        zip(("ms", "plain_ms"), timing["stream", "sponza", "connection"]),
+        bound_ms=bounds["stream", "sponza", "connection"][0])
     rows[2]["launches_are"] = ("queued casts; their kernels' launches are "
                                "the stream2_* rows")
     sponza_parts = parts_of["sponza", "connection"]
@@ -1302,6 +1417,10 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--sass":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        print(json.dumps(sass_figures(sys.argv[2])), flush=True)
+        sys.exit(0)
     try:
         code = main()
     except Exception as e:                 # report the phase that failed

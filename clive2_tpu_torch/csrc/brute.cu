@@ -9,22 +9,77 @@
 // best hit only when strictly closer, and the best t starts at the ray's
 // t_max.  Misses (and inactive rays) report i = -1 and t = inf.
 //
-// What bounds it on the H100: FP32 throughput.  A ray/triangle test is about
-// 30 flops and the table is at most 256 triangles, so the kernel reads 29
-// bytes of ray state and writes 16 bytes per ray against T * 30 flops: at
-// the Cornell connection cast (36 * N rays, about 20 triangles) that is
-// compute, not memory.
+// What bounds it on the H100: instruction issue.  Its bytes (45 per ray)
+// and its FP32 operations (about 50 per ray and triangle, 16 triangles on
+// the Cornell presets) give bounds of the same order, but built with
+// --fmad=false every multiply and add is its own instruction: the exact
+// test is about 72 issued instructions per triangle (57 of them the
+// arithmetic, the rest the IEEE reciprocal's range check, the compares and
+// the best-hit update), and the SMs issue about one per lane and cycle.
+// The only way down is fewer instructions per triangle.
 //
-// Design: one thread per ray, so the ray's registers carry the best hit and
-// there is no cross-lane reduction.  Each block stages the table into shared
-// memory once and then walks a grid-stride loop over rays; every thread of a
-// warp reads the same triangle word, which shared memory broadcasts.  The TPU
-// kernel's 8 x 128 ray planes, the padding of N to 1024-ray blocks and the
-// SMEM scalar table do not carry over: rays stay [N, 3] as the port holds
-// them.
+// Design: one thread per ray in a grid-stride loop, the ray's registers
+// carrying the best hit.  Each block stages the table into shared memory
+// once as three 16-byte rows per triangle (v0, e1, e2 with a zero each), so
+// a triangle is three broadcast 16-byte loads (the first design: ten
+// scalar loads of a 40-byte row), the hit test and the t < best t test are one
+// chain of predicated compares with no branch, and the triangle loop is
+// not unrolled (unrolled by two, as nvcc chooses, it was no faster and
+// took 44 registers against 40).  The TPU kernel's 8 x
+// 128 ray planes, the padding of N to 1024-ray blocks and the SMEM scalar
+// table do not carry over: rays stay [N, 3] as the port holds them.
 //
-// Rounding: the expressions are written in the plain version's order and the
-// file is compiled with --fmad=false, so both round identically.
+// The exact early-reject pre-test, measured and not kept.  It computed
+// h and a, then s and U, and ended a triangle's test when u < 0 or u > 1
+// was certain; then q and V (v < 0, u + v > 1), then T (t < 0); only the
+// survivors took f = 1 / a and the plain test.  It ends 89% of the active
+// lanes' tests on the Cornell 1080p connection cast, but a warp runs a
+// stage when any lane reaches it, and neighbouring connection rays go to
+// unrelated light vertices: 93% of (warp, triangle) pairs reach the v
+// stage and 70% the division.  The branches and the pre-test's compares
+// cost more than they saved: 4.17 ms against 3.14 on that cast (PERF.md,
+// NVIDIA H100 80GB HBM3, 700 W).  ops/brute.py:pretest_stage keeps the rule as a plain measurement
+// of what it would end on a cast (chip_smoke prints both shares), held to
+// brute_plain by tests/test_torch_intersect.py, for rays coherent enough to
+// make it pay.
+//
+// Why the pre-test never rejects a triangle brute_plain accepts.  Every
+// quantity is computed in brute_plain's order (--fmad=false), so a, U, V,
+// T are plain's floats.  Let lo = |a| * 2^-20 and hi = |a| * (1 + 2^-20),
+// rounded, and Ua, Va, Ta the values U, V, T with their sign flipped when
+// a is not > 0 (exact).  Plain's u = RN(f U) with f = RN(1 / a).
+//  (0) a = +-0: f = +-inf, so u is NaN (U = 0) or +-inf, and u >= 0 and
+//      u <= 1 cannot both hold.  Rejected first.
+//  (1) Ua < -lo (u < 0 certain): U and a are nonzero with opposite signs.
+//      If |a| >= 2^-106, lo is exact, so |U| > |a| 2^-20; f is normal with
+//      relative error <= 2^-24, or subnormal (|a| > 2^126) with 1/|a| >
+//      2^-128 and |U| > 2^106, so |f U| > 2^-23: u is negative and
+//      nonzero, never the -0.0 that underflow would give (-0.0 >= 0
+//      holds).  If |a| < 2^-106, |f| > 2^106 or f = inf, and |U| >= 2^-149,
+//      so |f U| >= 2^-43 (or u = -inf).  Either way u >= 0 fails.  The same
+//      holds for V (v < 0) and for T (t < 0, so t > kDelta fails).
+//  (2) Ua > hi (u > 1 certain): U and a have the same sign.  Let e =
+//      2^-24.  If hi is normal, hi >= |a| (1 + 16e)(1 - e); f carries a
+//      relative error of at most e (4e when f is subnormal), so f U > (1 +
+//      16e)(1 - e)(1 - 4e) > 1 + 8e = 1 + 2^-21 and u = RN(f U) >= 1 +
+//      2^-21.  If hi is subnormal, Ua is at least the float after hi, above
+//      |a| (1 + 2^-20) exactly, and f = 1 / a is normal (the same bound) or
+//      inf (u = inf).  If hi overflows to inf, nothing is rejected.  u <= 1
+//      fails.
+//  (3) Ua >= 0, Va >= 0 and RN(Ua + Va) > hi (u + v > 1 certain): U and V
+//      have a's sign, so |U| + |V| > |a| (1 + 16e)(1 - e) / (1 + e), and
+//      plain's u + v >= (|U| + |V|) / |a| (1 - 4e)(1 - e)^2 > 1 + 7e, which
+//      rounds to at least 1 + 2^-23.  u + v <= 1 fails.
+//  NaN in a, U, V or T makes every comparison false: nothing is rejected,
+//  and brute_plain rejects such a triangle anyway.  a = +-inf gives lo =
+//  hi = inf: nothing is rejected.
+// The margin 2^-20 is 16 times the relative rounding of each step, so the
+// pre-test gives up only triangles within 2^-20 of an edge, which the exact
+// test then decides.
+//
+// Rounding: the file is compiled with --fmad=false and the test is
+// common.cuh's expressions in brute_plain's order, so both round
+// identically.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,21 +89,45 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTris = 256;       // ops/brute.py:MAX_TRIS, a 10 KB table
+constexpr int kMaxTris = 256;       // ops/brute.py:MAX_TRIS, a 12 KB table
 
-__global__ void brute_kernel(const float* __restrict__ origin,
-                             const float* __restrict__ direction,
-                             const uint8_t* __restrict__ active,
-                             const float* __restrict__ t_max,
-                             long long n_rays,
-                             const float* __restrict__ tris, int n_tris,
-                             int* __restrict__ out_i,
-                             float* __restrict__ out_t,
-                             float* __restrict__ out_u,
-                             float* __restrict__ out_v) {
-  __shared__ float s_tris[kMaxTris * 10];
-  for (int k = threadIdx.x; k < n_tris * 10; k += blockDim.x) {
-    s_tris[k] = tris[k];
+// Möller-Trumbore of one triangle (common.cuh:moller_trumbore's
+// expressions) and the t < bt test, as one predicated chain.
+__device__ __forceinline__ bool hit_before(float4 p0, float4 p1, float4 p2,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float bt, float& t, float& u,
+                                           float& v) {
+  const float hx = dy * p2.z - dz * p2.y;
+  const float hy = dz * p2.x - dx * p2.z;
+  const float hz = dx * p2.y - dy * p2.x;
+  const float a = p1.x * hx + p1.y * hy + p1.z * hz;
+  const float f = 1.0f / a;
+  const float sx = ox - p0.x;
+  const float sy = oy - p0.y;
+  const float sz = oz - p0.z;
+  u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * p1.z - sz * p1.y;
+  const float qy = sz * p1.x - sx * p1.z;
+  const float qz = sx * p1.y - sy * p1.x;
+  v = f * (dx * qx + dy * qy + dz * qz);
+  t = f * (p2.x * qx + p2.y * qy + p2.z * qz);
+  return (u >= 0.0f) & (u <= 1.0f) & (v >= 0.0f) & (u + v <= 1.0f) &
+         (t > kDelta) & (t < bt);
+}
+
+__global__ void __launch_bounds__(kThreads)
+brute_kernel(const float* __restrict__ origin,
+             const float* __restrict__ direction,
+             const uint8_t* __restrict__ active,
+             const float* __restrict__ t_max, long long n_rays,
+             const float* __restrict__ tris, int n_tris,
+             int* __restrict__ out_i, float* __restrict__ out_t,
+             float* __restrict__ out_u, float* __restrict__ out_v) {
+  __shared__ float4 s_tris[kMaxTris * 3];
+  for (int k = threadIdx.x; k < n_tris * 3; k += blockDim.x) {
+    const float* src = tris + 10 * (k / 3) + 3 * (k % 3);
+    s_tris[k] = make_float4(src[0], src[1], src[2], 0.0f);
   }
   __syncthreads();
 
@@ -65,11 +144,11 @@ __global__ void brute_kernel(const float* __restrict__ origin,
       const float dx = direction[3 * r + 0];
       const float dy = direction[3 * r + 1];
       const float dz = direction[3 * r + 2];
+#pragma unroll 1
       for (int k = 0; k < n_tris; ++k) {
         float t, u, v;
-        if (moller_trumbore(s_tris + 10 * k, ox, oy, oz, dx, dy, dz, t, u,
-                            v) &&
-            t < bt) {
+        if (hit_before(s_tris[3 * k], s_tris[3 * k + 1], s_tris[3 * k + 2],
+                       ox, oy, oz, dx, dy, dz, bt, t, u, v)) {
           bt = t;
           bi = k;
           bu = u;

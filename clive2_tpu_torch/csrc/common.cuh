@@ -7,7 +7,9 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -94,6 +96,138 @@ __device__ __forceinline__ bool pop_entry(const int* stack_ref,
     }
   }
   return false;
+}
+
+// ---- persistent traversal warps (traverse_bvh2.cu, traverse_stream.cu) ----
+// Blocks of kWalkThreads threads, as many as the card holds resident; a
+// warp takes rays from a global counter whenever at least kRefill of its
+// lanes are free, and each lane walks a binary tree of 64-byte node records
+// with a stack of (reference, entry distance) split between shared and
+// local memory.
+
+constexpr int kWalkThreads = 128;
+constexpr int kWalkStack = 64;      // the packers' depth bound (STACK_SIZE)
+constexpr int kSharedStack = 16;    // entries per lane in shared memory
+constexpr int kRefill = 8;          // free lanes before a warp fetches rays
+constexpr int kNone = INT_MIN;      // no node
+constexpr unsigned kWarp = 0xffffffffu;
+
+// A child reference: >= 0 an inner node, else a leaf code (kNone: none).
+__device__ __forceinline__ bool is_leaf(int ref) {
+  return ref < 0 && ref != kNone;
+}
+
+// The shared part of the block's stacks: entry j of thread x at
+// j * kWalkThreads + x, so the lanes of a warp hit 32 different banks.
+__shared__ int walk_stack_ref[kSharedStack * kWalkThreads];
+__shared__ float walk_stack_t[kSharedStack * kWalkThreads];
+
+// One lane's stack of (reference, entry distance): the first kSharedStack
+// entries in shared memory, the rest in local memory.  A walk pushes at
+// most one entry per level above its node, so kWalkStack entries (the
+// packers' depth bound) cannot overflow.  Entries keep their f32 entry
+// distance: nothing is rounded.
+struct Stack {
+  int sp;
+  int deep_ref[kWalkStack - kSharedStack];
+  float deep_t[kWalkStack - kSharedStack];
+
+  __device__ __forceinline__ void push(int r, float tt) {
+    if (sp < kSharedStack) {
+      walk_stack_ref[sp * kWalkThreads + threadIdx.x] = r;
+      walk_stack_t[sp * kWalkThreads + threadIdx.x] = tt;
+    } else {
+      deep_ref[sp - kSharedStack] = r;
+      deep_t[sp - kSharedStack] = tt;
+    }
+    ++sp;
+  }
+
+  // The topmost entry whose entry distance is at most bt, dropping the
+  // entries above it; kNone when none is left.
+  __device__ __forceinline__ int pop(float bt) {
+    while (sp > 0) {
+      --sp;
+      if (sp < kSharedStack) {
+        const int j = sp * kWalkThreads + threadIdx.x;
+        if (walk_stack_t[j] <= bt) return walk_stack_ref[j];
+      } else if (deep_t[sp - kSharedStack] <= bt) {
+        return deep_ref[sp - kSharedStack];
+      }
+    }
+    return kNone;
+  }
+};
+
+// One fetch step of a persistent warp; every lane of the warp calls it.
+// Unless the warp is drained, when at least kRefill lanes are free lane 0
+// takes that many ray indices from *next_ray (one atomicAdd, broadcast by
+// shuffle) and each free lane gets the next in lane order; an inactive ray
+// is written as a miss at once, at no traversal cost.  Returns true on the
+// lanes that got an active ray (its index in r); sets drained, the same on
+// every lane, once the counter has passed n_rays.
+__device__ __forceinline__ bool fetch_ray(
+    bool has_ray, bool& drained, long long& r,
+    unsigned long long* __restrict__ next_ray, long long n_rays,
+    const uint8_t* __restrict__ active, int* __restrict__ out_i,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v) {
+  if (drained) return false;
+  const int lane = threadIdx.x & 31;
+  const unsigned free_lanes = __ballot_sync(kWarp, !has_ray);
+  const int n_free = __popc(free_lanes);
+  if (n_free < kRefill) return false;
+  unsigned long long b = 0;
+  if (lane == 0) b = atomicAdd(next_ray, (unsigned long long)n_free);
+  const long long base = (long long)__shfl_sync(kWarp, b, 0);
+  drained = base + n_free >= n_rays;
+  if (has_ray) return false;
+  r = base + __popc(free_lanes & ((1u << lane) - 1u));
+  if (r >= n_rays) return false;
+  if (active[r]) return true;
+  out_i[r] = -1;
+  out_t[r] = INFINITY;
+  out_u[r] = 0.0f;
+  out_v[r] = 0.0f;
+  return false;
+}
+
+// The grid of a persistent kernel: the blocks the card holds resident
+// (SMs x the occupancy the runtime reports), or fewer when the rays fill
+// fewer.
+inline cudaError_t resident_grid(const void* kernel, long long n_rays,
+                                 unsigned* blocks) {
+  int dev = 0, sms = 0, resident = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      kWalkThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long card = (long long)sms * (resident > 1 ? resident : 1);
+  const long long need = (n_rays + kWalkThreads - 1) / kWalkThreads;
+  *blocks = (unsigned)(need < card ? need : card);
+  return cudaSuccess;
+}
+
+// What the runtime reports of a kernel: registers per thread, static
+// shared bytes per block, local bytes per thread, resident blocks of
+// kWalkThreads per SM and the SMs of the current device.
+inline cudaError_t kernel_resources(const void* kernel, int* out) {
+  cudaFuncAttributes a;
+  int dev = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
+                                                    kWalkThreads, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[4], cudaDevAttrMultiProcessorCount, dev);
+  return e;
 }
 
 }  // namespace

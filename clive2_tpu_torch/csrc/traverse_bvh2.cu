@@ -5,8 +5,7 @@
 // Replaces the TPU kernel clive2_tpu/ops/traverse_pallas2.py:_kernel (:144,
 // pallas_call in _traverse_blocks :396; entry intersect_pallas2, packer
 // pack_bvh2).  The plain PyTorch version is the gather walk,
-// clive2_tpu_torch/ops/intersect.py:intersect_bvh_packed.  The first design
-// (one thread per ray, stack in local memory) is traverse_bvh2_first.cu.
+// clive2_tpu_torch/ops/intersect.py:intersect_bvh_packed.
 //
 // Tables (clive2_tpu_torch/ops/traverse_bvh2.py:pack_bvh2), 16-byte rows:
 //   nodes [inner, 16] f32  one 64-byte record per inner node, read as four
@@ -42,13 +41,15 @@
 //     misses when fetched, at no traversal cost.  kRefill = 8 was best or
 //     within 3% of the best of 1, 8, 16, 24 and 32 on the BVH2 casts of
 //     teapots, the dragons and sponza; 32, waiting for the whole warp, took
-//     up to 43% longer.  The "one_per_ray" instance gives each lane one ray
-//     by its index instead.  clive2_bvh2 zeroes the counter on the launch's
-//     stream before each launch.
-//  3. The stack: entry j of a lane lives in shared memory at j * kThreads +
-//     lane (no bank conflicts) for j < kSharedStack, deeper entries in a
-//     local array that only the deepest paths touch.  Capacity kStackSize
-//     matches the packer's depth bound, and a lane's stack holds at most
+//     up to 43% longer, and one lane per ray by its index (no fetch) 33-41%
+//     longer on the connection casts.  clive2_bvh2 zeroes the counter on
+//     the launch's stream before each launch.  The fetch and the stack are
+//     common.cuh's (fetch_ray, Stack), shared with traverse_stream.cu.
+//  3. The stack: entry j of a lane lives in shared memory at
+//     j * kWalkThreads + lane (no bank conflicts) for j < kSharedStack,
+//     deeper entries in a local array that only the deepest paths touch.
+//     Capacity kWalkStack matches the packer's depth bound, and a lane's
+//     stack holds at most
 //     one entry per level above its node, so it cannot overflow.  Entries
 //     keep their f32 entry distance: nothing is rounded.
 //  4. While-while traversal: a lane walks inner nodes until it finds a
@@ -76,7 +77,6 @@
 // decision and t, u, v match the gather walk exactly.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -84,59 +84,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kStackSize = 64;      // ops/traverse_bvh2.py:STACK_SIZE
-constexpr int kSharedStack = 16;    // entries per lane in shared memory
 constexpr int kLeafBits = 4;        // ops/traverse_bvh2.py:LEAF_BITS
-constexpr int kRefill = 8;          // free lanes before a warp fetches rays
-constexpr int kNone = INT_MIN;      // no node
-constexpr unsigned kWarp = 0xffffffffu;
 
-__device__ __forceinline__ bool is_leaf(int ref) {
-  return ref < 0 && ref != kNone;
-}
-
-// The shared part of the block's stacks: entry j of thread x at
-// j * kThreads + x, so the lanes of a warp hit 32 different banks.
-__shared__ int stack_ref[kSharedStack * kThreads];
-__shared__ float stack_t[kSharedStack * kThreads];
-
-// One lane's stack of (reference, entry distance): the first kSharedStack
-// entries in shared memory, the rest in local memory.
-struct Stack {
-  int sp;
-  int deep_ref[kStackSize - kSharedStack];
-  float deep_t[kStackSize - kSharedStack];
-
-  __device__ __forceinline__ void push(int r, float tt) {
-    if (sp < kSharedStack) {
-      stack_ref[sp * kThreads + threadIdx.x] = r;
-      stack_t[sp * kThreads + threadIdx.x] = tt;
-    } else {
-      deep_ref[sp - kSharedStack] = r;
-      deep_t[sp - kSharedStack] = tt;
-    }
-    ++sp;
-  }
-
-  // The topmost entry whose entry distance is at most bt, dropping the
-  // entries above it; kNone when none is left.
-  __device__ __forceinline__ int pop(float bt) {
-    while (sp > 0) {
-      --sp;
-      if (sp < kSharedStack) {
-        const int j = sp * kThreads + threadIdx.x;
-        if (stack_t[j] <= bt) return stack_ref[j];
-      } else if (deep_t[sp - kSharedStack] <= bt) {
-        return deep_ref[sp - kSharedStack];
-      }
-    }
-    return kNone;
-  }
-};
-
-template <bool kAnyHit, bool kPersistent>
-__global__ void __launch_bounds__(kThreads)
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kWalkThreads)
 bvh2_kernel(const float* __restrict__ origin,
             const float* __restrict__ direction,
             const uint8_t* __restrict__ active,
@@ -147,7 +98,6 @@ bvh2_kernel(const float* __restrict__ origin,
             int* __restrict__ out_i,
             float* __restrict__ out_t, float* __restrict__ out_u,
             float* __restrict__ out_v) {
-  const int lane = threadIdx.x & 31;
   Stack st;
   st.sp = 0;
 
@@ -162,59 +112,31 @@ bvh2_kernel(const float* __restrict__ origin,
   int leaf = kNone;         // a postponed leaf
 
   while (true) {
-    // ---- fetch rays into free lanes (warp-uniform decisions) ----
-    if (!drained) {
-      const unsigned free_lanes = __ballot_sync(kWarp, !has_ray);
-      const int n_free = __popc(free_lanes);
-      if (!kPersistent || n_free >= kRefill) {
-        long long base;
-        if (kPersistent) {
-          unsigned long long b = 0;
-          if (lane == 0) b = atomicAdd(next_ray, (unsigned long long)n_free);
-          base = (long long)__shfl_sync(kWarp, b, 0);
-          drained = base + n_free >= n_rays;
-        } else {
-          base = (long long)blockIdx.x * kThreads + (threadIdx.x & ~31);
-          drained = true;
-        }
-        if (!has_ray) {
-          r = kPersistent ? base + __popc(free_lanes & ((1u << lane) - 1u))
-                          : base + lane;
-          if (r < n_rays) {
-            if (active[r]) {
-              ox = origin[3 * r + 0];
-              oy = origin[3 * r + 1];
-              oz = origin[3 * r + 2];
-              dx = direction[3 * r + 0];
-              dy = direction[3 * r + 1];
-              dz = direction[3 * r + 2];
-              ix = safe_inverse(dx);
-              iy = safe_inverse(dy);
-              iz = safe_inverse(dz);
-              bt = t_max[r];
-              bs = -1;
-              bi = -1;
-              bu = 0.0f;
-              bv = 0.0f;
-              ref = 0;
-              leaf = kNone;
-              st.sp = 0;
-              has_ray = true;
-            } else {                    // inactive: a miss, no traversal
-              out_i[r] = -1;
-              out_t[r] = INFINITY;
-              out_u[r] = 0.0f;
-              out_v[r] = 0.0f;
-            }
-          }
-        }
-      }
+    if (fetch_ray(has_ray, drained, r, next_ray, n_rays, active, out_i,
+                  out_t, out_u, out_v)) {
+      ox = origin[3 * r + 0];
+      oy = origin[3 * r + 1];
+      oz = origin[3 * r + 2];
+      dx = direction[3 * r + 0];
+      dy = direction[3 * r + 1];
+      dz = direction[3 * r + 2];
+      ix = safe_inverse(dx);
+      iy = safe_inverse(dy);
+      iz = safe_inverse(dz);
+      bt = t_max[r];
+      bs = -1;
+      bi = -1;
+      bu = 0.0f;
+      bv = 0.0f;
+      ref = 0;
+      leaf = kNone;
+      st.sp = 0;
+      has_ray = true;
     }
     if (!__any_sync(kWarp, has_ray)) {
       if (drained) return;
       continue;
     }
-
     // ---- walk inner nodes until no lane of the warp searches a leaf ----
     while (true) {
       if (has_ray && ref >= 0) {
@@ -292,85 +214,41 @@ bvh2_kernel(const float* __restrict__ origin,
   }
 }
 
-template <bool kAnyHit, bool kPersistent>
-cudaError_t launch(const float* origin, const float* direction,
-                   const uint8_t* active, const float* t_max,
-                   long long n_rays, const float* nodes, const float* tris,
-                   unsigned long long* next_ray, int* out_i, float* out_t, float* out_u, float* out_v,
-                   cudaStream_t s) {
-  const auto kernel = bvh2_kernel<kAnyHit, kPersistent>;
-  long long blocks = (n_rays + kThreads - 1) / kThreads;
-  if (kPersistent) {
-    int dev = 0, sms = 0, resident = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
-                                                        kThreads, 0);
-    if (e != cudaSuccess) return e;
-    const long long card = (long long)sms * (resident > 1 ? resident : 1);
-    if (blocks > card) blocks = card;
-  }
-  kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      origin, direction, active, t_max, n_rays,
-      reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(tris), next_ray, out_i, out_t, out_u,
-      out_v);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// next_ray: the persistent instance's ray counter, 8 bytes that this call
-// zeroes on `stream` before the launch (unused with persistent = 0).
+// next_ray: the ray counter, 8 bytes that this call zeroes on `stream`
+// before the launch.
 extern "C" int clive2_bvh2(const float* origin, const float* direction,
                            const uint8_t* active, const float* t_max,
                            long long n_rays, const float* nodes,
                            const float* tris, unsigned long long* next_ray,
-                           int any_hit, int persistent, int* out_i,
-                           float* out_t, float* out_u, float* out_v,
-                           void* stream) {
+                           int any_hit, int* out_i, float* out_t,
+                           float* out_u, float* out_v, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (persistent) {
-    if (next_ray == nullptr) return (int)cudaErrorInvalidValue;
-    cudaError_t z = cudaMemsetAsync(next_ray, 0, sizeof(*next_ray), s);
-    if (z != cudaSuccess) return (int)z;
-  }
-#define CLIVE2_BVH2_LAUNCH(A, P)                                            \
-  launch<A, P>(origin, direction, active, t_max, n_rays, nodes, tris,       \
-               next_ray, out_i, out_t, out_u, out_v, s)
-  cudaError_t e;
+  const void* kernel = any_hit ? (const void*)bvh2_kernel<true>
+                               : (const void*)bvh2_kernel<false>;
+  unsigned blocks = 0;
+  cudaError_t e = resident_grid(kernel, n_rays, &blocks);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(next_ray, 0, sizeof(*next_ray), s);
+  if (e != cudaSuccess) return (int)e;
+  const float4* n4 = reinterpret_cast<const float4*>(nodes);
+  const float4* t4 = reinterpret_cast<const float4*>(tris);
   if (any_hit) {
-    e = persistent ? CLIVE2_BVH2_LAUNCH(true, true)
-                   : CLIVE2_BVH2_LAUNCH(true, false);
+    bvh2_kernel<true><<<blocks, kWalkThreads, 0, s>>>(
+        origin, direction, active, t_max, n_rays, n4, t4, next_ray, out_i,
+        out_t, out_u, out_v);
   } else {
-    e = persistent ? CLIVE2_BVH2_LAUNCH(false, true)
-                   : CLIVE2_BVH2_LAUNCH(false, false);
+    bvh2_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
+        origin, direction, active, t_max, n_rays, n4, t4, next_ray, out_i,
+        out_t, out_u, out_v);
   }
-#undef CLIVE2_BVH2_LAUNCH
-  return (int)e;
+  return (int)cudaGetLastError();
 }
 
-// What the runtime reports of one instance: registers per thread, static
-// shared bytes per block, local bytes per thread, resident blocks per SM
-// and the SMs of the current device.
-extern "C" int clive2_bvh2_info(int any_hit, int persistent, int* out) {
-  const void* fn =
-      any_hit ? (persistent ? (const void*)bvh2_kernel<true, true>
-                            : (const void*)bvh2_kernel<true, false>)
-              : (persistent ? (const void*)bvh2_kernel<false, true>
-                            : (const void*)bvh2_kernel<false, false>);
-  cudaFuncAttributes a;
-  int dev = 0;
-  cudaError_t e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = (int)a.localSizeBytes;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], fn, kThreads, 0);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&out[4], cudaDevAttrMultiProcessorCount, dev);
-  return (int)e;
+// What the runtime reports of the kernel (common.cuh:kernel_resources).
+extern "C" int clive2_bvh2_info(int any_hit, int* out) {
+  return (int)kernel_resources(any_hit ? (const void*)bvh2_kernel<true>
+                                       : (const void*)bvh2_kernel<false>,
+                               out);
 }

@@ -1,51 +1,72 @@
-// Streaming fat-leaf traversal (stream1), closest-hit and any-hit.
+// Streaming fat-leaf traversal (stream1) for Hopper, closest-hit and
+// any-hit: persistent warps that fetch rays, packed top-node, sub-leaf and
+// triangle records read with 16-byte loads, a stack split between shared
+// and local memory, and the (t, row) tie rule.
 //
 // Replaces the TPU kernel clive2_tpu/ops/traverse_stream.py:_kernel (entry
 // intersect_stream, packer pack_stream, helpers _cut_mask and
 // _pack_minmax).  The plain PyTorch version is
-// clive2_tpu_torch/ops/traverse_stream.py:stream_plain.
+// clive2_tpu_torch/ops/traverse_stream.py:stream_plain, which walks the same
+// records.
 //
-// Tables (clive2_tpu_torch/ops/traverse_stream.py:pack_stream, and the
-// gather walk's rows, clive2_tpu_torch/ops/intersect.py:pack_gather_walk):
-//   nodebox     [top, 12] f32  both children's AABBs, min(3) max(3) each
-//   childs      [top, 2]  i32  child >= 0 is a top node, child < 0 is fat
-//                              leaf -(child + 1); node 0 is the root
-//   fat_start   [F + 1]   i32  fat leaf f holds sub-leaves
-//                              fat_start[f] .. fat_start[f + 1] - 1
-//   sub_node    [S]       i32  each sub-leaf's row in node_packed
-//   node_packed [n, 8]    f32  min(3) max(3) miss leaf_id of every node
-//   leaf_packed [L, 80]   f32  8 slots of v0(3) e1(3) e2(3) tri id(1) per
-//                              SAH leaf; tri id -1 marks padding
+// Tables (clive2_tpu_torch/ops/traverse_stream.py:pack_stream), 16-byte
+// rows:
+//   nodes [top, 16] f32  one 64-byte record per top-tree node, as in
+//                        traverse_bvh2.cu: the children's boxes
+//                        interleaved, then both child references as int
+//                        bits.  A reference >= 0 is a top node (node 0 is
+//                        the root); a fat leaf is ~(first << kFatBits |
+//                        count): sub-leaf records first .. first + count - 1
+//   subs  [S, 8] f32     one 32-byte record per sub-leaf (SAH leaf), in
+//                        preorder, contiguous within each fat leaf: box
+//                        min(3) max(3), then its first triangle row and row
+//                        count as int bits
+//   tris  [R, 12] f32    one 48-byte row per real slot of the gather walk's
+//                        leaves, in slot order: v0(3) tri id(1), e1(3) 0,
+//                        e2(3) 0; padding slots have no row
 //
-// What bounds it on the H100: the fat-leaf loop.  A fat leaf holds up to
-// 16 SAH leaves; each costs a dependent 32-byte node row, then, only when
-// its box is hit before the best t, a 320-byte leaf row and 8
-// Möller-Trumbore tests.  The sub-leaf boxes cull most of the ~67
-// triangles per fat leaf that the stream2 kernel tests.  The tables of the
-// largest scene (1.31M triangles: 105 MB of leaf rows, 21 MB of node rows)
-// exceed the 50 MB L2, so incoherent rays read leaf rows from HBM.
+// What bounds it on the H100: the latency of dependent loads and the
+// divergence of the lanes of a warp, as for BVH2.  A fat leaf holds up to
+// 16 sub-leaves; each costs one 32-byte record and, only when its box is hit
+// before the best t, its rows and Möller-Trumbore tests.  On sponza (1.31M
+// triangles) the triangle rows (63 MB) exceed the 50 MB L2, so incoherent
+// rays read them from HBM.
 //
-// Design: one thread per ray in a grid-stride loop with a short per-thread
-// stack over the f32 top tree, as in csrc/traverse_stream2.cu: a step tests
-// both children's boxes (slab test with tmin clamped at 0 and tmax at the
-// best t), descends into the nearer hit child and pushes the farther with
-// its entry distance; a popped entry is skipped when that distance exceeds
-// the best t.  At a fat leaf the thread runs through its sub-leaves in
-// preorder, slab-tests each one's own box against the current best t and
-// runs Möller-Trumbore on its 8 slots only when that box is hit.  A slot
-// replaces the best when (t, slot) is lexicographically smaller, slot =
-// leaf * 8 + k, so ties resolve by slot, independent of visit order.
-// Any-hit stops after the first fat leaf that leaves a hit under the cap.
-// The tables point into the gather walk's rows: no triangle is copied.
+// What the design does about it (the first design: one thread per ray in a
+// grid-stride loop, a 64-entry local stack, 14 scalar loads per top node,
+// a dependent sub_node -> node_packed row per sub-leaf, then a 320-byte
+// leaf row read float by float, padding slots included):
+//  1. Records: a top node is four 16-byte loads of one 64-byte record, a
+//     sub-leaf two of one 32-byte record that also names its triangle rows
+//     (no indirection), a triangle three of one 48-byte row; padding slots
+//     are never read.
+//  2. Persistent warps that fetch rays (common.cuh:fetch_ray, kRefill = 8,
+//     as traverse_bvh2.cu): a warp does not live as long as its slowest
+//     ray, and inactive rays are written as misses when fetched.
+//     clive2_stream zeroes the counter on the launch's stream.
+//  3. The stack (common.cuh:Stack): 16 entries per lane in shared memory,
+//     one column per lane, the rest in local memory; kWalkStack matches the
+//     packer's enforced top-tree depth bound.
+//  4. While-while traversal: a lane walks top nodes until it finds a fat
+//     leaf, postpones it and walks on while other lanes still search; the
+//     warp scans fat leaves once no lane is searching.
+//  5. Ties: a row replaces the best hit when (t, row) is lexicographically
+//     smaller.  Rows list the gather walk's real slots in slot order, so
+//     this is the (t, slot) rule of traverse_bvh2.cu, whose argument
+//     carries over: the answer is the lexicographic minimum over every
+//     triangle hit under the cap, because no box or stack entry whose entry
+//     distance equals the best t is culled (the sub-leaf and top-node slab
+//     tests keep tmin <= min(tmax, best t), a popped entry is kept when its
+//     distance is <= best t).  It does not depend on visit order.
+//  6. Any-hit keeps the reference's stop: after the first fat leaf that
+//     leaves a hit under the cap.  A postponed fat leaf is the one the
+//     plain walk reaches next (fat leaves are scanned in the walk's order,
+//     and until a hit the best t, so every cull, is the plain walk's), so
+//     the stop is at the same fat leaf and any-hit ids equal stream_plain's.
 //
-// TPU workarounds dropped: 4096-ray packets sharing one SMEM stack
-// (RAY_ROWS), bf16-packed boxes (_pack_minmax, for the SMEM budget), the
-// [16, 128] fat-leaf blocks and their HBM->VMEM DMA ring (NBUF), the three
-// vectorised drains (v1/v2/v3), the SMEM-budget loop over blocks_per_leaf,
-// MAX_BLOCKS_PER_CALL launch splitting, and the Morton sort of rays.
-//
-// Rounding: compiled with --fmad=false, in the plain version's expression
-// order, so every decision and t, u, v match it exactly.
+// Rounding: compiled with --fmad=false; the slab test and Möller-Trumbore
+// are common.cuh's, in the plain version's expression order, so every box
+// decision and t, u, v match stream_plain exactly.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,127 +76,184 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kStackSize = 64;      // ops/traverse_stream.py:STACK_SIZE
-constexpr int kLeafSlots = 8;
+constexpr int kFatBits = 6;         // ops/traverse_stream.py:FAT_BITS
 
 template <bool kAnyHit>
-__global__ void stream_kernel(const float* __restrict__ origin,
-                              const float* __restrict__ direction,
-                              const uint8_t* __restrict__ active,
-                              const float* __restrict__ t_max,
-                              long long n_rays,
-                              const float* __restrict__ nodebox,
-                              const int* __restrict__ childs,
-                              const int* __restrict__ fat_start,
-                              const int* __restrict__ sub_node,
-                              const float* __restrict__ node_packed,
-                              const float* __restrict__ leaf_packed,
-                              int* __restrict__ out_i,
-                              float* __restrict__ out_t,
-                              float* __restrict__ out_u,
-                              float* __restrict__ out_v) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < n_rays; r += stride) {
-    float bt = t_max[r];
-    long long bs = -1;                  // best slot, leaf * 8 + k
-    int bi = -1;
-    float bu = 0.0f, bv = 0.0f;
-    if (active[r]) {
-      const float ox = origin[3 * r + 0];
-      const float oy = origin[3 * r + 1];
-      const float oz = origin[3 * r + 2];
-      const float dx = direction[3 * r + 0];
-      const float dy = direction[3 * r + 1];
-      const float dz = direction[3 * r + 2];
-      const float ix = safe_inverse(dx);
-      const float iy = safe_inverse(dy);
-      const float iz = safe_inverse(dz);
+__global__ void __launch_bounds__(kWalkThreads)
+stream_kernel(const float* __restrict__ origin,
+              const float* __restrict__ direction,
+              const uint8_t* __restrict__ active,
+              const float* __restrict__ t_max, long long n_rays,
+              const float4* __restrict__ nodes,
+              const float4* __restrict__ subs,
+              const float4* __restrict__ tris,
+              unsigned long long* __restrict__ next_ray,
+              int* __restrict__ out_i, float* __restrict__ out_t,
+              float* __restrict__ out_u, float* __restrict__ out_v) {
+  Stack st;
+  st.sp = 0;
 
-      int stack_ref[kStackSize];
-      float stack_t[kStackSize];
-      int sp = 0;
-      int ref = 0;                      // the root is top node 0
-      while (true) {
-        if (ref >= 0) {
-          const float* nb = nodebox + 12 * (long long)ref;
-          const float ta = box_entry(nb, ox, oy, oz, ix, iy, iz, bt);
-          const float tb = box_entry(nb + 6, ox, oy, oz, ix, iy, iz, bt);
-          const int ca = childs[2 * ref];
-          const int cb = childs[2 * ref + 1];
-          const bool ha = ta < INFINITY;
-          const bool hb = tb < INFINITY;
-          if (ha && hb) {
-            const bool a_near = ta <= tb;
-            stack_ref[sp] = a_near ? cb : ca;
-            stack_t[sp] = a_near ? tb : ta;
-            ++sp;
-            ref = a_near ? ca : cb;
-            continue;
-          }
-          if (ha || hb) {
-            ref = ha ? ca : cb;
-            continue;
-          }
+  long long r = 0;          // this lane's ray while has_ray
+  bool has_ray = false;
+  bool drained = false;     // warp-uniform: no ray is left to fetch
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float ix = 0.0f, iy = 0.0f, iz = 0.0f;
+  float bt = 0.0f, bu = 0.0f, bv = 0.0f;
+  int bs = -1, bi = -1;     // best row (slot order) and its triangle id
+  int ref = kNone;          // the top node being walked
+  int fat = kNone;          // a postponed fat leaf
+
+  while (true) {
+    if (fetch_ray(has_ray, drained, r, next_ray, n_rays, active, out_i,
+                  out_t, out_u, out_v)) {
+      ox = origin[3 * r + 0];
+      oy = origin[3 * r + 1];
+      oz = origin[3 * r + 2];
+      dx = direction[3 * r + 0];
+      dy = direction[3 * r + 1];
+      dz = direction[3 * r + 2];
+      ix = safe_inverse(dx);
+      iy = safe_inverse(dy);
+      iz = safe_inverse(dz);
+      bt = t_max[r];
+      bs = -1;
+      bi = -1;
+      bu = 0.0f;
+      bv = 0.0f;
+      ref = 0;
+      fat = kNone;
+      st.sp = 0;
+      has_ray = true;
+    }
+    if (!__any_sync(kWarp, has_ray)) {
+      if (drained) return;
+      continue;
+    }
+
+    // ---- walk top nodes until no lane of the warp searches a fat leaf ----
+    while (true) {
+      if (has_ray && ref >= 0) {
+        const float4* nd = nodes + 4 * (long long)ref;
+        const float4 xa = __ldg(nd);
+        const float4 xb = __ldg(nd + 1);
+        const float4 z = __ldg(nd + 2);
+        const float4 c = __ldg(nd + 3);
+        const float ta = box_entry(xa.x, xa.z, z.x, xa.y, xa.w, z.y, ox, oy,
+                                   oz, ix, iy, iz, bt);
+        const float tb = box_entry(xb.x, xb.z, z.z, xb.y, xb.w, z.w, ox, oy,
+                                   oz, ix, iy, iz, bt);
+        const int ca = __float_as_int(c.x);
+        const int cb = __float_as_int(c.y);
+        const bool ha = ta < INFINITY;
+        const bool hb = tb < INFINITY;
+        if (ha && hb) {
+          const bool a_first = ta <= tb;
+          st.push(a_first ? cb : ca, a_first ? tb : ta);
+          ref = a_first ? ca : cb;
+        } else if (ha || hb) {
+          ref = ha ? ca : cb;
         } else {
-          const int f = -(ref + 1);
-          const int s1 = fat_start[f + 1];
-          for (int s = fat_start[f]; s < s1; ++s) {
-            const float* nd = node_packed + 8 * (long long)sub_node[s];
-            if (!(box_entry(nd, ox, oy, oz, ix, iy, iz, bt) < INFINITY))
-              continue;
-            const long long leaf = (long long)nd[7];
-            const float* lf = leaf_packed + leaf * (kLeafSlots * 10);
-            for (int k = 0; k < kLeafSlots; ++k) {
-              const float* tr = lf + 10 * k;
-              const long long slot = leaf * kLeafSlots + k;
-              float t, u, v;
-              if (moller_trumbore(tr, ox, oy, oz, dx, dy, dz, t, u, v) &&
-                  tr[9] >= 0.0f && (t < bt || (t == bt && slot < bs))) {
-                bt = t;
-                bs = slot;
-                bi = (int)tr[9];
-                bu = u;
-                bv = v;
-              }
-            }
-          }
-          if (kAnyHit && bs >= 0) break;
+          ref = st.pop(bt);
         }
-        // pop the next entry that can still hold a better hit
-        if (!pop_entry(stack_ref, stack_t, sp, bt, ref)) break;
+        if (is_leaf(ref) && fat == kNone) {    // postpone the first fat leaf
+          fat = ref;
+          ref = st.pop(bt);
+        }
+      }
+      if (!__any_sync(kWarp, has_ray && ref >= 0 && fat == kNone)) break;
+    }
+
+    // ---- scan the postponed fat leaves ----
+    while (fat != kNone) {
+      const int code = ~fat;
+      const int first_sub = code >> kFatBits;
+      const int n_sub = code & ((1 << kFatBits) - 1);
+      for (int j = 0; j < n_sub; ++j) {
+        const float4* sb = subs + 2 * (long long)(first_sub + j);
+        const float4 lo = __ldg(sb);
+        const float4 hi = __ldg(sb + 1);
+        if (!(box_entry(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, ox, oy, oz, ix,
+                        iy, iz, bt) < INFINITY))
+          continue;
+        const int first = __float_as_int(hi.z);
+        const int count = __float_as_int(hi.w);
+        const float4* row = tris + 3 * (long long)first;
+        for (int k = 0; k < count; ++k) {
+          const float4 p = __ldg(row + 3 * k);
+          const float4 q = __ldg(row + 3 * k + 1);
+          const float4 s = __ldg(row + 3 * k + 2);
+          const int slot = first + k;
+          float t, u, v;
+          if (moller_trumbore(p.x, p.y, p.z, q.x, q.y, q.z, s.x, s.y, s.z,
+                              ox, oy, oz, dx, dy, dz, t, u, v) &&
+              (t < bt || (t == bt && slot < bs))) {
+            bt = t;
+            bs = slot;
+            bi = (int)p.w;
+            bu = u;
+            bv = v;
+          }
+        }
+      }
+      if (kAnyHit && bs >= 0) {
+        ref = kNone;
+        fat = kNone;
+      } else if (is_leaf(ref)) {        // a second fat leaf was found
+        fat = ref;
+        ref = st.pop(bt);
+      } else {
+        fat = kNone;
       }
     }
-    out_i[r] = bi;
-    out_t[r] = bs >= 0 ? bt : INFINITY;
-    out_u[r] = bs >= 0 ? bu : 0.0f;
-    out_v[r] = bs >= 0 ? bv : 0.0f;
+
+    // ---- write finished rays ----
+    if (has_ray && ref == kNone && fat == kNone) {
+      out_i[r] = bi;
+      out_t[r] = bs >= 0 ? bt : INFINITY;
+      out_u[r] = bu;
+      out_v[r] = bv;
+      has_ray = false;
+    }
   }
 }
 
 }  // namespace
 
+// next_ray: the ray counter, 8 bytes that this call zeroes on `stream`
+// before the launch.
 extern "C" int clive2_stream(const float* origin, const float* direction,
                              const uint8_t* active, const float* t_max,
-                             long long n_rays, const float* nodebox,
-                             const int* childs, const int* fat_start,
-                             const int* sub_node, const float* node_packed,
-                             const float* leaf_packed, int any_hit,
+                             long long n_rays, const float* nodes,
+                             const float* subs, const float* tris,
+                             unsigned long long* next_ray, int any_hit,
                              int* out_i, float* out_t, float* out_u,
                              float* out_v, void* stream) {
-  // a grid-stride loop: at most 2^20 blocks of 128 threads cover any cast
-  long long blocks = (n_rays + kThreads - 1) / kThreads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
   cudaStream_t s = (cudaStream_t)stream;
+  const void* kernel = any_hit ? (const void*)stream_kernel<true>
+                               : (const void*)stream_kernel<false>;
+  unsigned blocks = 0;
+  cudaError_t e = resident_grid(kernel, n_rays, &blocks);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(next_ray, 0, sizeof(*next_ray), s);
+  if (e != cudaSuccess) return (int)e;
+  const float4* n4 = reinterpret_cast<const float4*>(nodes);
+  const float4* s4 = reinterpret_cast<const float4*>(subs);
+  const float4* t4 = reinterpret_cast<const float4*>(tris);
   if (any_hit) {
-    stream_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        origin, direction, active, t_max, n_rays, nodebox, childs, fat_start,
-        sub_node, node_packed, leaf_packed, out_i, out_t, out_u, out_v);
+    stream_kernel<true><<<blocks, kWalkThreads, 0, s>>>(
+        origin, direction, active, t_max, n_rays, n4, s4, t4, next_ray,
+        out_i, out_t, out_u, out_v);
   } else {
-    stream_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        origin, direction, active, t_max, n_rays, nodebox, childs, fat_start,
-        sub_node, node_packed, leaf_packed, out_i, out_t, out_u, out_v);
+    stream_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
+        origin, direction, active, t_max, n_rays, n4, s4, t4, next_ray,
+        out_i, out_t, out_u, out_v);
   }
   return (int)cudaGetLastError();
+}
+
+// What the runtime reports of the kernel (common.cuh:kernel_resources).
+extern "C" int clive2_stream_info(int any_hit, int* out) {
+  return (int)kernel_resources(any_hit ? (const void*)stream_kernel<true>
+                                       : (const void*)stream_kernel<false>,
+                               out);
 }

@@ -40,13 +40,14 @@ _RAYS = [_P, _P, _P, _P, ctypes.c_int64]     # origin, direction, active,
 _OUTS = [_P, _P, _P, _P]                     # t_max, n | i, t, u, v
 _SIGNATURES = {
     "clive2_brute": _RAYS + [_P, ctypes.c_int] + _OUTS + [_P],
-    # nodes, tris, ray counter | any_hit, persistent
-    "clive2_bvh2": _RAYS + [_P] * 3 + [ctypes.c_int] * 2 + _OUTS + [_P],
-    "clive2_bvh2_first": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
-    "clive2_bvh2_info": [ctypes.c_int, ctypes.c_int, _P],
+    # nodes, tris, ray counter | any_hit
+    "clive2_bvh2": _RAYS + [_P] * 3 + [ctypes.c_int] + _OUTS + [_P],
+    "clive2_bvh2_info": [ctypes.c_int, _P],
     "clive2_stream2": _RAYS + [_P] * 7 + [ctypes.c_int] + _OUTS + [_P],
     "clive2_wide": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
-    "clive2_stream": _RAYS + [_P] * 6 + [ctypes.c_int] + _OUTS + [_P],
+    # nodes, subs, tris, ray counter | any_hit
+    "clive2_stream": _RAYS + [_P] * 4 + [ctypes.c_int] + _OUTS + [_P],
+    "clive2_stream_info": [ctypes.c_int, _P],
     # the queued fat-leaf traversal (ops/traverse_stream2.py)
     "clive2_stream2_tail": [ctypes.c_int64] + [_P] * 13 + [ctypes.c_int]
     + _OUTS + [_P],
@@ -224,6 +225,31 @@ def check_tables(tables, spec, what: str):
         if t.dtype != dtype or tuple(t.shape[1:]) != shape:
             raise ValueError(f"{what} table {k} must be {dtype} of shape "
                              f"[N, *{shape}], got {tuple(t.shape)} {t.dtype}")
+
+
+def aligned_tables(tables, spec, device, what: str):
+    """The tables of ``spec`` on ``device``, contiguous, each checked to
+    start on a 16-byte boundary (the kernels read them as float4)."""
+    out = []
+    for k, _, _ in spec:
+        t = on_device(tables[k].contiguous(), device, k)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} table {k} must be 16-byte aligned")
+        out.append(t)
+    return out
+
+
+def resources(entry: str, any_hit: bool) -> dict:
+    """What the CUDA runtime reports of a persistent traversal kernel
+    through its ``*_info`` entry: registers per thread, static shared
+    bytes per block, local bytes per thread, resident blocks per SM,
+    SMs."""
+    out = (ctypes.c_int * 5)()
+    rc = getattr(load(), entry)(int(any_hit), out)
+    if rc:
+        raise RuntimeError(f"{entry} failed with CUDA error {rc}")
+    return dict(zip(("registers", "shared_bytes", "local_bytes",
+                     "blocks_per_sm", "sms"), out))
 
 
 def on_device(t, device, name: str):

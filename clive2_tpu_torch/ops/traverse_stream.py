@@ -10,15 +10,23 @@ parent's subtree holds more (``_cut_mask``).  A ray walks the top tree with
 a stack, nearer child first, the farther pushed with its entry distance.  At
 a fat leaf it runs through the fat leaf's SAH leaves (its sub-leaves) in
 preorder: each gets a slab test of its own AABB against the current best t,
-and only then Möller-Trumbore on its 8 slots.  The winner is the
-lexicographic minimum of (t, slot), a slot being the triangle's position in
-the gather walk's leaf rows (``leaf * 8 + k``), so no visit order decides a
-tie.
+and only then Möller-Trumbore on its triangles.  The winner is the
+lexicographic minimum of (t, row), a row being the triangle's place in the
+compact triangle rows, which list the gather walk's real slots in slot
+order, so no visit order decides a tie.
 
-The tables point into what the scene already holds: ``sub_node`` lists
-each fat leaf's SAH leaves as node indices of the gather walk's
-``node_packed`` (their boxes and leaf ids), whose ``leaf_packed`` rows hold
-the triangles.  Only the top tree and two index arrays are new.
+Tables (``pack_stream``), all rows 16-byte multiples, read with 16-byte
+loads:
+
+* ``nodes`` [I, 16] f32: one 64-byte record per top-tree node, the BVH2
+  kernel's layout (``traverse_bvh2.node_records``); a child reference >= 0
+  is a top node, a fat leaf is ``~(first << FAT_BITS | count)``: its
+  sub-leaves are ``subs`` rows first .. first + count - 1;
+* ``subs`` [S, 8] f32: one 32-byte record per sub-leaf, contiguous within
+  each fat leaf: its box min(3) max(3), then its first triangle row and its
+  row count as int32 bits;
+* ``tris`` [R, 12] f32: the compact triangle rows
+  (``traverse_bvh2.triangle_rows``): no padding slot is read.
 
 Departures from the TPU kernel, each for a TPU limit the card does not have:
 
@@ -26,16 +34,16 @@ Departures from the TPU kernel, each for a TPU limit the card does not have:
 * no fat-leaf blocks: the TPU packer copies each fat leaf's 128 slots and
   their sub-leaf boxes into one [16, 128] block for its HBM -> VMEM DMA
   ring (``NBUF``), drained by one of three vectorised Möller-Trumbore
-  drains (v1/v2/v3).  One thread per ray reads the leaf rows in place.
+  drains (v1/v2/v3).  A lane reads a fat leaf's sub-leaf records and the
+  rows of the sub-leaves it enters.
 * no 4096-ray packets (``RAY_ROWS``), no ``MAX_BLOCKS_PER_CALL`` launch
   splitting, no Morton sort, and no SMEM-budget loop over
   ``blocks_per_leaf`` (the parameter stays, for tests).
-* the (t, slot) tie rule replaces the drains' largest-id pick within a
+* the (t, row) tie rule replaces the drains' largest-id pick within a
   block and first-drained order across blocks.
 
-Kept: the cut, the child encoding (>= 0 top node, ``-(f + 1)`` fat leaf f),
-the sub-leaf box prefilter, inactive rays and caps; any-hit stops after
-the first fat leaf that holds a hit under the cap.
+Kept: the cut, the sub-leaf box prefilter, inactive rays and caps; any-hit
+stops after the first fat leaf that holds a hit under the cap.
 """
 
 from __future__ import annotations
@@ -46,10 +54,12 @@ import numpy as np
 import torch
 
 from .intersect import INF, WORK, _mt, box_entry, pop_stack, safe_inverse
+from .traverse_bvh2 import leaf_spans, node_records, triangle_rows
 
-STACK_SIZE = 64     # csrc/traverse_stream.cu:kStackSize
+STACK_SIZE = 64     # csrc/common.cuh:kWalkStack
 SUB_SLOTS = 8       # triangles per SAH leaf (gather-walk leaf rows)
 SUBTILES = 16       # SAH leaves per fat leaf and block
+FAT_BITS = 6        # csrc/traverse_stream.cu:kFatBits: a fat leaf's count
 PLAIN_CHUNK = 1 << 16   # rays per sub-leaf evaluation in the plain walks
 MAX_TRI_ID = 1 << 24    # triangle ids travel as f32 in the leaf rows
 
@@ -150,41 +160,60 @@ def top_tree(node_packed, max_subleaves, stack_size):
 
 
 def pack_stream(node_packed, leaf_packed, blocks_per_leaf=1):
-    """Kernel tables from the gather walk's packed rows.
-
-    Returns dict(nodebox [I, 12] f32, childs [I, 2] i32 (the top tree, as
-    for stream2), fat_start [F + 1] i32 and sub_node [L] i32: fat leaf f
-    holds the SAH leaves whose node rows are
-    ``sub_node[fat_start[f]:fat_start[f + 1]]``, in preorder).  Raises
-    when the root is a leaf, the scene is too small to cut, the top tree
-    is deeper than the kernel's stack, or a triangle id is past what an f32
-    leaf row holds exactly.
+    """Kernel tables from the gather walk's packed rows: dict(nodes [I, 16],
+    subs [S, 8], tris [R, 12], all f32; see the module note).  The top
+    tree and the cut are ``top_tree``'s, as for stream2; sub-leaves keep
+    preorder, fat leaf after fat leaf.  Raises when the root is a leaf, the
+    scene is too small to cut, the top tree is deeper than the kernel's
+    stack, a triangle id is past what an f32 row holds exactly, or a fat
+    leaf's reference does not fit 32 bits.
     """
-    check_leaf_rows(leaf_packed)
+    tris = triangle_rows(leaf_packed)
     max_subleaves = SUBTILES * blocks_per_leaf
+    if max_subleaves >= 1 << FAT_BITS:
+        raise ValueError(f"a fat leaf of {max_subleaves} sub-leaves needs "
+                         f"more than {FAT_BITS} count bits")
+    node_packed = np.asarray(node_packed, dtype=np.float32)
     tree = top_tree(node_packed, max_subleaves, STACK_SIZE)
     per_fat = np.bincount(tree["fat_ids"], minlength=tree["n_fat"])
     if (per_fat > max_subleaves).any() or (per_fat == 0).any():
         raise AssertionError("fat leaf over capacity or empty")
-    return dict(nodebox=tree["nodebox"], childs=tree["childs"],
-                fat_start=np.concatenate([[0], np.cumsum(per_fat)]).astype(
-                    np.int32),
-                sub_node=tree["leaf_nodes"].astype(np.int32))
+    fat_first = np.cumsum(per_fat) - per_fat
+    if len(tree["leaf_nodes"]) << FAT_BITS >= 1 << 31:
+        raise ValueError("too many sub-leaves for the fat-leaf references")
+    first, count = leaf_spans(leaf_packed)
+
+    leaf = node_packed[tree["leaf_nodes"], 7].astype(np.int64)
+    subs = np.zeros((len(leaf), 8), dtype=np.float32)
+    subs[:, 0:6] = node_packed[tree["leaf_nodes"], 0:6]
+    subs.view(np.int32)[:, 6] = first[leaf]
+    subs.view(np.int32)[:, 7] = count[leaf]
+
+    fat_ref = ~((fat_first << FAT_BITS) | per_fat)
+    childs = tree["childs"].astype(np.int64)
+    refs = np.where(childs >= 0, childs,
+                    fat_ref[np.maximum(-(childs + 1), 0)]).astype(np.int32)
+    box = tree["nodebox"]
+    return dict(nodes=node_records(box[:, 0:6], box[:, 6:12], refs[:, 0],
+                                   refs[:, 1]),
+                subs=subs, tris=tris)
 
 
-def walk_top_tree(origin, direction, tables, bt, best, active, any_hit,
-                  visit):
-    """The lockstep walk of the top tree that the plain versions of both
-    fat-leaf kernels share: per ray, the nearer hit child first, the farther
-    pushed with its entry distance, popped entries skipped when that
-    distance exceeds the best t.  ``visit(rays, fat)`` runs the fat-leaf
-    test for rays (a chunk of at most PLAIN_CHUNK) at fat leaves ``fat``,
+def walk_top_tree(origin, direction, nodebox, childs, bt, best, active,
+                  any_hit, visit):
+    """The lockstep walk of a top tree (``nodebox`` [I, 12], both
+    children's min(3) max(3); ``childs`` [I, 2], >= 0 a top node, else a
+    fat leaf) that the plain versions of both fat-leaf kernels share: per
+    ray, the nearer hit child first, the farther pushed with its entry
+    distance, popped entries skipped when that distance exceeds the best t.
+    ``visit(rays, fat)`` runs the fat-leaf test for rays (a chunk of at
+    most PLAIN_CHUNK) at fat leaves ``fat`` (``-(child + 1)``),
     updating ``bt`` (best t) and ``best`` (best slot, -1 none) in place;
     with ``any_hit`` a ray stops after the first fat leaf that leaves it a
     hit."""
     dev = origin.device
     n = origin.shape[0]
-    nodebox, childs = tables["nodebox"], tables["childs"].long()
+    childs = childs.long()
     inv = safe_inverse(direction)
     ref = torch.zeros(n, dtype=torch.int64, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -231,22 +260,28 @@ def walk_top_tree(origin, direction, tables, bt, best, active, any_hit,
         live = live[~done]
 
 
-def stream_plain(origin, direction, tables, bvh, active=None, t_max=None,
+def stream_plain(origin, direction, tables, active=None, t_max=None,
                  any_hit=False):
-    """Plain PyTorch version of the kernel on ``tables`` (``pack_stream``)
-    and the gather walk's rows ``bvh``: the same top-tree walk, the same
-    sub-leaf order, box tests and Möller-Trumbore (in ``_mt``'s order), the
-    same (t, slot) rule and any-hit stop.  Rays advance in lockstep, one
-    node or fat leaf per step; a fat leaf's sub-leaves run in order, each
-    against the best t the previous ones left."""
+    """Plain PyTorch version of the kernel on its own ``tables``
+    (``pack_stream``): the same top-tree walk over the node records, the
+    same sub-leaf records in order, box tests and Möller-Trumbore (in
+    ``_mt``'s order), the same (t, row) rule and any-hit stop.  Rays
+    advance in lockstep, one node or fat leaf per step; a fat leaf's
+    sub-leaves run in order, each against the best t the previous ones
+    left."""
     stream_plain.calls += 1
     dev = origin.device
     n = origin.shape[0]
-    node_packed = bvh["node_packed"]
-    leaves = bvh["leaf_packed"].reshape(-1, SUB_SLOTS, 10)
-    fat_start = tables["fat_start"].long()
-    sub_node = tables["sub_node"].long()
-    width = max(int((fat_start[1:] - fat_start[:-1]).max()), 1)
+    nodes, subs, tris = tables["nodes"], tables["subs"], tables["tris"]
+    nodebox = torch.cat([nodes[:, [0, 2, 8, 1, 3, 9]],
+                         nodes[:, [4, 6, 10, 5, 7, 11]]], dim=1)
+    childs = nodes.view(torch.int32)[:, 12:14]
+    sub_first = subs.view(torch.int32)[:, 6].long()
+    sub_count = subs.view(torch.int32)[:, 7].long()
+    fat_mask = (1 << FAT_BITS) - 1
+    fat_codes = ~childs[childs < 0].long()
+    width = max(int((fat_codes & fat_mask).max()) if fat_codes.numel()
+                else 0, 1)
     kk = torch.arange(SUB_SLOTS, device=dev)
 
     act = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
@@ -259,43 +294,44 @@ def stream_plain(origin, direction, tables, bvh, active=None, t_max=None,
     bv = torch.zeros(n, device=dev)
     inv = safe_inverse(direction)
 
-    def visit(ci, f):
-        start = fat_start[f]
-        count = fat_start[f + 1] - start
+    def visit(ci, code):
+        start = code >> FAT_BITS
+        count = code & fat_mask
         o, d, iv = origin[ci], direction[ci], inv[ci]
         oc = tuple(c[:, None] for c in o.unbind(-1))
         dc = tuple(c[:, None] for c in d.unbind(-1))
         for j in range(width):
             valid = j < count
-            node = sub_node[torch.where(valid, start + j, 0)]
-            row = node_packed[node]
+            sub = torch.where(valid, start + j, 0)
             cur_t, cur_s = bt[ci], bs[ci]
-            enter = valid & (box_entry(o, iv, row[:, 0:6], cur_t) < INF)
-            lid = row[:, 7].long().clamp(min=0)
-            lrow = leaves[lid]                                   # [k, 8, 10]
-            tri = lrow[:, :, 9]
+            enter = valid & (box_entry(o, iv, subs[sub, 0:6], cur_t) < INF)
+            first, rows = sub_first[sub], sub_count[sub]
+            real = (kk < rows[:, None]) & enter[:, None]       # [k, 8]
+            row = torch.where(real, first[:, None] + kk, 0)
+            tr = tris[row]                                     # [k, 8, 12]
             WORK["boxes"] += int(valid.sum())
-            WORK["triangles"] += int(((tri >= 0) & enter[:, None]).sum())
-            hit, t, u, v = _mt(oc, dc, lrow[:, :, 0:3].unbind(-1),
-                               lrow[:, :, 3:6].unbind(-1),
-                               lrow[:, :, 6:9].unbind(-1))
-            ok = hit & (tri >= 0) & enter[:, None]
+            WORK["triangles"] += int(real.sum())
+            hit, t, u, v = _mt(oc, dc, tr[:, :, 0:3].unbind(-1),
+                               tr[:, :, 4:7].unbind(-1),
+                               tr[:, :, 8:11].unbind(-1))
+            ok = hit & real
             t = torch.where(ok, t, INF)
             t_best = t.amin(1)
             k = torch.where((t == t_best[:, None]) & ok, kk,
                             SUB_SLOTS).amin(1).clamp(max=SUB_SLOTS - 1)
-            slot = lid * SUB_SLOTS + k
+            slot = first + k
             better = ok.any(1) & ((t_best < cur_t) | (
                 (t_best == cur_t) & (slot < cur_s)))
             sel = k[:, None]
             bt[ci] = torch.where(better, t_best, cur_t)
             bs[ci] = torch.where(better, slot, cur_s)
-            bi[ci] = torch.where(better, tri.gather(1, sel)[:, 0].int(),
-                                 bi[ci])
+            bi[ci] = torch.where(better, tr[:, :, 3].gather(1, sel)[:, 0]
+                                 .int(), bi[ci])
             bu[ci] = torch.where(better, u.gather(1, sel)[:, 0], bu[ci])
             bv[ci] = torch.where(better, v.gather(1, sel)[:, 0], bv[ci])
 
-    walk_top_tree(origin, direction, tables, bt, bs, act, any_hit, visit)
+    walk_top_tree(origin, direction, nodebox, childs, bt, bs, act, any_hit,
+                  visit)
     hit = bs >= 0
     return (torch.where(hit, bi, -1), torch.where(hit, bt, INF),
             torch.where(hit, bu, 0.0), torch.where(hit, bv, 0.0))
@@ -305,19 +341,16 @@ stream_plain.calls = 0
 
 
 # the kernel's tables in argument order: (name, dtype, shape past dim 0)
-_KERNEL_TABLES = (("nodebox", torch.float32, (12,)),
-                  ("childs", torch.int32, (2,)),
-                  ("fat_start", torch.int32, ()),
-                  ("sub_node", torch.int32, ()))
-_BVH_TABLES = (("node_packed", torch.float32, (8,)),
-               ("leaf_packed", torch.float32, (SUB_SLOTS * 10,)))
+_KERNEL_TABLES = (("nodes", torch.float32, (16,)),
+                  ("subs", torch.float32, (8,)),
+                  ("tris", torch.float32, (12,)))
 
 
 def intersect_stream(origin, direction, scene, active=None, t_max=None,
                      any_hit=False):
     """Closest hit (or, with ``any_hit``, a hit under ``t_max``) of the
-    scene's BVH triangles through its ``stream`` tables and its gather-walk
-    rows ``bvh``; the sensor plane is not in the tree.
+    scene's BVH triangles through its ``stream`` tables; the sensor plane
+    is not in the tree.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
     raise if the scene has no ``stream`` tables or the kernel cannot
@@ -326,26 +359,35 @@ def intersect_stream(origin, direction, scene, active=None, t_max=None,
     if "stream" not in scene:
         raise ValueError("scene has no stream tables: build it with "
                          "CLIVE2_STREAM_IMPL=1 or traversal='stream'")
-    tables, bvh = scene["stream"], scene["bvh"]
+    tables = scene["stream"]
     if origin.device.type == "cpu":
-        return stream_plain(origin, direction, tables, bvh, active=active,
+        return stream_plain(origin, direction, tables, active=active,
                             t_max=t_max, any_hit=any_hit)
     from .. import kernels
 
     kernels.check_tables(tables, _KERNEL_TABLES, "stream")
-    kernels.check_tables(bvh, _BVH_TABLES, "bvh")
     rays = kernels.ray_args(origin, direction, active, t_max)
-    args = ([kernels.on_device(tables[k].contiguous(), origin.device, k)
-             for k, _, _ in _KERNEL_TABLES]
-            + [kernels.on_device(bvh[k].contiguous(), origin.device, k)
-               for k, _, _ in _BVH_TABLES])
+    args = kernels.aligned_tables(tables, _KERNEL_TABLES, origin.device,
+                                  "stream")
     out = kernels.hit_outputs(origin)
     if rays.n:
+        # the persistent warps' ray counter, zeroed by clive2_stream on the
+        # launch's stream
+        counter = torch.empty(1, dtype=torch.int64, device=origin.device)
         kernels.call("clive2_stream", origin.device, *rays.pointers(),
-                     *map(kernels.ptr, args), ctypes.c_int(int(any_hit)),
-                     *map(kernels.ptr, out))
+                     *map(kernels.ptr, args), kernels.ptr(counter),
+                     ctypes.c_int(int(any_hit)), *map(kernels.ptr, out))
         intersect_stream.launches += 1
     return out
 
 
 intersect_stream.launches = 0
+
+
+def kernel_info(any_hit=False):
+    """What the CUDA runtime reports of the kernel: registers per thread,
+    static shared bytes per block, local bytes per thread, resident blocks
+    per SM, SMs."""
+    from .. import kernels
+
+    return kernels.resources("clive2_stream_info", any_hit)

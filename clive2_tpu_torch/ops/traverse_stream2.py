@@ -242,7 +242,8 @@ def stream2_plain(origin, direction, tables, active=None, t_max=None,
         bt[ci] = torch.where(better, t_leaf, cur_t)
         bc[ci] = torch.where(better, slot, cur_c)
 
-    walk_top_tree(origin, direction, tables, bt, bc, act, any_hit, visit)
+    walk_top_tree(origin, direction, tables["nodebox"], tables["childs"], bt,
+                  bc, act, any_hit, visit)
     hit = bc >= 0
     row = tables["slot_mt"][bc.clamp(min=0)]
     _, t, u, v = _mt(origin.unbind(-1), direction.unbind(-1),

@@ -1,5 +1,7 @@
-"""Inputs that hold the traversal kernels to their tie rule: a soup of
-triangles that each appear twice, so that every hit is an exact tie in t.
+"""Inputs that hold the kernels to their rules: a soup of triangles that
+each appear twice, so that every hit is an exact tie in t (the traversal
+kernels' tie rule), and rays at the edges of the brute-force test and of
+its early-reject pre-test.
 
 Used by the CPU tests (with the JAX package's tree) and by chip_smoke.py
 and the card tests (with the port's tree).
@@ -51,3 +53,51 @@ def tie_soup(seed, t):
     rows = pack_gather_walk(bvh, leaf_tables(bvh, soup))
     rows["leaf_packed"], lower = swap_pair_ids(rows["leaf_packed"], t, rng)
     return rows, lower
+
+
+def brute_edge_cases():
+    """Rays at the edges of the brute-force test and of its early-reject
+    pre-test (csrc/brute.cu's note), built by hand, and the two triangles they are built for: (origins [N,
+    3], directions [N, 3], brute table [2, 10]), all f32.  Ray 0 hits
+    triangle 1 with u = f U underflowing to -0.0, which a test of U's sign
+    alone would reject."""
+    f32 = np.float32
+    big = f32(2.0 ** 60)
+    unit = np.array([[0, 0, 0, 1, 0, 0, 0, 1, 0, 0]], f32)   # x, y plane
+    huge = np.array([[0, 0, 0, big, 0, 0, 0, big, 0, 0]], f32)
+    delta = f32(1e-4)
+    cases = [
+        # u = f U underflows to -0.0 (U < 0, a = 2^120): plain accepts
+        (huge, [-(2.0 ** -149), 2.0 ** 58, 5.0], [0, 0, -1]),
+        # t = f T underflows to -0.0: plain rejects (t > kDelta fails)
+        (huge, [2.0 ** 58, 2.0 ** 58, -(2.0 ** -149)], [0, 0, -1]),
+        # a = +0 and a = -0: rays in the triangle's plane
+        (unit, [0.2, 0.2, 0.0], [1, 0, 0]),
+        (unit, [0.2, 0.2, 0.0], [-1, 0, 0]),
+        (unit, [0.2, 0.2, 0.0], [0, -1, 0]),
+        # u exactly 0, u exactly 1, v exactly 0, u + v exactly 1
+        (unit, [0.0, 0.3, 1.0], [0, 0, -1]),
+        (unit, [1.0, 0.0, 1.0], [0, 0, -1]),
+        (unit, [0.3, 0.0, 1.0], [0, 0, -1]),
+        (unit, [0.5, 0.5, 1.0], [0, 0, -1]),
+        (unit, [0.25, 0.75, 1.0], [0, 0, -1]),
+        # just outside each edge, by one ulp and by the margin
+        (unit, [np.nextafter(f32(1), f32(2)), 0.0, 1.0], [0, 0, -1]),
+        (unit, [-(2.0 ** -30), 0.5, 1.0], [0, 0, -1]),
+        (unit, [0.5, np.nextafter(f32(0.5), f32(1)), 1.0], [0, 0, -1]),
+        (unit, [1.0 + 2.0 ** -21, 0.0, 1.0], [0, 0, -1]),
+        (unit, [1.0 + 2.0 ** -19, 0.0, 1.0], [0, 0, -1]),
+        # t exactly kDelta (rejected) and just past it (accepted)
+        (unit, [0.2, 0.2, delta], [0, 0, -1]),
+        (unit, [0.2, 0.2, np.nextafter(delta, f32(1))], [0, 0, -1]),
+        # t just below 0 and just above: behind and in front
+        (unit, [0.2, 0.2, -(2.0 ** -30)], [0, 0, -1]),
+        (unit, [0.2, 0.2, 1.0], [0, 0, 1]),
+        # a grazing ray (tiny a) and a ray from below (a < 0)
+        (unit, [0.2, 0.2, 1.0], [0, 2.0 ** -40, -1]),
+        (unit, [0.2, 0.3, -1.0], [0, 0, 1]),
+        (unit, [0.2, 0.3, 1.0], [2.0 ** -100, 0, -(2.0 ** -100)]),
+    ]
+    o = np.array([c[1] for c in cases], f32)
+    d = np.array([c[2] for c in cases], f32)
+    return o, d, np.concatenate([unit, huge])

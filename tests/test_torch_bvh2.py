@@ -1,8 +1,8 @@
 """The BVH2 kernel's tables and tie rule (ops/traverse_bvh2.py) on the CPU.
 
-* the kernel's 64-byte node records decode to the first design's
-  ``nodebox``/``childs`` bit for bit (which tests/test_torch_host.py holds
-  to the JAX packer), and its 48-byte triangle rows are the gather walk's
+* the kernel's 64-byte node records decode bit for bit to the
+  ``nodebox``/``childs`` of the JAX package's own ``pack_bvh2`` (the layout
+  of the first design), and its 48-byte triangle rows are the gather walk's
   leaf rows slot for slot, each leaf's (first, count) covering its real
   slots once and no padding slot;
 * the rows are 16-byte multiples, the depth bound and the 2^24 id bound
@@ -23,10 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+from clive2_tpu.bvh.build import leaf_tables as jax_leaf_tables
 from clive2_tpu.ops import intersect as jax_isect
+from clive2_tpu.ops import traverse_pallas2 as jax_tp2
 from clive2_tpu_torch.ops import intersect, traverse_bvh2 as tb
 from test_torch_intersect import (_assert_hits, _bvh2_verts, _bvh_tables,
-                                  _caps, _rays, _t)
+                                  _caps, _rays, _t, decode_bvh2)
+from test_torch_stream2 import _jax_tree
 from test_torch_wide import _aimed_rays, tie_case
 
 torch.set_num_threads(2)
@@ -53,22 +56,26 @@ def _decode_leaf(ref):
 
 @pytest.mark.parametrize("case", CASES)
 def test_node_records_decode_to_the_first_design(case):
-    p = _pack(_bvh_tables(_bvh2_verts(case)))
+    """The 64-byte records decode to the JAX package's ``pack_bvh2``
+    ``nodebox`` and ``childs`` (the first design's layout) bit for bit, on
+    the JAX package's own tree of the same soup."""
+    soup, bvh, rows = _jax_tree(_bvh2_verts(case))
+    want = jax_tp2.pack_bvh2(bvh, soup, leaf=jax_leaf_tables(bvh, soup))
+    p = _pack(rows)
     nodes = p["nodes"]
-    assert nodes.dtype == np.float32 and nodes.shape == (len(p["childs"]), 16)
-    a = nodes[:, [0, 2, 8, 1, 3, 9]]           # lo.x lo.y lo.z hi.x hi.y hi.z
-    b = nodes[:, [4, 6, 10, 5, 7, 11]]
-    np.testing.assert_array_equal(np.concatenate([a, b], 1).view(np.int32),
-                                  p["nodebox"].view(np.int32))
+    n_inner = len(want["childs"]) // 2
+    assert nodes.dtype == np.float32 and nodes.shape == (n_inner, 16)
     assert not nodes[:, 14:16].any()
-    first, count = tb.leaf_spans(p["leaves"].reshape(len(p["leaves"]), -1))
-    refs, childs = _child_refs(p), p["childs"]
-    inner = childs >= 0
-    np.testing.assert_array_equal(refs[inner], childs[inner])
-    leaf = -(childs[~inner] + 1)
+    nodebox, childs = decode_bvh2(p, rows["leaf_packed"])
+    np.testing.assert_array_equal(nodebox.ravel().view(np.int32),
+                                  want["nodebox"].view(np.int32))
+    np.testing.assert_array_equal(childs.ravel(), want["childs"])
+    first, count = tb.leaf_spans(rows["leaf_packed"])
+    refs = _child_refs(p)
+    leaf = -(childs[childs < 0] + 1)
     np.testing.assert_array_equal(
-        refs[~inner], ~((first[leaf] << tb.LEAF_BITS) | count[leaf]))
-    decoded = np.array([_decode_leaf(r) for r in refs[~inner]])
+        refs[childs < 0], ~((first[leaf] << tb.LEAF_BITS) | count[leaf]))
+    decoded = np.array([_decode_leaf(r) for r in refs[childs < 0]])
     np.testing.assert_array_equal(decoded, np.stack([first[leaf],
                                                      count[leaf]], 1))
 
@@ -139,10 +146,8 @@ def _constant(source, name):
 
 
 def test_depth_bound_enforced_and_constants_match_the_kernels(monkeypatch):
-    assert _constant("traverse_bvh2.cu", "kStackSize") == tb.STACK_SIZE
-    assert _constant("traverse_bvh2_first.cu", "kStackSize") == tb.STACK_SIZE
+    assert _constant("common.cuh", "kWalkStack") == tb.STACK_SIZE
     assert _constant("traverse_bvh2.cu", "kLeafBits") == tb.LEAF_BITS
-    assert _constant("traverse_bvh2_first.cu", "kLeafSlots") == tb.LEAF_SLOTS
     assert tb.LEAF_SLOTS < 1 << tb.LEAF_BITS
     rows = _bvh_tables(_bvh2_verts("soup"))
     _pack(rows)
@@ -280,39 +285,32 @@ def test_kernel_wrapper_checks_its_tables_and_instance():
     bvh = {k: _t(v).to("meta") for k, v in rows.items()}
     o = torch.zeros(4, 3, device="meta")
     bad = dict(nodes=tables["nodes"].reshape(-1, 8),
-               tris=tables["tris"].double(),
-               nodebox=tables["nodebox"].reshape(-1, 6),
-               childs=tables["childs"].long(),
-               leaves=tables["leaves"].reshape(-1, 80))
+               tris=tables["tris"].double())
     for k, t in bad.items():
-        instance = "pr1" if k in ("nodebox", "childs", "leaves") else None
         with pytest.raises(ValueError, match=f"bvh2 table {k}"):
             tb.intersect_bvh2(o, o, {"bvh": bvh, "bvh2": dict(tables,
-                                                             **{k: t})},
-                              instance=instance)
+                                                             **{k: t})})
     with pytest.raises(ValueError, match="no BVH2 tables"):
         tb.intersect_bvh2(o, o, {"bvh": bvh})
-    with pytest.raises(ValueError, match="unknown BVH2 instance"):
-        tb.intersect_bvh2(o, o, {"bvh": bvh, "bvh2": tables},
-                          instance="pr2")
-    for instance in tb.INSTANCES:
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            tb.intersect_bvh2(o, o, {"bvh": bvh, "bvh2": tables},
-                              instance=instance)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tb.intersect_bvh2(o, o, {"bvh": bvh, "bvh2": tables})
+    assert not hasattr(tb, "INSTANCES")
 
 
-@pytest.mark.parametrize("instance", tb.INSTANCES)
-def test_every_instance_takes_the_gather_walk_on_the_cpu(instance):
-    rows = _bvh_tables(_bvh2_verts("sphere"))
+@pytest.mark.parametrize("case", CASES)
+def test_every_instance_takes_the_gather_walk_on_the_cpu(case):
+    """The wrapper takes the gather walk for CPU tensors on every case, and
+    launches nothing."""
+    rows = _bvh_tables(_bvh2_verts(case))
     scene = dict(bvh={k: _t(v) for k, v in rows.items()},
                  bvh2={k: _t(v) for k, v in _pack(rows).items()})
-    rng = np.random.default_rng(74)
+    rng = np.random.default_rng(74 + CASES.index(case))
     o, d = _rays(rng, 500)
     active, t_max = _caps(rng, 500)
     launches = tb.intersect_bvh2.launches
     got = tb.intersect_bvh2(_t(o), _t(d), scene, active=_t(active),
-                            t_max=_t(t_max), instance=instance)
+                            t_max=_t(t_max))
     want = intersect.intersect_bvh_packed(_t(o), _t(d), scene["bvh"],
                                           active=_t(active), t_max=_t(t_max))
-    _assert_hits(got, want, f"bvh2 {instance} on the cpu")
+    _assert_hits(got, want, f"bvh2 {case} on the cpu")
     assert tb.intersect_bvh2.launches == launches

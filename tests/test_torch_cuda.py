@@ -22,7 +22,7 @@ from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
 from clive2_tpu_torch.ops import traverse_stream, traverse_stream2
 from clive2_tpu_torch.ops import traverse_wide
-from clive2_tpu_torch.testing import tie_soup
+from clive2_tpu_torch.testing import brute_edge_cases, tie_soup
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +72,31 @@ def test_brute_kernel_matches_plain(dev, masked):
     _assert_same(got, brute.brute_plain(o, d, tris, **kw))
 
 
+def test_brute_kernel_matches_plain_on_the_pretest_edges(dev):
+    """Rays at the edges of the exact test (clive2_tpu_torch.testing:
+    brute_edge_cases): u underflowing to -0.0, a = +-0, u and v exactly 0
+    or 1, u + v = 1, t at kDelta, each ray against both edge triangles; and
+    rays inside the Cornell box, most of whose tests the pre-test would
+    end (brute.pretest_stage on the card)."""
+    o, d, tris = (torch.from_numpy(x).to(dev) for x in brute_edge_cases())
+    for k in range(tris.shape[0]):
+        one = tris[k:k + 1]
+        got = brute.intersect_brute(o, d, one)
+        _assert_same(got, brute.brute_plain(o, d, one))
+    cornell = ct.create_scene_from_preset("empty", 64, 36, device=dev)
+    table = cornell.data["brute"]["tris"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lo, hi = table[:, 0:3].min(0).values, table[:, 0:3].max(0).values
+    o = lo + (hi - lo) * torch.rand(200_000, 3, generator=gen, device=dev)
+    d = torch.randn(200_000, 3, generator=gen, device=dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    got = brute.intersect_brute(o, d, table)
+    _assert_same(got, brute.brute_plain(o, d, table))
+    assert (got[0] >= 0).float().mean() > 0.9
+    stage = brute.pretest_stage(o, d, table)
+    assert (stage < 3).float().mean() > 0.5
+
+
 def _bvh2_scene(dev, rows):
     return dict(
         bvh={k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
@@ -85,13 +110,11 @@ BVH2_CASES = ["closest", "capped", "any_hit", "ties", "odd_count",
 
 
 @pytest.mark.parametrize("case", BVH2_CASES)
-@pytest.mark.parametrize("instance", traverse_bvh2.INSTANCES)
-def test_bvh2_kernel_matches_gather_walk(dev, instance, case):
-    """Every instance equals the gather walk on every ray (any-hit: the
-    verdicts); on the tie soup every hit of the default and ``one_per_ray``
-    is the id at the lower slot, while ``pr1``, which breaks ties in its
-    visit order, hits the same pair at the same t; a cast of no rays
-    launches nothing, an all-inactive one writes misses."""
+def test_bvh2_kernel_matches_gather_walk(dev, case):
+    """The kernel equals the gather walk on every ray (any-hit: the
+    verdicts); on the tie soup every hit is the id at the lower slot; a
+    cast of no rays launches nothing, an all-inactive one writes
+    misses."""
     gen = torch.Generator(device=dev).manual_seed(2)
     if case == "ties":
         rows, lower = tie_soup(2, 2000)
@@ -113,8 +136,7 @@ def test_bvh2_kernel_matches_gather_walk(dev, instance, case):
     any_hit = case == "any_hit"
     before = traverse_bvh2.intersect_bvh2.launches
     got = traverse_bvh2.intersect_bvh2(o, d, scene, active=active,
-                                       t_max=t_max, any_hit=any_hit,
-                                       instance=instance)
+                                       t_max=t_max, any_hit=any_hit)
     assert traverse_bvh2.intersect_bvh2.launches == before + (n > 0)
     want = intersect.intersect_bvh_packed(o, d, scene["bvh"], active=active,
                                           t_max=t_max)
@@ -123,13 +145,6 @@ def test_bvh2_kernel_matches_gather_walk(dev, instance, case):
         assert hits == 0 and not torch.isfinite(got[1]).any()
     elif n:
         assert hits > 1000
-    if case == "ties" and instance == "pr1":
-        hit = want[0] >= 0
-        assert torch.equal(got[0] >= 0, hit)
-        assert torch.equal(got[1][hit], want[1][hit])
-        np.testing.assert_array_equal(lower(got[0][hit].cpu().numpy()),
-                                      lower(want[0][hit].cpu().numpy()))
-        return
     _assert_same(got, want, closest=not any_hit)
     if case == "ties":
         ids = got[0][got[0] >= 0].cpu().numpy()
@@ -184,13 +199,65 @@ def test_wide_and_stream_kernels_match_plain(dev, name, any_hit):
     before = kernel.launches
     got = kernel(o, d, scene, active=active, t_max=t_max, any_hit=any_hit)
     assert kernel.launches == before + 1
-    want = getattr(module, plain)(o, d, scene[name], scene["bvh"],
-                                  active=active, t_max=t_max, any_hit=any_hit)
+    tables = ((scene[name], scene["bvh"]) if name == "wide"
+              else (scene[name],))
+    want = getattr(module, plain)(o, d, *tables, active=active, t_max=t_max,
+                                  any_hit=any_hit)
     _assert_same(got, want)
     assert (got[0] >= 0).sum() > 1000
     if not any_hit:
         _assert_same(got, intersect.intersect_bvh_packed(
             o, d, scene["bvh"], active=active, t_max=t_max))
+
+
+@pytest.mark.parametrize("case", ["closest", "capped", "any_hit", "ties",
+                                  "odd_count", "all_inactive"])
+def test_stream_kernel_matches_plain(dev, case):
+    """The streaming kernel equals stream_plain on every ray (any-hit: its
+    ids too, since both stop at the same fat leaf) and the gather walk on
+    closest and capped rays; on the tie soup every hit is the id at the
+    lower slot; an all-inactive cast writes misses."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    if case == "ties":
+        rows, lower = tie_soup(12, 3000)
+    else:
+        soup = _soup(12, 6000)
+        bvh = build_bvh(soup)
+        rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    bvh_rows = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              traverse_stream.pack_stream(rows["node_packed"],
+                                          rows["leaf_packed"]).items()}
+    n = 50_001 if case == "odd_count" else 50_000
+    o, d, active, t_max = _rays(gen, n, dev)
+    if case == "ties":
+        aim = (torch.rand(n, 3, generator=gen, device=dev) * 10 - 5) - o
+        d = aim / aim.norm(dim=1, keepdim=True)
+        active, t_max = None, None
+    elif case == "closest":
+        t_max = None
+    elif case == "all_inactive":
+        active = torch.zeros_like(active)
+    any_hit = case == "any_hit"
+    before = traverse_stream.intersect_stream.launches
+    got = traverse_stream.intersect_stream(o, d, dict(stream=tables),
+                                           active=active, t_max=t_max,
+                                           any_hit=any_hit)
+    assert traverse_stream.intersect_stream.launches == before + 1
+    want = traverse_stream.stream_plain(o, d, tables, active=active,
+                                        t_max=t_max, any_hit=any_hit)
+    _assert_same(got, want)
+    hits = int((got[0] >= 0).sum())
+    if case == "all_inactive":
+        assert hits == 0 and not torch.isfinite(got[1]).any()
+        return
+    assert hits > 1000
+    gather = intersect.intersect_bvh_packed(o, d, bvh_rows, active=active,
+                                            t_max=t_max)
+    _assert_same(got, gather, closest=not any_hit)
+    if case == "ties":
+        ids = got[0][got[0] >= 0].cpu().numpy()
+        np.testing.assert_array_equal(ids, lower(ids))
 
 
 @pytest.mark.parametrize("name", ["wide", "stream"])

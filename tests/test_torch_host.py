@@ -18,6 +18,7 @@ from clive2_tpu.ops import traverse_pallas2 as jax_tp2
 from clive2_tpu_torch.convert import scene_data_from_jax
 from clive2_tpu_torch.geometry import TriangleSoup as TorchSoup
 from clive2_tpu_torch.ops.traverse_bvh2 import pack_bvh2
+from test_torch_intersect import decode_bvh2
 
 torch.set_num_threads(2)
 
@@ -108,12 +109,18 @@ def test_bvh2_tables_equal_the_jax_packer(name):
     want = jax_tp2.pack_bvh2(bvh, world, leaf=leafs)
     rows = pack_gather_walk(bvh, leafs)
     got = pack_bvh2(rows["node_packed"], rows["leaf_packed"])
-    np.testing.assert_array_equal(got["nodebox"].ravel(), want["nodebox"])
-    np.testing.assert_array_equal(got["childs"].ravel(), want["childs"])
-    # JAX's leaf table is tri-major [8 slots, 16 * L]; ours is [L, 8, 10]
-    n_leaves = got["leaves"].shape[0]
+    nodebox, childs = decode_bvh2(got, rows["leaf_packed"])
+    np.testing.assert_array_equal(nodebox.ravel(), want["nodebox"])
+    np.testing.assert_array_equal(childs.ravel(), want["childs"])
+    # JAX's leaf table is tri-major [8 slots, 16 * L]; our rows are its
+    # real slots (tri id >= 0) in slot order, as v0 id e1 0 e2 0
+    n_leaves = rows["leaf_packed"].shape[0]
     jl = want["leaff"][:, :16 * n_leaves].reshape(8, n_leaves, 16)
-    np.testing.assert_array_equal(got["leaves"], jl.transpose(1, 0, 2)[..., :10])
+    jl = jl.transpose(1, 0, 2).reshape(-1, 16)
+    jl = jl[jl[:, 9] >= 0]
+    tris = got["tris"]
+    np.testing.assert_array_equal(tris[:, [0, 1, 2, 4, 5, 6, 8, 9, 10, 3]],
+                                  jl[:, :10])
 
 
 def test_host_modules_import_no_jax():

@@ -34,6 +34,7 @@ from clive2_tpu_torch.bvh.build import build_bvh, leaf_tables
 from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.models import utah_teapot
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
+from clive2_tpu_torch.testing import brute_edge_cases
 
 torch.set_num_threads(2)
 
@@ -118,6 +119,113 @@ def test_brute_plain_matches_chunked_xla_path():
     _assert_hits(got, want, "brute vs chunked")
 
 
+# ---- brute's pre-test ---------------------------------------------------------
+# The exact early-reject pre-test of csrc/brute.cu's note
+# (brute.pretest_stage), mirrored in numpy f32 in brute_plain's expression
+# order and held to brute_plain's acceptances.
+
+def _pretest_np(o, d, tris):
+    """The pre-test in numpy f32: [N, T] stage index (brute.STAGES) where
+    it ends each test."""
+    f32 = np.float32
+    o, d = o.astype(f32)[:, None, :], d.astype(f32)[:, None, :]
+    v0, e1, e2 = (tris[None, :, j:j + 3].astype(f32) for j in (0, 3, 6))
+    with np.errstate(all="ignore"):
+        h = np.stack([d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1],
+                      d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2],
+                      d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]], -1)
+        a = e1[..., 0] * h[..., 0] + e1[..., 1] * h[..., 1] \
+            + e1[..., 2] * h[..., 2]
+        pos = a > 0
+        lo = np.abs(a) * f32(brute.PRETEST_LO)
+        hi = np.abs(a) * f32(brute.PRETEST_HI)
+        s_ = o - v0
+        uu = s_[..., 0] * h[..., 0] + s_[..., 1] * h[..., 1] \
+            + s_[..., 2] * h[..., 2]
+        ua = np.where(pos, uu, -uu)
+        q = np.stack([s_[..., 1] * e1[..., 2] - s_[..., 2] * e1[..., 1],
+                      s_[..., 2] * e1[..., 0] - s_[..., 0] * e1[..., 2],
+                      s_[..., 0] * e1[..., 1] - s_[..., 1] * e1[..., 0]], -1)
+        vv = d[..., 0] * q[..., 0] + d[..., 1] * q[..., 1] \
+            + d[..., 2] * q[..., 2]
+        va = np.where(pos, vv, -vv)
+        tt = e2[..., 0] * q[..., 0] + e2[..., 1] * q[..., 1] \
+            + e2[..., 2] * q[..., 2]
+        end_u = (a == 0) | (ua < -lo) | (ua > hi)
+        end_v = (va < -lo) | ((ua >= 0) & (va >= 0) & (ua + va > hi))
+        end_t = np.where(pos, tt, -tt) < -lo
+    return np.where(end_u, 0, np.where(end_v, 1, np.where(end_t, 2, 3)))
+
+
+def _plain_hits(o, d, tris):
+    """[N, T]: brute_plain's acceptance of each ray-triangle pair (before
+    its best-t rule)."""
+    t = _t(tris)
+    hit, _, _, _ = intersect._mt(
+        tuple(c[:, None] for c in _t(o).unbind(-1)),
+        tuple(c[:, None] for c in _t(d).unbind(-1)),
+        t[:, 0:3].unbind(-1), t[:, 3:6].unbind(-1), t[:, 6:9].unbind(-1))
+    return hit.numpy()
+
+
+def _pretest_case(case):
+    rng = np.random.default_rng(9)
+    if case == "edges":
+        return brute_edge_cases()
+    if case == "cornell":
+        s = ct.create_scene_from_preset("empty", 32, 18, device="cpu")
+        tris = s.data["brute"]["tris"].numpy()
+        lo, hi = tris[:, 0:3].min(0), tris[:, 0:3].max(0)
+        o = rng.uniform(lo, hi, (4000, 3)).astype(np.float32)
+        d = rng.normal(size=(4000, 3)).astype(np.float32)
+        return o, d / np.linalg.norm(d, axis=1, keepdims=True), tris
+    tris = brute.pack_brute(TriangleSoup.from_vertices(_soup(rng, 60)))
+    o, _ = _rays(rng, 3000)
+    # aimed at points of the triangles' planes around their edges
+    k = rng.integers(0, 60, 3000)
+    r = rng.uniform(-0.2, 1.2, (3000, 2, 1)).astype(np.float32)
+    aim = tris[k, 0:3] + r[:, 0] * tris[k, 3:6] + r[:, 1] * tris[k, 6:9]
+    d = aim - o
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True), tris
+
+
+@pytest.mark.parametrize("case", ["random", "cornell", "edges"])
+def test_brute_pretest_never_rejects_a_plain_hit(case):
+    """The pre-test ends no test that brute_plain accepts, on seeded random
+    rays, on rays inside the Cornell box and on the hand-built edges (u
+    underflowing to -0.0, a = +-0, u and v exactly 0 or 1, u + v = 1, t at
+    kDelta); brute.pretest_stage equals the numpy mirror; and brute behind
+    the pre-test equals brute_plain."""
+    o, d, tris = _pretest_case(case)
+    stage = _pretest_np(o, d, tris)
+    np.testing.assert_array_equal(
+        brute.pretest_stage(_t(o), _t(d), _t(tris)).numpy(), stage)
+    hits = _plain_hits(o, d, tris)
+    assert hits.sum() > (8 if case == "edges" else 100)
+    assert (stage[hits] == 3).all(), np.argwhere(hits & (stage < 3))
+    if case != "edges":
+        assert (stage < 3).mean() > 0.5     # the pre-test ends most tests
+    # a brute loop behind the pre-test: the plain test only where it lets
+    # the test through
+    want = brute.brute_plain(_t(o), _t(d), _t(tris))
+    t = _t(tris)
+    kept = torch.from_numpy(stage == 3)
+    best_t = torch.full((len(o),), float("inf"))
+    best_i = torch.full((len(o),), -1, dtype=torch.int32)
+    hit, tt, _, _ = intersect._mt(
+        tuple(c[:, None] for c in _t(o).unbind(-1)),
+        tuple(c[:, None] for c in _t(d).unbind(-1)),
+        t[:, 0:3].unbind(-1), t[:, 3:6].unbind(-1), t[:, 6:9].unbind(-1))
+    for k in range(len(tris)):
+        ok = kept[:, k] & hit[:, k] & (tt[:, k] < best_t)
+        best_t = torch.where(ok, tt[:, k], best_t)
+        best_i = torch.where(ok, k, best_i)
+    np.testing.assert_array_equal(best_i.numpy(), want[0].numpy())
+    if case == "edges":
+        # the -0.0 underflow ray is a hit that a sign-only test would drop
+        assert hits[0, 1] and stage[0, 1] == 3
+
+
 # ---- gather walk ------------------------------------------------------------
 
 def _bvh_tables(verts):
@@ -175,49 +283,81 @@ def _bvh2(verts):
     return tab, traverse_bvh2.pack_bvh2(tab["node_packed"], tab["leaf_packed"])
 
 
-def _subtree_tris(p, ref):
-    """Triangle ids under a child reference of the BVH2 tables."""
+def decode_nodes(nodes):
+    """The inverse of ``traverse_bvh2.node_records``: (box_a, box_b [I, 6] min(3) max(3),
+    references [I, 2] int32)."""
+    nodes = np.asarray(nodes, dtype=np.float32)
+    return (nodes[:, [0, 2, 8, 1, 3, 9]], nodes[:, [4, 6, 10, 5, 7, 11]],
+            nodes.view(np.int32)[:, 12:14])
+
+
+def decode_bvh2(p, leaf_packed):
+    """The BVH2 kernel's node records in the JAX packer's layout: nodebox
+    [I, 12] (both children's min(3) max(3)) and childs [I, 2] (>= 0 inner,
+    -(leaf id + 1) a leaf), each leaf reference ~(first << LEAF_BITS |
+    count) mapped back to the gather-walk leaf whose real slots are rows
+    first .. first + count - 1."""
+    box_a, box_b, refs = decode_nodes(p["nodes"])
+    first, count = traverse_bvh2.leaf_spans(leaf_packed)
+    code = (first << traverse_bvh2.LEAF_BITS) | count
+    leaf_of = {int(c): leaf for leaf, c in enumerate(code)}
+    assert len(leaf_of) == len(code) and (count > 0).all()
+    childs = np.array([[r if r >= 0 else -(leaf_of[~int(r)] + 1)
+                        for r in pair] for pair in refs], dtype=np.int64)
+    return np.concatenate([box_a, box_b], axis=1), childs
+
+
+def _subtree_rows(p, ref):
+    """Rows of the BVH2 triangle table under a child reference."""
     if ref < 0:
-        tri = p["leaves"][-(ref + 1), :, 9]
-        return tri[tri >= 0].astype(int)
-    return np.concatenate([_subtree_tris(p, c) for c in p["childs"][ref]])
+        code = ~int(ref)
+        first = code >> traverse_bvh2.LEAF_BITS
+        return p["tris"][first:first + (code & ((1 << traverse_bvh2.LEAF_BITS)
+                                                - 1))]
+    refs = decode_nodes(p["nodes"])[2]
+    return np.concatenate([_subtree_rows(p, c) for c in refs[ref]])
 
 
 @pytest.mark.parametrize("case", ["soup", "sphere", "teapot"])
 def test_bvh2_tables_reach_every_triangle_once(case):
     verts = _bvh2_verts(case)
     _, p = _bvh2(verts)
-    childs = p["childs"]
+    refs = decode_nodes(p["nodes"])[2]
     seen_inner, seen_leaves, level = {0}, [], [0]
     while level:
-        nxt = childs[level].ravel()
-        seen_leaves += [-(c + 1) for c in nxt if c < 0]
+        nxt = refs[level].ravel()
+        seen_leaves += [~int(c) for c in nxt if c < 0]
         level = [int(c) for c in nxt if c >= 0]
         seen_inner.update(level)
-    assert seen_inner == set(range(len(childs)))
-    assert sorted(seen_leaves) == list(range(len(p["leaves"])))
-    tri = p["leaves"][:, :, 9]
-    assert sorted(tri[tri >= 0].astype(int).tolist()) == list(range(len(verts)))
+    assert seen_inner == set(range(len(refs)))
+    covered = np.zeros(len(p["tris"]), np.int64)
+    for code in seen_leaves:
+        first = code >> traverse_bvh2.LEAF_BITS
+        covered[first:first + (code & ((1 << traverse_bvh2.LEAF_BITS) - 1))] += 1
+    assert (covered == 1).all()
+    tri = p["tris"][:, 3]
+    assert sorted(tri.astype(int).tolist()) == list(range(len(verts)))
 
 
 @pytest.mark.parametrize("case", ["soup", "sphere", "teapot"])
 def test_bvh2_child_boxes_bound_their_subtrees(case):
     """Each node record's two boxes hold every vertex under that child, and
-    the leaf rows hold the soup's own v0, e1, e2: the kernel prunes by the
-    boxes and tests the rows."""
+    the triangle rows hold the soup's own v0, e1, e2: the kernel prunes by
+    the boxes and tests the rows."""
     verts = _bvh2_verts(case)
     _, p = _bvh2(verts)
-    for j, pair in enumerate(p["childs"]):
+    box_a, box_b, refs = decode_nodes(p["nodes"])
+    for j, pair in enumerate(refs):
         for side, ref in enumerate(pair):
-            box = p["nodebox"][j, 6 * side:6 * side + 6]
-            v = verts[_subtree_tris(p, ref)].reshape(-1, 3)
+            box = (box_a, box_b)[side][j]
+            rows = _subtree_rows(p, ref)
+            v = verts[rows[:, 3].astype(int)].reshape(-1, 3)
             assert (v >= box[:3]).all() and (v <= box[3:]).all(), (j, side)
-    rows = p["leaves"].reshape(-1, 10)
-    rows = rows[rows[:, 9] >= 0]
-    tri = verts[rows[:, 9].astype(int)]
+    rows = p["tris"]
+    tri = verts[rows[:, 3].astype(int)]
     np.testing.assert_array_equal(rows[:, 0:3], tri[:, 0])
-    np.testing.assert_array_equal(rows[:, 3:6], tri[:, 1] - tri[:, 0])
-    np.testing.assert_array_equal(rows[:, 6:9], tri[:, 2] - tri[:, 0])
+    np.testing.assert_array_equal(rows[:, 4:7], tri[:, 1] - tri[:, 0])
+    np.testing.assert_array_equal(rows[:, 8:11], tri[:, 2] - tri[:, 0])
 
 
 def test_bvh2_wrapper_takes_the_gather_walk_on_the_cpu():
