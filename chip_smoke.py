@@ -9,8 +9,8 @@ sample of each configuration; the queued fat-leaf traversal also kernel by
 kernel on one round of the first chunk of each of its casts), times both on
 those casts (and, on the BVH scenes' casts, the other kernels that can carry
 the scene as an A/B: on the fat-leaf casts also the per-thread fat-leaf
-kernel, the FP32-only leaf test and other tail sizes), holds the BVH2 and
-streaming kernels to a soup of exact ties, reports what an exact
+kernel, the FP32-only leaf test and other tail sizes), holds the BVH2, BVH8
+and streaming kernels to a soup of exact ties, reports what an exact
 early-reject pre-test would end on the brute casts (by lane and by warp), a
 development build of it with ``--fmad=true`` beside the exact one, and the
 SASS instructions per triangle test, and the persistent traversal kernels'
@@ -275,7 +275,7 @@ def brute_fmad(c, tris, ref):
 
 
 def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
-                                      "stream_kernel")):
+                                      "stream_kernel", "wide_kernel")):
     """SASS instruction counts of the named kernels in a built library
     (``cuobjdump -sass``): per kernel instance, its instructions, and for
     the innermost loop that holds a MUFU.RCP (the triangle test's
@@ -745,7 +745,9 @@ def main() -> int:
     # reports (resident blocks), and their SASS instruction counts
     for name, src, module in (("bvh2", "traverse_bvh2.cu", traverse_bvh2),
                               ("stream", "traverse_stream.cu",
-                               traverse_stream), ("brute", "brute.cu", None)):
+                               traverse_stream),
+                              ("wide", "traverse_wide.cu", traverse_wide),
+                              ("brute", "brute.cu", None)):
         ptxas = kernels.ptxas_report(src)
         emit(phase=f"{name}_resources",
              ptxas=[ln.strip() for ln in ptxas.splitlines()
@@ -851,16 +853,15 @@ def main() -> int:
         compare_hits(got, want_any, f"bvh2 {rname} any-hit", closest=False)
         checks += 2
     # the tie soup: 5,000 triangles twice, ids swapped in half the pairs;
-    # every hit an exact tie, won by the lower slot
-    # the tie soup: 5,000 triangles twice, ids swapped in half the pairs;
     # every hit an exact tie, won by the lower slot.  The BVH2 kernel here,
-    # the streaming kernel in phase 4b, on the same rays.
+    # the BVH8 and streaming kernels in phase 4b, on the same rays.
     rows, lower = tie_soup(9, 5000)
     ties = dict(bvh={k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
                 **{name: {k: torch.from_numpy(v).to(dev) for k, v in
                           pack(rows["node_packed"],
                                rows["leaf_packed"]).items()}
                    for name, pack in (("bvh2", traverse_bvh2.pack_bvh2),
+                                      ("wide", traverse_wide.pack_bvh8),
                                       ("stream",
                                        traverse_stream.pack_stream))})
     o, _ = random_rays(1 << 18, -8.0, 8.0, gen, dev)
@@ -912,7 +913,9 @@ def main() -> int:
         dragon_w, build_s, bvh_s = build_timed("dragon", 512, 512, dev)
     emit(phase="scene", name="dragon", selector="CLIVE2_TRAVERSAL=wide",
          scene_tris=dragon_w.n_triangles, scene_build_s=build_s,
-         bvh_build_s=bvh_s, wide_nodes=dragon_w.data["wide"]["wbox"].shape[0])
+         bvh_build_s=bvh_s, wide_nodes=dragon_w.data["wide"]["nodes"].shape[0],
+         wide_table_bytes={k: table_bytes({k: v}) for k, v in
+                           dragon_w.data["wide"].items()})
     with environment(CLIVE2_STREAM_IMPL="1"):
         dragon_s1, build_s, bvh_s = build_timed("medium-dragon", 512, 512,
                                                 dev)
@@ -933,7 +936,7 @@ def main() -> int:
             c["origin"], c["direction"], data["stream2"],
             active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
         "wide": lambda c, data: traverse_wide.wide_plain(
-            c["origin"], c["direction"], data["wide"], data["bvh"],
+            c["origin"], c["direction"], data["wide"],
             active=c["active"], t_max=c["t_max"], any_hit=c["any_hit"]),
         "stream": lambda c, data: traverse_stream.stream_plain(
             c["origin"], c["direction"], data["stream"],
@@ -971,10 +974,10 @@ def main() -> int:
                 any_ids_equal &= bool(torch.equal(got[0], want[0]))
                 hits[f"{rname} {variant}"] = int((want[0] >= 0).sum())
                 checks += 1
-        if name == "stream":
-            # the tie soup of phase 4, on the streaming kernel's tables
-            err["stream"] = max(err["stream"], tie_check(
-                traverse_stream.intersect_stream(*tie_rays, ties), "stream"))
+        if name in ("wide", "stream"):
+            # the tie soup of phase 4, on the kernel's own tables
+            err[name] = max(err[name], tie_check(
+                wrappers[name](*tie_rays, ties), name))
             checks += 1
         torch.cuda.synchronize()
         emit(phase=f"kernel_{name}_vs_plain", scene_tris=scene.n_triangles,
@@ -1369,6 +1372,10 @@ def main() -> int:
                  ("stream", "medium_dragon", "extension"))]
     rows[0]["pretest_end_share"] = pretest_of["connection"][
         "pretest_end_share"]
+    rows[3]["dragon_connection"] = dict(
+        zip(("ms", "plain_ms"), timing["wide", "dragon", "connection"]),
+        bound_ms=bounds["wide", "dragon", "connection"][0],
+        plain_rays=compared["wide", "dragon", "connection"])
     rows[4]["sponza_connection"] = dict(
         zip(("ms", "plain_ms"), timing["stream", "sponza", "connection"]),
         bound_ms=bounds["stream", "sponza", "connection"][0])

@@ -98,15 +98,15 @@ __device__ __forceinline__ bool pop_entry(const int* stack_ref,
   return false;
 }
 
-// ---- persistent traversal warps (traverse_bvh2.cu, traverse_stream.cu) ----
+// ---- persistent traversal warps (traverse_bvh2.cu, traverse_stream.cu,
+// traverse_wide.cu) ----
 // Blocks of kWalkThreads threads, as many as the card holds resident; a
 // warp takes rays from a global counter whenever at least kRefill of its
-// lanes are free, and each lane walks a binary tree of 64-byte node records
-// with a stack of (reference, entry distance) split between shared and
-// local memory.
+// lanes are free, and each lane walks a tree of node records with a stack
+// of (reference, entry distance) split between shared and local memory.
 
 constexpr int kWalkThreads = 128;
-constexpr int kWalkStack = 64;      // the packers' depth bound (STACK_SIZE)
+constexpr int kWalkStack = 64;      // the binary packers' depth bound
 constexpr int kSharedStack = 16;    // entries per lane in shared memory
 constexpr int kRefill = 8;          // free lanes before a warp fetches rays
 constexpr int kNone = INT_MIN;      // no node
@@ -122,15 +122,17 @@ __device__ __forceinline__ bool is_leaf(int ref) {
 __shared__ int walk_stack_ref[kSharedStack * kWalkThreads];
 __shared__ float walk_stack_t[kSharedStack * kWalkThreads];
 
-// One lane's stack of (reference, entry distance): the first kSharedStack
-// entries in shared memory, the rest in local memory.  A walk pushes at
-// most one entry per level above its node, so kWalkStack entries (the
-// packers' depth bound) cannot overflow.  Entries keep their f32 entry
-// distance: nothing is rounded.
+// One lane's stack of (reference, entry distance), kDepth entries: the
+// first kSharedStack in shared memory, the rest in local memory.  Each
+// packer bounds the entries a walk of its tree can hold by the depth its
+// kernel instantiates (kWalkStack for the binary trees: one entry per level
+// above a node; 96 for the BVH8 tree), so a stack cannot overflow.
+// Entries keep their f32 entry distance: nothing is rounded.
+template <int kDepth>
 struct Stack {
   int sp;
-  int deep_ref[kWalkStack - kSharedStack];
-  float deep_t[kWalkStack - kSharedStack];
+  int deep_ref[kDepth - kSharedStack];
+  float deep_t[kDepth - kSharedStack];
 
   __device__ __forceinline__ void push(int r, float tt) {
     if (sp < kSharedStack) {

@@ -90,7 +90,7 @@ stream_kernel(const float* __restrict__ origin,
               unsigned long long* __restrict__ next_ray,
               int* __restrict__ out_i, float* __restrict__ out_t,
               float* __restrict__ out_u, float* __restrict__ out_v) {
-  Stack st;
+  Stack<kWalkStack> st;
   st.sp = 0;
 
   long long r = 0;          // this lane's ray while has_ray

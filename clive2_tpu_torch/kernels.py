@@ -44,7 +44,9 @@ _SIGNATURES = {
     "clive2_bvh2": _RAYS + [_P] * 3 + [ctypes.c_int] + _OUTS + [_P],
     "clive2_bvh2_info": [ctypes.c_int, _P],
     "clive2_stream2": _RAYS + [_P] * 7 + [ctypes.c_int] + _OUTS + [_P],
-    "clive2_wide": _RAYS + [_P, _P, _P, ctypes.c_int] + _OUTS + [_P],
+    # nodes, tris, ray counter | any_hit
+    "clive2_wide": _RAYS + [_P] * 3 + [ctypes.c_int] + _OUTS + [_P],
+    "clive2_wide_info": [ctypes.c_int, _P],
     # nodes, subs, tris, ray counter | any_hit
     "clive2_stream": _RAYS + [_P] * 4 + [ctypes.c_int] + _OUTS + [_P],
     "clive2_stream_info": [ctypes.c_int, _P],
@@ -227,14 +229,17 @@ def check_tables(tables, spec, what: str):
                              f"[N, *{shape}], got {tuple(t.shape)} {t.dtype}")
 
 
-def aligned_tables(tables, spec, device, what: str):
+def aligned_tables(tables, spec, device, what: str, align=None):
     """The tables of ``spec`` on ``device``, contiguous, each checked to
-    start on a 16-byte boundary (the kernels read them as float4)."""
+    start on a 16-byte boundary (the kernels read them as float4), or on
+    the boundary ``align`` gives for its name."""
     out = []
     for k, _, _ in spec:
         t = on_device(tables[k].contiguous(), device, k)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what} table {k} must be 16-byte aligned")
+        step = (align or {}).get(k, 16)
+        if t.data_ptr() % step:
+            raise ValueError(f"{what} table {k} must be {step}-byte "
+                             "aligned")
         out.append(t)
     return out
 

@@ -5,30 +5,40 @@ Replaces the TPU kernel ``clive2_tpu/ops/traverse_wide.py:_kernel``.  The
 binary SAH tree is collapsed into 8-wide nodes (``collapse_bvh8``: the
 inner candidate with the largest surface area is expanded until a node has
 8 children; wide nodes are numbered in DFS preorder).  A ray pops a wide
-node, slab-tests its 8 child boxes against its best t, pushes the hit
-inner children with their entry distances, the nearest last so that it is
-popped first, and tests the 8 triangles of each hit leaf child.  A popped
-entry is skipped when its entry distance exceeds the best t.  The winner is
-the lexicographic minimum of (t, slot), a slot being the triangle's
-position in the gather walk's leaf rows (``leaf * 8 + k``), so no visit
-order decides a tie.  Leaf children point straight into the gather walk's
-``leaf_packed`` rows.
+node, slab-tests its child boxes against its best t, pushes the hit inner
+children with their entry distances, the nearest last so that it is popped
+first, and tests the triangles of each hit leaf child.  A popped entry is
+skipped when its entry distance exceeds the best t.  The winner is the
+lexicographic minimum of (t, row), a row being the triangle's place in the
+compact triangle rows (``traverse_bvh2.triangle_rows``), which list the
+gather walk's real slots in slot order, so no visit order decides a tie.
+
+Tables (``pack_bvh8``), read by the kernel with 16-byte loads:
+
+* ``nodes`` [W, 64] f32: one 256-byte record per wide node (node 0 is the
+  root), child-major, 8 floats per child: lo(3), its reference as int32
+  bits, hi(3), 0.  A reference >= 0 is an inner wide node, a leaf is
+  ``~(first << LEAF_BITS | count)`` (``traverse_bvh2.leaf_spans``), and
+  ``EMPTY`` an empty child, with the box min = max = +BIG, after the
+  others;
+* ``tris`` [R, 12] f32: the compact triangle rows; no padding slot is read.
 
 Departures from the TPU kernel, each for a TPU limit the card does not have:
 
-* the [56, 128] lane tile of child boxes with its inner-flag rows: boxes
-  are [W, 8, 6] f32 rows read per node;
+* the [56, 128] lane tile of child boxes with its inner-flag rows: a wide
+  node is one child-major record;
 * slot-aligned leaf pages (bin packing, children reordered to page slots,
-  ``lblocks``) and the compact 12-slot layout: a leaf child names its
-  gather-walk leaf row;
+  ``lblocks``) and the compact 12-slot layout: a leaf child names a range
+  of triangle rows;
 * the ``group_gate``, ``pop2`` and ``bits`` variants, ``MAX_BLOCKS_PER_CALL``
-  launch splitting and the Morton sort of the rays: one thread per ray;
+  launch splitting and the Morton sort of the rays: persistent warps, one
+  lane per ray;
 * the tie rule: the TPU kernel takes the largest triangle id among equal t
   within a leaf tile and the first tile visited across tiles.
 
 Kept: the collapse, the empty-child box sentinel min = max = +BIG (an
 inverted box would become an always-hit under the min/max slab test; empty
-slots are also skipped by their ``wchild`` value), and the pack-time stack
+children are also skipped by their reference), and the pack-time stack
 bound, computed for this kernel's stack.  Any-hit stops after the first
 wide node whose leaf children leave a hit under the cap.
 """
@@ -42,13 +52,15 @@ import numpy as np
 import torch
 
 from .intersect import INF, WORK, _mt, box_entry, pop_stack, safe_inverse
-from .traverse_stream import PLAIN_CHUNK, check_leaf_rows
+from .traverse_bvh2 import LEAF_BITS, LEAF_SLOTS, leaf_spans, triangle_rows
+from .traverse_stream import PLAIN_CHUNK
 
 WIDE = 8            # children per wide node
-LEAF_SLOTS = 8      # triangles per leaf row of the gather walk
-STACK_SIZE = 96     # csrc/traverse_wide.cu:kStackSize
+CHILD = 8           # floats per child in a node record: lo(3) ref hi(3) 0
+STACK_SIZE = 96     # csrc/traverse_wide.cu:kWideStack
 BIG = 1e30          # empty-child box: min = max = +BIG
-EMPTY = -(1 << 31)  # wchild of an empty slot (leaves are -(leaf + 1) >= -2^24)
+EMPTY = -(1 << 31)  # an empty child's reference (csrc/common.cuh:kNone)
+MAX_NODES = 1 << 24     # the kernel keeps a node id in 24 bits beside a mask
 
 
 def collapse_bvh8(node_packed):
@@ -98,32 +110,54 @@ def collapse_bvh8(node_packed):
     return wide_children, wide_of
 
 
-def stack_bound(wchild):
-    """The most stack entries a ray can hold: visiting wide node w pushes
-    its hit inner children, and each ancestor a on the way leaves at most
-    inner(a) - 1 entries (its other children) below them."""
-    n_inner = (wchild >= 0).sum(axis=1)
-    below = np.zeros(len(wchild), dtype=np.int64)
-    for w in range(len(wchild)):     # preorder: parents come first
-        kids = wchild[w][wchild[w] >= 0]
+def stack_bound(refs):
+    """The most stack entries a ray can hold, from the child references
+    ``refs`` [W, 8] (>= 0 inner): visiting wide node w pushes its hit inner
+    children, and each ancestor a on the way leaves at most inner(a) - 1
+    entries (its other children) below them."""
+    n_inner = (refs >= 0).sum(axis=1)
+    below = np.zeros(len(refs), dtype=np.int64)
+    for w in range(len(refs)):       # preorder: parents come first
+        kids = refs[w][refs[w] >= 0]
         below[kids] = below[w] + n_inner[w] - 1
     return int((below + n_inner).max(initial=0))
 
 
-def pack_bvh8(node_packed, leaf_packed):
-    """Kernel tables from the gather walk's packed rows.
+def node_records(boxes, refs):
+    """[W, 64] f32 wide-node records from each child's box [W, 8, 6]
+    (min(3) max(3)) and reference [W, 8] int32: child-major, lo(3), the
+    reference as int32 bits, hi(3), 0."""
+    rec = np.zeros((len(boxes), WIDE, CHILD), dtype=np.float32)
+    rec[:, :, 0:3] = boxes[:, :, 0:3]
+    rec.view(np.int32)[:, :, 3] = refs
+    rec[:, :, 4:7] = boxes[:, :, 3:6]
+    return rec.reshape(len(boxes), WIDE * CHILD)
 
-    Returns dict(wbox [W, 8, 6] f32: each child's min(3) max(3), +BIG for
-    an empty slot; wchild [W, 8] i32: >= 0 an inner wide node, < 0 leaf
-    row -(leaf + 1), EMPTY for an empty slot).  Wide node 0 is the root.
+
+def decode_records(nodes):
+    """The inverse of ``node_records`` on a tensor: (boxes [W, 8, 6],
+    references [W, 8] int64)."""
+    rec = nodes.reshape(-1, WIDE, CHILD)
+    refs = nodes.view(torch.int32).reshape(-1, WIDE, CHILD)[..., 3]
+    return rec[..., [0, 1, 2, 4, 5, 6]], refs.long()
+
+
+def pack_bvh8(node_packed, leaf_packed):
+    """Kernel tables from the gather walk's packed rows: dict(nodes [W, 64],
+    tris [R, 12], both f32; see the module note).
+
     Raises when the root is a leaf, a ray could need more stack than the
-    kernel has, or a triangle id is past what an f32 leaf row holds
-    exactly.
+    kernel has, a triangle id does not fit an f32 row (2^24), or there are
+    more wide nodes than the kernel's 24-bit node ids hold.
     """
     node_packed = np.asarray(node_packed, dtype=np.float32)
-    check_leaf_rows(leaf_packed)
+    tris = triangle_rows(leaf_packed)
+    first, count = leaf_spans(leaf_packed)
     wide_children, wide_of = collapse_bvh8(node_packed)
     n_wide = len(wide_children)
+    if n_wide > MAX_NODES:
+        raise ValueError(f"{n_wide} wide nodes: the kernel holds node ids "
+                         f"below {MAX_NODES}")
     counts = [len(s) for s in wide_children]
     flat = np.fromiter(itertools.chain.from_iterable(wide_children),
                        dtype=np.int64, count=sum(counts))
@@ -133,31 +167,33 @@ def pack_bvh8(node_packed, leaf_packed):
     wide_id = np.full(node_packed.shape[0], -1, dtype=np.int64)
     wide_id[list(wide_of)] = list(wide_of.values())
     leaf_id = node_packed[flat, 7].astype(np.int64)
-    wbox = np.full((n_wide, WIDE, 6), BIG, dtype=np.float32)
-    wbox[w_idx, c_idx] = node_packed[flat, 0:6]
-    wchild = np.full((n_wide, WIDE), EMPTY, dtype=np.int64)
-    wchild[w_idx, c_idx] = np.where(leaf_id >= 0, -(leaf_id + 1),
-                                    wide_id[flat])
-    need = stack_bound(wchild)
+    leaf = np.maximum(leaf_id, 0)
+    boxes = np.full((n_wide, WIDE, 6), BIG, dtype=np.float32)
+    boxes[w_idx, c_idx] = node_packed[flat, 0:6]
+    refs = np.full((n_wide, WIDE), EMPTY, dtype=np.int64)
+    refs[w_idx, c_idx] = np.where(
+        leaf_id >= 0, ~((first[leaf] << LEAF_BITS) | count[leaf]),
+        wide_id[flat])
+    need = stack_bound(refs)
     if need > STACK_SIZE:
         raise ValueError(f"BVH8 traversal may need {need} stack entries, "
                          f"past the wide kernel's {STACK_SIZE}")
-    return dict(wbox=wbox, wchild=wchild.astype(np.int32))
+    return dict(nodes=node_records(boxes, refs.astype(np.int32)), tris=tris)
 
 
-def wide_plain(origin, direction, tables, bvh, active=None, t_max=None,
+def wide_plain(origin, direction, tables, active=None, t_max=None,
                any_hit=False):
-    """Plain PyTorch version of the kernel on ``tables`` (``pack_bvh8``)
-    and the gather walk's rows ``bvh``: the same stack machine (all 8 child
-    boxes against the best t at the visit, hit inner children pushed in
-    child order with the nearest last, then the hit leaf children's
-    Möller-Trumbore in ``_mt``'s order), the same (t, slot) rule and
-    any-hit stop.  Rays advance in lockstep, one wide node per step."""
+    """Plain PyTorch version of the kernel on its own ``tables``
+    (``pack_bvh8``): the same stack machine (every child box against the
+    best t at the visit, hit inner children pushed in child order with the
+    nearest last, then the hit leaf children's rows in ``_mt``'s order), the
+    same (t, row) rule and any-hit stop.  Rays advance in lockstep, one
+    wide node per step."""
     wide_plain.calls += 1
     dev = origin.device
     n = origin.shape[0]
-    leaves = bvh["leaf_packed"].reshape(-1, LEAF_SLOTS, 10)
-    wbox, wchild = tables["wbox"], tables["wchild"].long()
+    boxes, refs = decode_records(tables["nodes"])
+    tris = tables["tris"]
     cc = torch.arange(WIDE, device=dev)
     kk = torch.arange(LEAF_SLOTS, device=dev)
 
@@ -177,9 +213,9 @@ def wide_plain(origin, direction, tables, bvh, active=None, t_max=None,
 
     def visit(ci):
         r = ref[ci]
-        ch = wchild[r]                                        # [m, 8]
+        ch = refs[r]                                          # [m, 8]
         o, iv = origin[ci], inv[ci]
-        tc = box_entry(o[:, None, :], iv[:, None, :], wbox[r],
+        tc = box_entry(o[:, None, :], iv[:, None, :], boxes[r],
                        bt[ci, None])
         tc = torch.where(ch == EMPTY, INF, tc)
         WORK["boxes"] += int((ch != EMPTY).sum())
@@ -203,29 +239,31 @@ def wide_plain(origin, direction, tables, bvh, active=None, t_max=None,
         if not lr.numel():
             return
         li = ci[lr]
-        lid = torch.where(leafc[lr], -(ch[lr] + 1), 0)       # [k, 8]
-        rows = leaves[lid]                                    # [k, 8, 8, 10]
+        code = torch.where(leafc[lr], ~ch[lr], 0)             # [k, 8]
+        count = code & ((1 << LEAF_BITS) - 1)
+        real = kk < count[:, :, None]                         # [k, 8, 8]
+        row = torch.where(real, (code >> LEAF_BITS)[:, :, None] + kk, 0)
+        tr = tris[row]                                        # [k, 8, 8, 12]
         oc = tuple(x[:, None, None] for x in origin[li].unbind(-1))
         dc = tuple(x[:, None, None] for x in direction[li].unbind(-1))
-        hit, t, u, v = _mt(oc, dc, rows[..., 0:3].unbind(-1),
-                           rows[..., 3:6].unbind(-1),
-                           rows[..., 6:9].unbind(-1))
-        tri = rows[..., 9]
-        WORK["triangles"] += int(((tri >= 0) & leafc[lr][:, :, None]).sum())
-        ok = (hit & (tri >= 0) & leafc[lr][:, :, None]).flatten(1)
-        slot = (lid[:, :, None] * LEAF_SLOTS + kk).flatten(1)
+        hit, t, u, v = _mt(oc, dc, tr[..., 0:3].unbind(-1),
+                           tr[..., 4:7].unbind(-1),
+                           tr[..., 8:11].unbind(-1))
+        WORK["triangles"] += int(real.sum())
+        ok = (hit & real).flatten(1)
+        row = row.flatten(1)
         t = torch.where(ok, t.flatten(1), INF)
         t_best = t.amin(1)
         first = (t == t_best[:, None]) & ok
-        s_best = torch.where(first, slot, slot.max() + 1).amin(1)
-        sel = (first & (slot == s_best[:, None])).int().argmax(1, True)
+        s_best = torch.where(first, row, tris.shape[0]).amin(1)
+        sel = (first & (row == s_best[:, None])).int().argmax(1, True)
         cur_t, cur_s = bt[li], bs[li]
         better = ok.any(1) & ((t_best < cur_t) | (
             (t_best == cur_t) & (s_best < cur_s)))
         bt[li] = torch.where(better, t_best, cur_t)
         bs[li] = torch.where(better, s_best, cur_s)
-        bi[li] = torch.where(better, tri.flatten(1).gather(1, sel)[:, 0].int(),
-                             bi[li])
+        bi[li] = torch.where(
+            better, tr[..., 3].flatten(1).gather(1, sel)[:, 0].int(), bi[li])
         bu[li] = torch.where(better, u.flatten(1).gather(1, sel)[:, 0],
                              bu[li])
         bv[li] = torch.where(better, v.flatten(1).gather(1, sel)[:, 0],
@@ -250,16 +288,15 @@ wide_plain.calls = 0
 
 
 # the kernel's tables in argument order: (name, dtype, shape past dim 0)
-_KERNEL_TABLES = (("wbox", torch.float32, (WIDE, 6)),
-                  ("wchild", torch.int32, (WIDE,)))
-_BVH_TABLES = (("leaf_packed", torch.float32, (LEAF_SLOTS * 10,)),)
+_TABLES = (("nodes", torch.float32, (WIDE * CHILD,)),
+           ("tris", torch.float32, (12,)))
 
 
 def intersect_wide(origin, direction, scene, active=None, t_max=None,
                    any_hit=False):
     """Closest hit (or, with ``any_hit``, a hit under ``t_max``) of the
-    scene's BVH triangles through its ``wide`` tables and the gather walk's
-    leaf rows; the sensor plane is not in the tree.
+    scene's BVH triangles through its ``wide`` tables; the sensor plane is
+    not in the tree.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
     raise if the scene has no ``wide`` tables or the kernel cannot launch).
@@ -267,26 +304,36 @@ def intersect_wide(origin, direction, scene, active=None, t_max=None,
     if "wide" not in scene:
         raise ValueError("scene has no wide tables: build it with "
                          "CLIVE2_TRAVERSAL=wide or traversal='wide'")
-    tables, bvh = scene["wide"], scene["bvh"]
+    tables = scene["wide"]
     if origin.device.type == "cpu":
-        return wide_plain(origin, direction, tables, bvh, active=active,
+        return wide_plain(origin, direction, tables, active=active,
                           t_max=t_max, any_hit=any_hit)
     from .. import kernels
 
-    kernels.check_tables(tables, _KERNEL_TABLES, "wide")
-    kernels.check_tables(bvh, _BVH_TABLES, "bvh")
+    kernels.check_tables(tables, _TABLES, "wide")
     rays = kernels.ray_args(origin, direction, active, t_max)
-    args = ([kernels.on_device(tables[k].contiguous(), origin.device, k)
-             for k, _, _ in _KERNEL_TABLES]
-            + [kernels.on_device(bvh[k].contiguous(), origin.device, k)
-               for k, _, _ in _BVH_TABLES])
+    # a node record spans exactly two 128-byte lines
+    args = kernels.aligned_tables(tables, _TABLES, origin.device, "wide",
+                                  align=dict(nodes=256))
     out = kernels.hit_outputs(origin)
     if rays.n:
+        # the persistent warps' ray counter, zeroed by clive2_wide on the
+        # launch's stream
+        counter = torch.empty(1, dtype=torch.int64, device=origin.device)
         kernels.call("clive2_wide", origin.device, *rays.pointers(),
-                     *map(kernels.ptr, args), ctypes.c_int(int(any_hit)),
-                     *map(kernels.ptr, out))
+                     *map(kernels.ptr, args), kernels.ptr(counter),
+                     ctypes.c_int(int(any_hit)), *map(kernels.ptr, out))
         intersect_wide.launches += 1
     return out
 
 
 intersect_wide.launches = 0
+
+
+def kernel_info(any_hit=False):
+    """What the CUDA runtime reports of the kernel: registers per thread,
+    static shared bytes per block, local bytes per thread, resident blocks
+    per SM, SMs."""
+    from .. import kernels
+
+    return kernels.resources("clive2_wide_info", any_hit)

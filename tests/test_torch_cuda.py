@@ -199,15 +199,57 @@ def test_wide_and_stream_kernels_match_plain(dev, name, any_hit):
     before = kernel.launches
     got = kernel(o, d, scene, active=active, t_max=t_max, any_hit=any_hit)
     assert kernel.launches == before + 1
-    tables = ((scene[name], scene["bvh"]) if name == "wide"
-              else (scene[name],))
-    want = getattr(module, plain)(o, d, *tables, active=active, t_max=t_max,
-                                  any_hit=any_hit)
+    want = getattr(module, plain)(o, d, scene[name], active=active,
+                                  t_max=t_max, any_hit=any_hit)
     _assert_same(got, want)
     assert (got[0] >= 0).sum() > 1000
     if not any_hit:
         _assert_same(got, intersect.intersect_bvh_packed(
             o, d, scene["bvh"], active=active, t_max=t_max))
+
+
+@pytest.mark.parametrize("case", ["ties", "odd_count", "all_inactive",
+                                  "empty"])
+def test_wide_kernel_matches_plain_on_ties_and_edges(dev, case):
+    """The BVH8 kernel on the tie soup (every hit the id at the lower slot,
+    as wide_plain and the gather walk), on a ray count that leaves a warp's
+    fetch ragged, on an all-inactive cast (misses) and on no rays (no
+    launch)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    if case == "ties":
+        rows, lower = tie_soup(13, 3000)
+    else:
+        soup = _soup(13, 6000)
+        bvh = build_bvh(soup)
+        rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    bvh_rows = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              traverse_wide.pack_bvh8(rows["node_packed"],
+                                      rows["leaf_packed"]).items()}
+    n = {"odd_count": 50_001, "empty": 0}.get(case, 50_000)
+    o, d, active, t_max = _rays(gen, n, dev)
+    if case == "ties":
+        aim = (torch.rand(n, 3, generator=gen, device=dev) * 10 - 5) - o
+        d = aim / aim.norm(dim=1, keepdim=True)
+        active, t_max = None, None
+    elif case == "all_inactive":
+        active = torch.zeros_like(active)
+    before = traverse_wide.intersect_wide.launches
+    got = traverse_wide.intersect_wide(o, d, dict(wide=tables),
+                                       active=active, t_max=t_max)
+    assert traverse_wide.intersect_wide.launches == before + (n > 0)
+    want = traverse_wide.wide_plain(o, d, tables, active=active, t_max=t_max)
+    _assert_same(got, want)
+    hits = int((got[0] >= 0).sum())
+    if case in ("all_inactive", "empty"):
+        assert hits == 0 and not torch.isfinite(got[1]).any()
+        return
+    assert hits > 1000
+    _assert_same(got, intersect.intersect_bvh_packed(
+        o, d, bvh_rows, active=active, t_max=t_max))
+    if case == "ties":
+        ids = got[0][got[0] >= 0].cpu().numpy()
+        np.testing.assert_array_equal(ids, lower(ids))
 
 
 @pytest.mark.parametrize("case", ["closest", "capped", "any_hit", "ties",
