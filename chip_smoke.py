@@ -25,7 +25,16 @@ kernel), each followed by the same render on BVH2 tables as an A/B; and the
 JAX package's two A/B
 traversal paths: ``dragon`` at 512x512 under ``CLIVE2_TRAVERSAL=wide``
 (BVH8 kernel), ``medium-dragon`` at 512x512 under ``CLIVE2_STREAM_IMPL=1``
-and ``sponza`` at 1920x1080 on the same tables (streaming kernel).  Then it
+and ``sponza`` at 1920x1080 on the same tables (streaming kernel).  Then
+the integrator's other paths, each with its own launch counts: the
+reference estimator (``CLIVE2_REFERENCE_MIS``) on Cornell 1080p and teapots
+512, 2 samples each, its closest-hit connection casts held to their plain
+versions, and a 64x64 render on the card against the CPU's; the statistical
+oracles (``clive2_tpu_torch.oracles``) with their bounds; adaptive sampling
+on Cornell 1080p (2 uniform, 2 adaptive samples at a quarter of the pixels),
+its subset casts held to plain; and row stripes: sponza 1080p full-frame and
+in 54-row stripes (peak memory of each; the stripe casts held to plain on
+every k-th ray) and Cornell 3840x2160 in 270-row stripes.  Then it
 compares a small render on the card with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
@@ -129,10 +138,11 @@ def plain_time(fn):
     return start.elapsed_time(end), out, dict(WORK)
 
 
-def record_casts(module, wrapper, renderer):
-    """Run one sample of ``renderer`` with the kernel wrapper
-    ``module.<wrapper>`` keeping a copy of the inputs of the first cast of
-    each ray count it is given; returns {ray count: inputs}."""
+def record_casts(module, wrapper, renderer, run=None):
+    """Run one sample of ``renderer`` (``run()`` when given, else
+    ``renderer.run_sample()``) with the kernel wrapper ``module.<wrapper>``
+    keeping a copy of the inputs of the first cast of each ray count it is
+    given; returns {ray count: inputs}."""
     fn = getattr(module, wrapper)
     casts = {}
 
@@ -151,7 +161,7 @@ def record_casts(module, wrapper, renderer):
     record.launches = fn.launches
     setattr(module, wrapper, record)
     try:
-        renderer.run_sample()
+        (run or renderer.run_sample)()
         renderer.block()
     finally:
         setattr(module, wrapper, fn)
@@ -164,6 +174,32 @@ def strided(cast, stride):
     last."""
     return {k: v if k == "any_hit" or v is None else v[::stride]
             for k, v in cast.items()}
+
+
+def held_cast(label, c, kernel_fn, plain_fn, tables, stride=1):
+    """A recorded cast ``c`` through its kernel (mean of 5 launches on the
+    whole cast) and its plain version (one call on every ``stride``-th
+    ray), the outputs compared on those rays; the figures of the cast, its
+    bound counted from the plain call's work."""
+    import torch
+
+    rays = c["origin"].shape[0]
+    ms, got = cuda_time(lambda: kernel_fn(c), 5)
+    part = strided(c, stride)
+    plain_ms, want, work = plain_time(lambda: plain_fn(part))
+    e = compare_hits(tuple(x[::stride] for x in got), want, label,
+                     closest=not c["any_hit"])
+    b_ms, b_by = bound(cast_bytes(c, tables), work_ops(work, stride))
+    out = dict(rays=rays, any_hit=c["any_hit"],
+               active=rays if c["active"] is None
+               else int(c["active"].sum()),
+               capped=c["t_max"] is not None, ms=ms, plain_ms=plain_ms,
+               plain_rays=part["origin"].shape[0], compared_stride=stride,
+               bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+               max_abs_err_t=e, matches_plain=True)
+    del got, want, part
+    torch.cuda.empty_cache()
+    return out
 
 
 def with_traversal(scene, traversal):
@@ -1302,6 +1338,215 @@ def main() -> int:
         if not img.mean() > 0:
             raise AssertionError(f"{name}: the image is black")
         del r, img
+
+    # ---- 7b. the reference estimator, the oracles, adaptive samples and
+    # stripes: each path driven through the renderer with every launch
+    # count set to 0 just before it and read just after, then its new casts
+    # held to their plain versions
+    from clive2_tpu_torch import constants, oracles
+
+    def drive(label, kernel, run):
+        """``run()`` with the launch counts from 0; fails when a kernel of
+        ``kernel`` never ran, a plain version ran, or another kernel ran.
+        Returns the counts."""
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        run()
+        torch.cuda.synchronize()
+        ran = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+        idle = [k for k in kernel if ran[k] <= 0]
+        if idle:
+            raise AssertionError(f"{label}: the {idle} kernels never ran")
+        if any(ran[k] for k in plain):
+            raise AssertionError(f"{label}: a plain version ran: {ran}")
+        allowed = set(kernel) | (set(s2_kernels) if "stream2" in kernel
+                                 else set())
+        if any(ran[k] for k in kernel_names if k not in allowed):
+            raise AssertionError(f"{label}: another kernel ran: {ran}")
+        return {k: v for k, v in ran.items() if v}
+
+    def samples(r, n, adaptive=None):
+        """Host seconds of each of ``n`` samples of ``r`` (adaptive ones at
+        fraction ``adaptive``), each ended by a synchronise."""
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if adaptive is None:
+                r.run_sample()
+            else:
+                r.run_adaptive_sample(adaptive)
+            r.block()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    def image_ok(label, img):
+        if not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"{label}: non-finite or black image")
+
+    extra_casts = {}
+    constants.REFERENCE_MIS = True
+    try:
+        for name, scene, w, h, kernel, module, wrapper, kernel_fn, \
+                plain_fn, tables in (
+                ("cornell_1080p", cornell, 1920, 1080, "brute", brute,
+                 "intersect_brute", brute_cast(brute.intersect_brute),
+                 brute_cast(brute.brute_plain), cornell.data["brute"]),
+                ("teapots_512", teapots, 512, 512, "bvh2", traverse_bvh2,
+                 "intersect_bvh2", lambda c: launch("bvh2", c, teapots.data),
+                 bvh2_plain, {k: teapots.data["bvh2"][k]
+                              for k in ("nodes", "tris")})):
+            r = ct.Renderer(scene, seed=0, device=dev)
+            out = {}
+            ran = drive(f"estimator_refmis {name}", (kernel,),
+                        lambda: out.update(times=samples(r, 2)))
+            img = r.raw_image
+            image_ok(f"estimator_refmis {name}", img)
+            # the verify skill's band for the reference estimator's Cornell
+            # image at 16:9 (0.00854 measured on the card at 2 spp)
+            if name == "cornell_1080p" and not 0.0079 <= img.mean() <= 0.0092:
+                raise AssertionError(f"reference estimator: Cornell image "
+                                     f"mean {img.mean()} outside the 16:9 "
+                                     "band 0.0079-0.0092")
+            casts = record_casts(module, wrapper,
+                                 ct.Renderer(scene, seed=1, device=dev))
+            c = casts[36 * w * h]
+            if c["any_hit"] or c["t_max"] is None:
+                raise AssertionError(f"{name}: the reference estimator's "
+                                     "connection cast is not closest-hit "
+                                     "and capped")
+            held = held_cast(f"{kernel} refmis {name} connection", c,
+                             kernel_fn, plain_fn, tables)
+            err[kernel] = max(err[kernel], held["max_abs_err_t"])
+            held["launches"] = ran[kernel] // 2   # per sample
+            extra_casts[kernel, "refmis_connection"] = dict(
+                held, cast=f"{name} connection, reference estimator")
+            emit(phase="estimator_refmis", name=name, width=w, height=h,
+                 spp=2, s_per_sample=out["times"], counts=ran,
+                 image_mean=float(img.mean()), connection_cast=held)
+            del r, img, casts, c
+        imgs = {}
+        for device in ("cpu", "cuda"):
+            r = ct.Renderer(ct.create_scene_from_preset(
+                "empty", 64, 64, device=device), seed=3)
+            r.run_sample()
+            imgs[device] = r.state["summed_image"].cpu().numpy()
+        close = np.isclose(imgs["cuda"], imgs["cpu"], rtol=1e-3,
+                           atol=1e-6).all(-1)
+        emit(phase="estimator_refmis", name="cpu_vs_card", size=64, spp=1,
+             pixels_close=float(close.mean()),
+             image_mean=float(imgs["cuda"].mean()))
+        if close.mean() < 0.99:
+            raise AssertionError("reference estimator: card and CPU renders "
+                                 "disagree")
+    finally:
+        constants.REFERENCE_MIS = False
+
+    # the statistical oracles on the card (every scene on the brute kernel)
+    numbers = {}
+
+    def run_oracles():
+        t0 = time.perf_counter()
+        for name in ("convergence", "glass_convergence", "furnace",
+                     "glass_furnace"):
+            numbers[name] = getattr(oracles, name)(dev)
+            numbers[name]["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+    ran = drive("oracles", ("brute",), run_oracles)
+    emit(phase="oracles", counts=ran, **numbers)
+    for name, r in numbers.items():
+        oracles.check(name, r)
+
+    # adaptive sampling: Cornell 1080p, 2 uniform then 2 adaptive samples
+    w, h, frac = 1920, 1080, 0.25
+    m = int(w * h * frac)
+    r = ct.Renderer(cornell, seed=0, device=dev)
+    out = {}
+    ran = drive("adaptive", ("brute",), lambda: out.update(
+        uniform=samples(r, 2), adaptive=samples(r, 2, adaptive=frac)))
+    counts = r.state["pixel_count"]
+    total = float(counts.sum())
+    if total != 2 * w * h + 2 * m:
+        raise AssertionError(f"adaptive: pixel_count sums to {total}, not "
+                             f"{2 * w * h + 2 * m}")
+    image_ok("adaptive", r.raw_image)
+    casts = record_casts(brute, "intersect_brute", r,
+                         run=lambda: r.run_adaptive_sample(frac))
+    if sorted(casts) != [2 * m, 36 * m]:
+        raise AssertionError(f"adaptive: casts of {sorted(casts)} rays")
+    held = {}
+    for rays, c in sorted(casts.items()):
+        cast = "extension" if rays == 2 * m else "connection"
+        held[cast] = held_cast(f"brute adaptive subset {cast}", c,
+                               brute_cast(brute.intersect_brute),
+                               brute_cast(brute.brute_plain),
+                               cornell.data["brute"])
+        err["brute"] = max(err["brute"], held[cast]["max_abs_err_t"])
+    held["connection"]["launches"] = ran["brute"] // 4   # per sample
+    extra_casts["brute", "adaptive_connection"] = dict(
+        held["connection"], cast="cornell_1080p adaptive subset connection")
+    emit(phase="adaptive", name="cornell_1080p", fraction=frac,
+         selected=m, s_per_sample_uniform=out["uniform"],
+         s_per_sample_adaptive=out["adaptive"], counts=ran,
+         pixel_count_total=total,
+         pixel_count_min=float(counts.min()),
+         pixel_count_max=float(counts.max()),
+         image_mean=float(r.raw_image.mean()), casts=held)
+    del r, casts, counts
+
+    # stripes: sponza 1080p full-frame and in 20 stripes of 54 rows, then
+    # Cornell 3840x2160 in stripes of 270 rows (never full-frame)
+    def peak(label, r, kernel):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        ran = drive(label, kernel, lambda: out.update(times=samples(r, 1)))
+        image_ok(label, r.raw_image)
+        return dict(s_per_sample=out["times"], counts=ran,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    peak_over_base_gib=(torch.cuda.max_memory_allocated()
+                                        - base) / 2**30,
+                    image_mean=float(r.raw_image.mean()))
+
+    full = peak("chunked sponza full frame", ct.Renderer(
+        sponza, seed=0, device=dev), queued)
+    striped_r = ct.Renderer(sponza, seed=0, device=dev, chunk_rows=54)
+    striped = peak("chunked sponza stripes", striped_r,
+                   queued + ("stream2_thread",))
+    casts = record_casts(traverse_stream2, "intersect_stream2", striped_r)
+    n = 1920 * 54
+    if sorted(casts) != [2 * n, 36 * n]:
+        raise AssertionError(f"chunked: casts of {sorted(casts)} rays")
+    held = {}
+    for rays, c in sorted(casts.items()):
+        cast = "extension" if rays == 2 * n else "connection"
+        held[cast] = held_cast(
+            f"stream2 sponza stripe {cast}", c,
+            lambda c: launch("stream2", c, sponza.data),
+            lambda c: plains["stream2"](c, sponza.data),
+            sponza.data["stream2"], stride=-(-rays // (1 << 20)))
+        key = err_key("stream2", c)
+        err[key] = max(err[key], held[cast]["max_abs_err_t"])
+    # per striped sample: the per-thread kernel's casts, and the casts that
+    # took the queue (every cast of the sample, less the per-thread ones)
+    held["extension"]["launches"] = striped["counts"]["stream2_thread"]
+    held["connection"]["launches"] = (striped["counts"]["stream2"]
+                                      - striped["counts"]["stream2_thread"])
+    extra_casts["stream2_thread", "stripe_extension"] = dict(
+        held["extension"], cast="sponza_1080p 54-row stripe extension")
+    extra_casts["stream2", "stripe_connection"] = dict(
+        held["connection"], cast="sponza_1080p 54-row stripe connection")
+    del striped_r, casts
+    torch.cuda.empty_cache()
+    uhd = ct.create_scene_from_preset("empty", 3840, 2160, device=dev)
+    uhd_run = peak("chunked cornell 4K", ct.Renderer(
+        uhd, seed=0, device=dev, chunk_rows=270), ("brute",))
+    emit(phase="chunked", sponza_1080p_full=full,
+         sponza_1080p_chunk_rows_54=striped, stripe_casts=held,
+         cornell_2160p_chunk_rows_270=uhd_run)
+    del uhd
     del scene, ab_scenes, sponza, sponza_s1, dragon, dragon_w, dragon_s1
     torch.cuda.empty_cache()
     # the verify skill's health band for the Cornell preset at 16:9 (the
@@ -1416,6 +1661,9 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note=no_cast_call, cast="sponza connection",
         plain_rays=compared["stream2", "sponza", "connection"]))
+    # the casts of this slice's other paths, beside the main path's rows
+    for (name, cast), figures in extra_casts.items():
+        next(row for row in rows if row["name"] == name)[cast] = figures
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,18 +69,14 @@ def timed(func):
 
 TIMED_ENABLED = False
 
-# CLIVE2_REFERENCE_MIS=1 selects the reference's BDPT estimator verbatim in
-# the JAX package (stale junction values in the MIS chain, trace.metal:696-706;
-# missing emission cosine on the light subpath's first edge; cos/pi junction
-# "BRDFs"; splat pixel round()).  The port implements only the default (0),
-# the corrected estimator, and refuses to render with the flag set.
+# CLIVE2_REFERENCE_MIS=1 selects the reference's BDPT estimator verbatim
+# (stale junction values in the MIS chain, trace.metal:696-706; no emission
+# cosine on the light subpath's first edge; cos/pi junction "BRDFs"; the
+# reference store rule; closest-hit connection casts whose hit must be the
+# target; splat pixel round(); no |o.n| in the transmit weight).  The default
+# (0) is the corrected estimator.  The integrator reads this attribute at
+# call time (``constants.REFERENCE_MIS``), so setting it switches the
+# estimator in a running process.
 import os
 
 REFERENCE_MIS = os.environ.get("CLIVE2_REFERENCE_MIS", "0") == "1"
-
-
-def require_default_estimator():
-    if REFERENCE_MIS:
-        raise NotImplementedError(
-            "CLIVE2_REFERENCE_MIS=1 (the reference estimator) is not ported "
-            "to clive2_tpu_torch; unset it to render the corrected estimator")

@@ -1,5 +1,6 @@
 """Subpath generation: ray emission and depth-major wavefront tracing (port
-of clive2_tpu/integrator/trace.py, corrected estimator).
+of clive2_tpu/integrator/trace.py; both estimators, read at call time from
+``constants.REFERENCE_MIS``).
 
 At each depth the whole wavefront intersects the scene, shades and bounces
 in lockstep, with dead rays masked; the JAX ``lax.scan`` over depth is a
@@ -21,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import rng
-from ..constants import DELTA, MAX_BOUNCES, require_default_estimator
+from .. import constants, rng
+from ..constants import DELTA, MAX_BOUNCES
 from ..ops import bsdf
 from ..ops.gather import gather_rows
 from ..ops.intersect import intersect_scene
@@ -37,13 +38,22 @@ from ..ops.sampling import (
 )
 
 
-def generate_camera_rays(key, cam, width: int, height: int):
+def generate_camera_rays(key, cam, width: int, height: int, row0: int = 0,
+                         rows: int = None, pixel_sel=None):
     """One jittered primary ray per pixel, raster order.  Rays start on the
-    physical sensor plane and aim at the focal point.  Returns (rays,
-    pixel_idx [N])."""
+    physical sensor plane and aim at the focal point.  ``row0``/``rows``
+    restrict generation to an image stripe; ``pixel_sel`` ([M] int flat
+    indices, may repeat) instead generates rays for a pixel subset.
+    Returns (rays, pixel_idx [N] i32)."""
     dev = key.device
-    n = width * height
-    pixel_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    if pixel_sel is not None:
+        pixel_idx = pixel_sel.to(device=dev, dtype=torch.int32)
+        n = pixel_idx.shape[0]
+    else:
+        n = width * (height if rows is None else rows)
+        first = int(row0) * width
+        pixel_idx = torch.arange(first, first + n, dtype=torch.int32,
+                                 device=dev)
     off = rng.uniform(key, (n, 2))
 
     px = (pixel_idx % width).to(torch.float32)
@@ -150,7 +160,7 @@ def trace_subpaths(key, rays, scene, from_camera,
       n_rays:   extension rays cast (one per stored vertex plus the final
                 breaking cast, capped at max_bounces)
     """
-    require_default_estimator()
+    reference = constants.REFERENCE_MIS
     tri = scene["tri"]
     mat = scene["mat"]
     dev = rays["origin"].device
@@ -231,7 +241,8 @@ def trace_subpaths(key, rays, scene, from_camera,
         )
         # the Lambertian emitter's flux toward the first light-subpath edge
         # carries cos(n_light, dir): fold it in at the first light bounce
-        if depth == 0:
+        # (the reference estimator omits it)
+        if depth == 0 and not reference:
             emit_cos = dot(cur["direction"], cur["normal"]).abs()
             new_color = torch.where(
                 (~fc)[:, None], new_color * emit_cos[:, None], new_color)
@@ -240,9 +251,16 @@ def trace_subpaths(key, rays, scene, from_camera,
         new_tot = cur["tot_importance"] * new_fwd
 
         bounce_ok = ok_m & (f != 0.0)
-        # store on hit success alone; continue only if the bounce succeeded
-        store = active & hit_ok & ~degenerate
-        valid = store & bounce_ok
+        if reference:
+            # the reference stores a vertex only when the bounce at the next
+            # hit also succeeded (its reverse pdf comes from that bounce)
+            valid = active & hit_ok & ~degenerate & bounce_ok
+            store = valid
+        else:
+            # store on hit success alone; continue only if the bounce
+            # succeeded
+            store = active & hit_ok & ~degenerate
+            valid = store & bounce_ok
 
         emit = dict(cur)
         emit["l_importance"] = torch.where(fc, l_p, cur["l_importance"])
@@ -280,13 +298,23 @@ def trace_subpaths(key, rays, scene, from_camera,
     return dict(vertices=vertices, valid=valid, length=length, n_rays=n_rays)
 
 
-def unidirectional_image(path):
+def unidirectional_image(path, all_hits: bool = False):
     """Plain path-traced estimate from a camera path: the first stored
-    vertex that hit a light contributes prior color / tot_importance."""
+    vertex that hit a light contributes prior color / tot_importance.
+
+    ``all_hits=True`` sums EVERY stored light-hit vertex instead, so that
+    transport through vertices on an emitter counts too: the integral the
+    BDPT strategies target, which the convergence oracles compare against.
+    """
     hit_light = path["vertices"]["hit_light"]   # [D, N]
     mask = path["valid"] & (hit_light >= 0)
     color = path["vertices"]["color"]           # [D, N, 3]
     tot = path["vertices"]["tot_importance"]    # [D, N]
+    if all_hits:
+        # the prior vertex's throughput; vertex 0 is never a light hit
+        prior = torch.cat([torch.ones_like(color[:1]), color[:-1]])
+        est = prior / torch.clamp(tot, min=1e-30)[:, :, None]
+        return torch.where(mask[:, :, None], est, 0.0).sum(0)
     has = mask.any(0)
     first = torch.argmax(mask.to(torch.int32), dim=0)  # first True
     prior_color = color.gather(

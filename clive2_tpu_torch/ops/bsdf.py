@@ -1,5 +1,5 @@
 """GGX microfacet BSDF suite with BDPT dual-pdf bookkeeping (port of
-clive2_tpu/ops/bsdf.py, corrected estimator only).
+clive2_tpu/ops/bsdf.py).
 
 Exact dielectric Fresnel, Smith GGX masking-shadowing, the GGX NDF,
 half-vector Jacobians, the microfacet BRDF/BTDF, and the three bounce
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import constants
 from .sampling import PI, dot, normalize, orthonormal, random_hemisphere_cosine
 
 
@@ -144,11 +145,14 @@ def reflect_bounce(wi, n, m, ni, no, alpha):
 
 
 def transmit_bounce(wi, n, m, ni, no, alpha):
-    """GGX transmission bounce.  f carries the |o.n| factor so that f over
-    the branch pdf equals Walter's weight (the corrected estimator)."""
+    """GGX transmission bounce.  Under the corrected estimator f carries the
+    |o.n| factor, so that f over the branch pdf equals Walter's weight; the
+    reference estimator (``constants.REFERENCE_MIS``) leaves it out, as the
+    reference does."""
     wo = ggx_transmit_direction(wi, m, ni, no)
     f = ggx_brdf_transmit(wi, wo, m, n, ni, no, alpha)
-    f = f * dot(wo, n).abs()
+    if not constants.REFERENCE_MIS:
+        f = f * dot(wo, n).abs()
     pf = 1.0 - fresnel(wi, m, ni, no)
     pm = dot(m, n).abs() * ggx_d(m, n, alpha)
     fwd = pf * pm * transmit_jacobian(wi, wo, ni, no)

@@ -1,8 +1,8 @@
 """Kernel tests that need an NVIDIA GPU (marker ``cuda``); without a card
 they skip.  The card's machine has no JAX, so run them there without the
-suite's conftest:
+suite's conftest, with the port's statistical oracles:
 
-    python3 -m pytest --noconftest -q tests/test_torch_cuda.py
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py tests/test_torch_oracles.py
 
 Each kernel must match its plain PyTorch version on every ray (ids; t, u, v
 to 1e-6; built with --fmad=false both round alike; the fat-leaf, streaming
@@ -17,8 +17,11 @@ import pytest
 import torch
 
 import clive2_tpu_torch as ct
+from clive2_tpu_torch import constants, rng
 from clive2_tpu_torch.bvh.build import build_bvh, leaf_tables
 from clive2_tpu_torch.geometry import TriangleSoup
+from clive2_tpu_torch.integrator import render
+from clive2_tpu_torch.models import icosphere
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
 from clive2_tpu_torch.ops import traverse_stream, traverse_stream2
 from clive2_tpu_torch.ops import traverse_wide
@@ -462,3 +465,88 @@ def test_stream2_parts_match_plain(dev):
     s2.stream2_tail(st_k, tables, False, out_k)
     steps.tail(st_p, out_p)
     _assert_same(tuple(out_k), tuple(out_p))
+
+
+def _recorded_casts(module, name, run):
+    """``run()`` with the kernel wrapper ``module.<name>`` keeping the
+    inputs of every cast it is given; returns them in call order."""
+    fn = getattr(module, name)
+    casts = []
+
+    def record(origin, direction, tables, active=None, t_max=None, **kw):
+        casts.append(dict(origin=origin.clone(), direction=direction.clone(),
+                          active=active.clone(), t_max=t_max,
+                          any_hit=kw.get("any_hit", False)))
+        return fn(origin, direction, tables, active=active, t_max=t_max,
+                  **kw)
+
+    # the wrapper counts its launches on the name it has in its module
+    record.launches = fn.launches
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+        fn.launches = record.launches
+    return casts
+
+
+@pytest.mark.parametrize("kernel", ["brute", "bvh2"])
+def test_reference_estimator_connection_cast(dev, kernel, monkeypatch):
+    """Under CLIVE2_REFERENCE_MIS the connection cast is closest-hit, capped
+    just beyond each target: the kernel equals its plain version on every
+    ray of one sample's cast (Cornell 64x36 on brute; the Cornell room with
+    a 1,280-triangle icosphere on BVH2)."""
+    monkeypatch.setattr(constants, "REFERENCE_MIS", True)
+    if kernel == "brute":
+        scene = ct.create_scene_from_preset("empty", 64, 36, device=dev)
+        module, name = brute, "intersect_brute"
+    else:
+        v, f = icosphere(3)
+        scene = ct.create_scene(
+            pixel_width=64, pixel_height=36, device=dev,
+            cam_center=np.array([0, 1.5, 6]),
+            cam_direction=np.array([0, 0, -1.0]),
+            extra_geometry=TriangleSoup.from_vertices(
+                (v[f] * 1.5 + np.array([0.0, 1.0, 0.0])).astype(np.float32),
+                material=4))
+        module, name = traverse_bvh2, "intersect_bvh2"
+    n = 64 * 36
+    casts = _recorded_casts(module, name, lambda: render.render_sample(
+        rng.key(3, dev), scene.data, 64, 36))
+    conn = [c for c in casts if c["origin"].shape[0] == 36 * n]
+    assert len(casts) == 7 and len(conn) == 1
+    c = conn[0]
+    assert not c["any_hit"]
+    assert torch.isfinite(c["t_max"][c["active"]]).float().mean() > 0.99
+    args = (c["origin"], c["direction"])
+    kw = dict(active=c["active"], t_max=c["t_max"])
+    if kernel == "brute":
+        tris = scene.data["brute"]["tris"]
+        got = brute.intersect_brute(*args, tris, **kw)
+        want = brute.brute_plain(*args, tris, **kw)
+    else:
+        got = traverse_bvh2.intersect_bvh2(*args, scene.data, **kw)
+        want = intersect.intersect_bvh_packed(*args, scene.data["bvh"], **kw)
+    _assert_same(got, want)
+    # the targets register: most active rays hit under their caps
+    assert (got[0][c["active"]] >= 0).float().mean() > 0.5
+
+
+def test_subset_brute_casts(dev):
+    """An adaptive subset's casts (1,001 pixels: a ragged last warp) on the
+    brute kernel equal its plain version on every ray."""
+    scene = ct.create_scene_from_preset("empty", 64, 36, device=dev)
+    sel = torch.randperm(64 * 36, generator=torch.Generator().manual_seed(4))
+    sel = sel[:1001].to(dev, torch.int32)
+    casts = _recorded_casts(brute, "intersect_brute", lambda: (
+        render.render_sample_subset(rng.key(5, dev), scene.data, sel, 64,
+                                    36)))
+    assert sorted({c["origin"].shape[0] for c in casts}) == [2002, 36036]
+    tris = scene.data["brute"]["tris"]
+    for c in casts:
+        kw = dict(active=c["active"], t_max=c["t_max"])
+        _assert_same(brute.intersect_brute(c["origin"], c["direction"], tris,
+                                           **kw),
+                     brute.brute_plain(c["origin"], c["direction"], tris,
+                                       **kw))
