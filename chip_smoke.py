@@ -34,8 +34,15 @@ oracles (``clive2_tpu_torch.oracles``) with their bounds; adaptive sampling
 on Cornell 1080p (2 uniform, 2 adaptive samples at a quarter of the pixels),
 its subset casts held to plain; and row stripes: sponza 1080p full-frame and
 in 54-row stripes (peak memory of each; the stripe casts held to plain on
-every k-th ray) and Cornell 3840x2160 in 270-row stripes.  Then it
-compares a small render on the card with the same render on the CPU.  The
+every k-th ray) and Cornell 3840x2160 in 270-row stripes.  Then camera
+moves (``movie``: teapots 1280x720, 3 orbit frames at 2 spp, frames 1-2
+through ``Scene.with_camera``, frame 2 against a full rebuild and its BVH2
+connection cast held to plain; a Cornell 1080p ``with_camera`` frame, its
+moved brute table's connection cast held to plain), tile meshes
+(``tiles``: ``Renderer(mesh=)`` on an NCCL group of one rank, and on two
+gloo ranks on the one card, spawned under a time limit, each against one
+device), and the two CLIs as subprocesses (``cli``).  Then it compares a
+small render on the card with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
 phase prints one JSON line; any failure exits non-zero without the final
@@ -67,6 +74,7 @@ import sys
 import time
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # the bound's rates (H100 SXM, 700 W) and operations per unit of work the
 # plain walks count (ops/intersect.py:WORK), from the kernels' sources: a
 # slab test of one AABB (common.cuh:box_entry: 6 subtractions, 6
@@ -1261,24 +1269,12 @@ def main() -> int:
     # ---- 6./7. the main path at full size ----------------------------------
     # the queued fat-leaf traversal's kernels, counted apart from its casts
     # (intersect_stream2.launches counts casts)
-    s2_kernels = dict(stream2_walk=s2.walk_to_leaf,
-                      stream2_count=s2.count_by_leaf,
-                      stream2_plan=s2.plan_tiles,
-                      stream2_scatter=s2.scatter_by_leaf,
-                      stream2_leaf=s2.leaf_test, stream2_tail=s2.stream2_tail,
-                      stream2_thread=s2.stream2_thread)
+    # every launch count, plain versions' calls included (testing.py)
+    from clive2_tpu_torch.testing import check_launches, launch_counters
+
     queued = ("stream2", "stream2_walk", "stream2_count", "stream2_plan",
               "stream2_scatter", "stream2_leaf", "stream2_tail")
-    kernel_names = {**wrappers, **s2_kernels}
-    counters = {name: (fn, "launches") for name, fn in kernel_names.items()}
-    counters.update({
-        "brute_plain": (brute.brute_plain, "calls"),
-        "gather_walk": (intersect.intersect_bvh_packed, "calls"),
-        "stream2_plain": (traverse_stream2.stream2_plain, "calls"),
-        "wide_plain": (traverse_wide.wide_plain, "calls"),
-        "stream_plain": (traverse_stream.stream_plain, "calls"),
-    })
-    plain = [k for k in counters if k not in kernel_names]
+    counters = launch_counters()
 
     # the two large default slices are each followed by their A/B: the same
     # render on the BVH2 kernel's tables, whose launches stay out of the
@@ -1324,15 +1320,7 @@ def main() -> int:
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
             scene_tris=scene.n_triangles)
         emit(**slices[name])
-        idle = [k for k in kernel if ran[k] <= 0]
-        if idle:
-            raise AssertionError(f"{name}: the {idle} kernels never ran")
-        if any(ran[k] for k in plain):
-            raise AssertionError(f"{name}: a plain version ran: {ran}")
-        allowed = set(kernel) | (set(s2_kernels) if "stream2" in kernel
-                                 else set())
-        if any(ran[k] for k in kernel_names if k not in allowed):
-            raise AssertionError(f"{name}: another kernel ran: {ran}")
+        check_launches(name, kernel, ran)
         if not np.isfinite(img).all():
             raise AssertionError(f"{name}: non-finite image")
         if not img.mean() > 0:
@@ -1354,15 +1342,7 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         ran = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
-        idle = [k for k in kernel if ran[k] <= 0]
-        if idle:
-            raise AssertionError(f"{label}: the {idle} kernels never ran")
-        if any(ran[k] for k in plain):
-            raise AssertionError(f"{label}: a plain version ran: {ran}")
-        allowed = set(kernel) | (set(s2_kernels) if "stream2" in kernel
-                                 else set())
-        if any(ran[k] for k in kernel_names if k not in allowed):
-            raise AssertionError(f"{label}: another kernel ran: {ran}")
+        check_launches(label, kernel, ran)
         return {k: v for k, v in ran.items() if v}
 
     def samples(r, n, adaptive=None):
@@ -1555,6 +1535,239 @@ def main() -> int:
     if not 0.0095 <= mean_c <= 0.011:
         raise AssertionError(f"Cornell image mean {mean_c} outside the "
                              "16:9 health band 0.0095-0.011")
+
+    # ---- 7c. camera moves: the movie --------------------------------------
+    # bench.py's movie_720p: teapots 1280x720, 3 orbit frames of 120 at 2
+    # spp, each with seed = frame as the movie CLI renders them.  Frame 0 is
+    # built by create_scene_from_preset_with_params, frames 1-2 are moved by
+    # with_camera (the BVH and the BVH2 tables shared with frame 0).  Frame 2
+    # against a full rebuild at its camera, its connection cast held to the
+    # plain walk; then one with_camera frame of Cornell 1080p, whose brute
+    # table's sensor rows change, its connection cast held to brute_plain
+    from clive2_tpu_torch.integrator.render import render_sample
+
+    def agree(a, b, rtol=1e-4, atol=1e-6):
+        """Share of pixels whose image and weight agree, and the largest
+        difference of each, between two states or two samples (tensors or
+        arrays)."""
+        def get(x, *names):
+            v = next(x[k] for k in names if k in x)
+            return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+        img = [get(x, "summed_image", "image") for x in (a, b)]
+        wts = [get(x, "summed_weight", "weight") for x in (a, b)]
+        close = np.isclose(*img, rtol=rtol, atol=atol).all(-1) & np.isclose(
+            *wts, rtol=rtol, atol=atol)
+        return dict(share=float(close.mean()), rtol=rtol, atol=atol,
+                    image_max_abs=float(np.abs(img[0] - img[1]).max()),
+                    weight_max_abs=float(np.abs(wts[0] - wts[1]).max()))
+
+    w, h, total = 1280, 720, 120
+    t0 = time.perf_counter()
+    base = ct.create_scene_from_preset_with_params("teapots", w, h, 0, total,
+                                                   device=dev)
+    torch.cuda.synchronize()
+    movie = dict(scene_build_s=time.perf_counter() - t0, with_camera_ms=[],
+                 s_per_frame=[], s_per_sample=[], image_mean=[])
+    base_camtri = base.data["camtri"]["v0"].clone()
+    frames = {}
+
+    def run_movie():
+        for f in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scene = base if f == 0 else base.with_camera(
+                ct.orbit_camera(f, total, w, h))
+            if f:
+                torch.cuda.synchronize()
+                movie["with_camera_ms"].append(
+                    1e3 * (time.perf_counter() - t0))
+            r = ct.Renderer(scene, seed=f, device=dev)
+            movie["s_per_sample"] += samples(r, 2)
+            img = r.raw_image
+            movie["s_per_frame"].append(time.perf_counter() - t0)
+            image_ok(f"movie frame {f}", img)
+            movie["image_mean"].append(float(img.mean()))
+            frames[f] = scene
+
+    ran = drive("movie teapots", ("bvh2",), run_movie)
+    moved = frames[2]
+    if not (moved.data["bvh2"] is base.data["bvh2"]
+            and moved.data["bvh"] is base.data["bvh"]):
+        raise AssertionError("movie: with_camera copied the BVH tables")
+    if not torch.equal(base.data["camtri"]["v0"], base_camtri) or \
+            torch.equal(moved.data["camtri"]["v0"], base_camtri):
+        raise AssertionError("movie: with_camera changed the base scene's "
+                             "sensor or left the frame's in place")
+    full = ct.create_scene_from_preset_with_params("teapots", w, h, 2, total,
+                                                   device=dev)
+    movie["rebuild_vs_with_camera"] = agree(
+        render_sample(rng.key(2, dev), moved.data, w, h),
+        render_sample(rng.key(2, dev), full.data, w, h))
+    del full
+    if movie["rebuild_vs_with_camera"]["share"] < 0.999:
+        raise AssertionError(f"movie: frame 2 through with_camera differs "
+                             f"from a rebuild: {movie}")
+    casts = record_casts(traverse_bvh2, "intersect_bvh2",
+                         ct.Renderer(moved, seed=2, device=dev))
+    rays = 36 * w * h
+    held_m = held_cast(
+        "bvh2 movie frame 2 connection", casts[rays],
+        lambda c: launch("bvh2", c, moved.data),
+        lambda c: intersect.intersect_bvh_packed(
+            c["origin"], c["direction"], moved.data["bvh"],
+            active=c["active"], t_max=c["t_max"]),
+        {k: moved.data["bvh2"][k] for k in ("nodes", "tris")},
+        stride=-(-rays // (1 << 20)))
+    err["bvh2"] = max(err["bvh2"], held_m["max_abs_err_t"])
+    held_m.update(launches=ran["bvh2"] // 6, launches_per_frame=ran["bvh2"]
+                  // 3)
+    extra_casts["bvh2", "movie_connection"] = dict(
+        held_m, cast="teapots 1280x720 orbit frame 2 (with_camera) "
+        "connection")
+    del casts, frames, base
+
+    tris0 = cornell.data["brute"]["tris"].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cmoved = cornell.with_camera(ct.orbit_camera(1, total, 1920, 1080))
+    torch.cuda.synchronize()
+    cornell_ms = 1e3 * (time.perf_counter() - t0)
+    tris_m = cmoved.data["brute"]["tris"]
+    if torch.equal(tris_m, tris0) or not torch.equal(
+            cornell.data["brute"]["tris"], tris0):
+        raise AssertionError("movie: the Cornell brute table was not moved, "
+                             "or the base scene's was")
+    r = ct.Renderer(cmoved, seed=1, device=dev)
+    out = {}
+    ran_c = drive("movie cornell", ("brute",),
+                  lambda: out.update(times=samples(r, 1)))
+    image_ok("movie cornell", r.raw_image)
+
+    def moved_cast(fn):
+        return lambda c: fn(c["origin"], c["direction"], tris_m,
+                            active=c["active"], t_max=c["t_max"])
+
+    casts = record_casts(brute, "intersect_brute",
+                         ct.Renderer(cmoved, seed=1, device=dev))
+    held_c = held_cast("brute cornell with_camera connection",
+                       casts[36 * 1920 * 1080],
+                       moved_cast(brute.intersect_brute),
+                       moved_cast(brute.brute_plain), cmoved.data["brute"])
+    err["brute"] = max(err["brute"], held_c["max_abs_err_t"])
+    held_c.update(launches=ran_c["brute"], launches_per_frame=ran_c["brute"])
+    extra_casts["brute", "with_camera_connection"] = dict(
+        held_c, cast="Cornell 1920x1080 orbit frame 1 (with_camera) "
+        "connection, 1 spp")
+    emit(phase="movie", scene="teapots", width=w, height=h, frames=3, spp=2,
+         counts=ran, connection_cast=held_m, **movie,
+         cornell_1080p=dict(with_camera_ms=cornell_ms,
+                            s_per_sample=out["times"], counts=ran_c,
+                            image_mean=float(r.raw_image.mean()),
+                            connection_cast=held_c))
+    del r, casts, cmoved, tris_m, tris0
+    torch.cuda.empty_cache()
+
+    # ---- 7d. tiles: Renderer(mesh=) ---------------------------------------
+    # One card, so the mesh runs as an NCCL group of one rank (the real
+    # collective) and as two gloo ranks on cuda:0 (spawned, under a time
+    # limit), each against a plain Renderer sample of the same seed.  Not a
+    # speed claim: two ranks share one card.
+    import shutil
+
+    import torch.distributed as dist
+
+    from clive2_tpu_torch.parallel import make_tile_mesh
+    from clive2_tpu_torch.testing import mesh_render, spawn_ranks
+
+    work = os.path.join(ROOT, "output", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tiles, single, one_counts = {}, {}, {}
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_tile_mesh(devices="cuda:0")
+        for name, scene, kernel in (("cornell_1080p", cornell, "brute"),
+                                    ("teapots_512", teapots, "bvh2")):
+            r1 = ct.Renderer(scene, seed=0, device=dev)
+            one, out = {}, {}
+            one_counts[name] = drive(f"tiles one device {name}", (kernel,),
+                                     lambda: one.update(times=samples(r1, 1)))
+            single[name] = {k: v.cpu().numpy() for k, v in r1.state.items()}
+            rm = ct.Renderer(scene, seed=0, device=dev, mesh=mesh)
+            ran = drive(f"tiles nccl {name}", (kernel,),
+                        lambda: out.update(times=samples(rm, 1)))
+            tiles[name] = dict(s_per_sample_plain=one["times"],
+                               s_per_sample_nccl_1=out["times"], counts=ran,
+                               nccl_1_vs_plain=agree(rm.state, r1.state))
+            if ran != one_counts[name]:
+                raise AssertionError(f"tiles: a one-rank NCCL mesh launched "
+                                     f"{ran}, one device {one_counts[name]}")
+            if tiles[name]["nccl_1_vs_plain"]["share"] < 0.999:
+                raise AssertionError(f"tiles: a one-rank NCCL mesh differs "
+                                     f"from one device: {tiles[name]}")
+            del r1, rm
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    jobs = [("cornell_1080p", "empty", 1920, 1080, 0, 1),
+            ("teapots_512", "teapots", 512, 512, 0, 1)]
+    t0 = time.perf_counter()
+    spawn_ranks(mesh_render, 2, os.path.join(work, "gloo"),
+                args=("cuda:0", jobs), timeout=300)
+    spawn_s = time.perf_counter() - t0
+    for name, kernel in (("cornell_1080p", "brute"), ("teapots_512", "bvh2")):
+        a, b = (dict(np.load(os.path.join(work, "gloo",
+                                          f"{name}-rank{r}.npz")))
+                for r in range(2))
+        for k in single[name]:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"tiles: the gloo ranks' {k} differ")
+        # each rank's tile casts once where one device casts the frame,
+        # and no cast of either rank takes a plain version
+        for rank, got in enumerate((a, b)):
+            ran = {k[9:]: int(got[k]) for k in got
+                   if k.startswith("launches/")}
+            check_launches(f"tiles gloo {name} rank {rank}", (kernel,), ran)
+            if {k: v for k, v in ran.items() if v} != one_counts[name]:
+                raise AssertionError(f"tiles: gloo rank {rank} launched "
+                                     f"{ran}, one device {one_counts[name]}")
+        tiles[name].update(
+            s_per_sample_gloo_2=[float(x) for x in a["seconds"]],
+            gloo_2_launches={k[9:]: int(a[k]) for k in a
+                             if k.startswith("launches/") and a[k]},
+            gloo_2_vs_plain=agree(a, single[name]))
+        if tiles[name]["gloo_2_vs_plain"]["share"] < 0.999:
+            raise AssertionError(f"tiles: two gloo ranks differ from one "
+                                 f"device: {tiles[name]}")
+    emit(phase="tiles", spawn_s=spawn_s, **tiles)
+
+    # ---- 7e. the CLIs, as subprocesses ------------------------------------
+    clis = {}
+    for name, argv, want in (
+            ("render", ["--scene", "empty", "--width", "1920", "--height",
+                        "1080", "--samples", "2"], 1),
+            ("movie", ["--scene", "teapots", "--width", "320", "--height",
+                       "180", "--samples", "1", "--movie-frames", "3"], 3)):
+        out_dir = os.path.join(work, f"cli_{name}")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", f"clive2_tpu_torch.apps.{name}", *argv,
+             "--output-dir", out_dir], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if p.returncode:
+            raise AssertionError(f"{name} CLI exited {p.returncode}:\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        pngs = [os.path.join(d, f) for d, _, fs in os.walk(out_dir)
+                for f in fs if f.endswith(".png")]
+        if len(pngs) != want:
+            raise AssertionError(f"{name} CLI wrote {pngs}, expected {want}")
+        clis[name] = dict(argv=argv, wall_s=wall, pngs=len(pngs),
+                          last_line=p.stdout.strip().splitlines()[-1])
+    emit(phase="cli", **clis)
+    shutil.rmtree(work, ignore_errors=True)
 
     # ---- 8. the same small render on the CPU and on the card --------------
     imgs = {}

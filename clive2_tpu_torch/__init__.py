@@ -15,6 +15,8 @@ from .scene import (  # noqa: F401
     Scene,
     create_scene,
     create_scene_from_preset,
+    create_scene_from_preset_with_params,
+    orbit_camera,
     scene_presets,
 )
 

@@ -1,7 +1,9 @@
 """One BDPT sample (port of clive2_tpu/integrator/render.py, raster
 wavefront order): ray generation, one merged camera+light subpath trace,
 BDPT connection with the splat scatter, and the 3x3 filter, for every pixel,
-an image stripe or an arbitrary pixel subset.
+an image stripe or an arbitrary pixel subset; and the step that renders a
+sample over a tile mesh (``make_sharded_render``), each rank a band of
+rows, the outputs summed across ranks.
 """
 
 from __future__ import annotations
@@ -26,19 +28,41 @@ from .trace import (
 
 def trace_and_connect(key, scene, width, height,
                       max_bounces: int = MAX_BOUNCES,
-                      debug_per_strategy: bool = False, **select):
+                      debug_per_strategy: bool = False, tile=None,
+                      **select):
     """Camera rays for the pixels ``select`` names (a stripe's row0/rows or
     a pixel_sel subset; every pixel when empty), as many light rays, one
-    merged trace and the connection.  Returns (pixel_idx, filter weights,
-    camera path, connection outputs, n_rays)."""
+    merged trace and the connection.  ``tile=(t0, t_rows)`` traces only
+    image rows [t0, t0 + t_rows) of the frame or stripe, each lane drawing
+    the random numbers of its own lane in the frame's (stripe's) draws.
+    Returns (pixel_idx, filter weights, camera path, connection outputs,
+    n_rays)."""
     cam = scene["camera"]
     k_cam, k_light, k_trace = rng.split(key, 3)
+    lanes = merged_lanes = None
+    if tile is not None:
+        if debug_per_strategy or "pixel_sel" in select:
+            raise ValueError("a tile renders a band of rows of whole-frame "
+                             "images: no per-strategy images, no subsets")
+        win0 = int(select.get("row0", 0))
+        win_rows = int(select.get("rows", height))
+        t0, t_rows = int(tile[0]), int(tile[1])
+        if not win0 <= t0 <= t0 + t_rows <= win0 + win_rows:
+            raise ValueError(f"tile rows [{t0}, {t0 + t_rows}) are not "
+                             f"inside [{win0}, {win0 + win_rows})")
+        first = (t0 - win0) * width
+        lanes = torch.arange(first, first + t_rows * width,
+                             device=key.device)
+        # the merged draw's light half starts at the frame's (stripe's)
+        # lane count, not at the tile's
+        merged_lanes = torch.cat([lanes, lanes + win_rows * width])
+        select = dict(row0=t0, rows=t_rows)
 
     cam_rays, pixel_idx = generate_camera_rays(k_cam, cam, width, height,
-                                               **select)
+                                               lanes=lanes, **select)
     n = pixel_idx.shape[0]
     light_rays = generate_light_rays(k_light, scene["lights"], scene["mat"],
-                                     n)
+                                     n, lanes=lanes)
     sensor_pos = cam_rays["origin"]
 
     # camera and light wavefronts trace as ONE merged wavefront (per-ray
@@ -48,7 +72,7 @@ def trace_and_connect(key, scene, width, height,
     fc = torch.cat([torch.ones(n, dtype=torch.bool, device=key.device),
                     torch.zeros(n, dtype=torch.bool, device=key.device)])
     path = trace_subpaths(k_trace, merged, scene, from_camera=fc,
-                          max_bounces=max_bounces)
+                          max_bounces=max_bounces, lanes=merged_lanes)
     del merged
     cam_path = dict(
         vertices={k: v[:, :n] for k, v in path["vertices"].items()},
@@ -79,14 +103,20 @@ def _finish(image, wimage, uni, conn, n_rays, **extra):
 
 def render_sample(key, scene, width: int, height: int,
                   max_bounces: int = MAX_BOUNCES, row0: int = None,
-                  rows: int = None):
+                  rows: int = None, tile=None):
     """One full BDPT sample; ``key`` is a threefry key (``rng``).
 
     ``row0``/``rows`` render only an image stripe: the outputs are still
     full-size [H, W] images, zero outside the stripe and its filter's
     one-row spill, except the splat image, which a stripe's light subpaths
     write anywhere.  The outputs summed over a partition into stripes form
-    one sample of the frame.
+    one sample of the frame.  A stripe draws its own random numbers.
+
+    ``tile=(t0, t_rows)`` renders only image rows [t0, t0 + t_rows) of the
+    frame (or of the stripe), with the random numbers those rows' lanes
+    draw in the frame's (stripe's) sample: the outputs summed over a
+    partition of its rows into tiles equal the frame's (stripe's) sample,
+    up to the order of float sums.
 
     Returns dict(image [H, W, 3], weight [H, W], unidirectional [H, W, 3],
     n_rays).  ``image``/``weight`` follow the accumulation contract:
@@ -95,19 +125,53 @@ def render_sample(key, scene, width: int, height: int,
     stripe = rows is not None and rows != height
     row0 = 0 if row0 is None else int(row0)
     local = rows if stripe else height
+    t0, t_rows = (row0, local) if tile is None else map(int, tile)
     _, weights, cam_path, conn, n_rays = trace_and_connect(
-        key, scene, width, height, max_bounces, row0=row0, rows=local)
+        key, scene, width, height, max_bounces, tile=tile, row0=row0,
+        rows=local)
     uni = unidirectional_image(cam_path)
     del cam_path
+    part = t_rows != height
     image, wimage = finalize_samples(
         conn["contribution"], weights, conn["contrib_weight_sum"],
-        width, height, row0=row0 if stripe else None,
-        rows=rows if stripe else None)
-    uni = uni.reshape(local, width, 3)
-    if stripe:
-        uni = torch.cat([uni.new_zeros(row0, width, 3), uni,
-                         uni.new_zeros(height - row0 - rows, width, 3)])
+        width, height, row0=t0 if part else None,
+        rows=t_rows if part else None)
+    uni = uni.reshape(t_rows, width, 3)
+    if part:
+        uni = torch.cat([uni.new_zeros(t0, width, 3), uni,
+                         uni.new_zeros(height - t0 - t_rows, width, 3)])
     return _finish(image, wimage, uni, conn, n_rays)
+
+
+def make_sharded_render(mesh, width: int, height: int,
+                        max_bounces: int = MAX_BOUNCES):
+    """The render step over a tile mesh (``parallel.mesh``):
+    ``step(key, scene, row0=None, rows=None)`` renders this rank's band of
+    the frame's rows (``tile_rows``; of the stripe's with ``row0``/
+    ``rows``) with ``render_sample(tile=)``, then sums ``image``,
+    ``weight``, ``unidirectional`` and ``n_rays`` over the ranks, so that
+    every rank holds the frame's (stripe's) sample."""
+    from ..parallel.mesh import tile_rows
+
+    def step(key, scene, row0=None, rows=None):
+        win0 = 0 if row0 is None else int(row0)
+        win_rows = height if rows is None else int(rows)
+        t0, t_rows = tile_rows(mesh, win_rows)
+        if t_rows:
+            sample = render_sample(key, scene, width, height, max_bounces,
+                                   row0=win0, rows=win_rows,
+                                   tile=(win0 + t0, t_rows))
+        else:                      # more ranks than rows: nothing to trace
+            z = lambda *shape: torch.zeros(shape, device=key.device)
+            sample = dict(image=z(height, width, 3), weight=z(height, width),
+                          unidirectional=z(height, width, 3),
+                          n_rays=torch.zeros((), dtype=torch.int64,
+                                             device=key.device))
+        mesh.all_reduce_sum([sample[k] for k in (
+            "image", "weight", "unidirectional", "n_rays")])
+        return sample
+
+    return step
 
 
 def render_sample_subset(key, scene, pixel_sel, width: int, height: int,

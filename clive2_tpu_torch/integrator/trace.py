@@ -39,12 +39,14 @@ from ..ops.sampling import (
 
 
 def generate_camera_rays(key, cam, width: int, height: int, row0: int = 0,
-                         rows: int = None, pixel_sel=None):
+                         rows: int = None, pixel_sel=None, lanes=None):
     """One jittered primary ray per pixel, raster order.  Rays start on the
     physical sensor plane and aim at the focal point.  ``row0``/``rows``
     restrict generation to an image stripe; ``pixel_sel`` ([M] int flat
-    indices, may repeat) instead generates rays for a pixel subset.
-    Returns (rays, pixel_idx [N] i32)."""
+    indices, may repeat) instead generates rays for a pixel subset.  Ray i
+    takes its jitter from row i of the key's draw, or from row
+    ``lanes[i]`` when ``lanes`` ([N] int) is given (a tile of a larger
+    wavefront).  Returns (rays, pixel_idx [N] i32)."""
     dev = key.device
     if pixel_sel is not None:
         pixel_idx = pixel_sel.to(device=dev, dtype=torch.int32)
@@ -54,7 +56,7 @@ def generate_camera_rays(key, cam, width: int, height: int, row0: int = 0,
         first = int(row0) * width
         pixel_idx = torch.arange(first, first + n, dtype=torch.int32,
                                  device=dev)
-    off = rng.uniform(key, (n, 2))
+    off = rng.uniform(key, (n, 2), rows=lanes)
 
     px = (pixel_idx % width).to(torch.float32)
     py = (pixel_idx // width).to(torch.float32)
@@ -85,24 +87,26 @@ def generate_camera_rays(key, cam, width: int, height: int, row0: int = 0,
     return rays, pixel_idx
 
 
-def generate_light_rays(key, lights, materials, n: int):
-    """Uniform light-surface emission rays: a light triangle picked
+def generate_light_rays(key, lights, materials, n: int, lanes=None):
+    """``n`` uniform light-surface emission rays: a light triangle picked
     uniformly, a uniform point on it, a uniform-hemisphere direction;
-    l_importance = 1/(count * area)."""
+    l_importance = 1/(count * area).  Ray i draws row i of each of the
+    key's draws, or row ``lanes[i]`` when ``lanes`` ([n] int) is given."""
     dev = key.device
     k_pick, k_bary, k_dir = rng.split(key, 3)
     count = lights["v0"].shape[0]
     pick = torch.clamp(
-        (rng.uniform(k_pick, (n,)) * count).to(torch.int32), max=count - 1)
+        (rng.uniform(k_pick, (n,), rows=lanes) * count).to(torch.int32),
+        max=count - 1)
     lv = {k: gather_rows(v, pick) for k, v in lights.items()}
 
-    bary = rng.uniform(k_bary, (n, 2))
+    bary = rng.uniform(k_bary, (n, 2), rows=lanes)
     normal = lv["normal"]
     origin = sample_triangle_uniform(lv["v0"], lv["v1"], lv["v2"], bary)
     origin = origin + DELTA * normal
 
     x, y = orthonormal(normal)
-    rolls = rng.uniform(k_dir, (n, 2))
+    rolls = rng.uniform(k_dir, (n, 2), rows=lanes)
     direction = random_hemisphere_uniform(x, y, normal, rolls)
 
     l_imp = 1.0 / (count * lv["area"])
@@ -149,11 +153,13 @@ def _select_bounce(mat_type, f_lottery, fres, diffuse, reflect, transmit):
 
 
 def trace_subpaths(key, rays, scene, from_camera,
-                   max_bounces: int = MAX_BOUNCES):
+                   max_bounces: int = MAX_BOUNCES, lanes=None):
     """Trace a wavefront of subpaths to ``max_bounces`` stored vertices.
 
     ``from_camera`` is a bool or a per-ray [N] bool tensor, so camera and
-    light wavefronts trace as one merged wavefront.  Returns
+    light wavefronts trace as one merged wavefront.  Ray i draws row i of
+    each depth's random numbers, or row ``lanes[i]`` when ``lanes`` ([N]
+    int) is given.  Returns
       vertices: dict of [D, N, ...] tensors (fields as in generate_*)
       valid:    [D, N] bool, vertex d stored
       length:   [N] i32
@@ -209,11 +215,11 @@ def trace_subpaths(key, rays, scene, from_camera,
 
         wi = -d
         ka, kb, kc = rng.split(rng.fold_in(key, depth), 3)
-        roll_a = rng.uniform(ka, (n, 2))
-        roll_b = rng.uniform(kb, (n, 2))
+        roll_a = rng.uniform(ka, (n, 2), rows=lanes)
+        roll_b = rng.uniform(kb, (n, 2), rows=lanes)
         # an independent uniform for the Fresnel lottery (the reference
         # reuses roll_b.x)
-        roll_c = rng.uniform(kc, (n,))
+        roll_c = rng.uniform(kc, (n,), rows=lanes)
 
         m = ggx_sample(nrm, roll_a, alpha)
         ok_m = (dot(wi, m) >= 0.0) & (dot(m, nrm) >= 0.0)

@@ -3,11 +3,13 @@ of clive2_tpu/renderer.py).
 
 A sample covers the whole frame, or the frame in row stripes
 (``chunk_rows``) so that path arrays stay stripe-sized on the card, or
-(``run_adaptive_sample``) only the pixels of highest variance.
-Accumulators live on the renderer's device and are copied to the host only
-for display or saving.  Checkpoints use the JAX package's file format, RNG
-key words included, so a JAX checkpoint resumes here and continues the same
-random stream.
+(``run_adaptive_sample``) only the pixels of highest variance.  Over a tile
+mesh (``mesh``, ``parallel.mesh``) each rank renders a band of every
+frame's or stripe's rows and the ranks sum the sample, so the accumulators
+are the same on every rank.  Accumulators live on the renderer's device and
+are copied to the host only for display or saving.  Checkpoints use the JAX
+package's file format, RNG key words included, so a JAX checkpoint resumes
+here and continues the same random stream.
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ from .constants import MAX_BOUNCES, timed
 from .integrator.render import (
     accumulate,
     init_accumulators,
+    make_sharded_render,
     render_sample,
     render_sample_subset,
 )
+from .parallel.mesh import resolve_device
 from .scene import Scene
 
 
@@ -54,10 +58,13 @@ def adaptive_select(state, n_select: int):
 class Renderer:
     def __init__(self, scene: Scene, seed: int = 0,
                  max_bounces: int = MAX_BOUNCES, device=None,
-                 chunk_rows: int = None):
+                 chunk_rows: int = None, mesh=None):
         """``device`` defaults to the scene's device and must match it.
         ``chunk_rows`` renders each sample in row stripes of that height,
-        which must divide the image height (at or above it: full frames)."""
+        which must divide the image height (at or above it: full frames).
+        ``mesh`` (``parallel.make_tile_mesh``) splits each frame's, or each
+        stripe's, rows over its ranks; every rank builds the same scene
+        (checked here) and makes the same calls."""
         device = torch.device(scene.device if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for, but CUDA is "
@@ -80,6 +87,18 @@ class Renderer:
             raise ValueError(f"chunk_rows ({chunk_rows}) must divide the "
                              f"image height ({self.height})")
         self.chunk_rows = chunk_rows
+        self.mesh = mesh
+        if mesh is None:
+            self._render = lambda key, data, **stripe: render_sample(
+                key, data, self.width, self.height, max_bounces, **stripe)
+        else:
+            held = scene.data["tri"]["packed"].device
+            if resolve_device(mesh.device) != resolve_device(held):
+                raise ValueError(f"the mesh renders on {mesh.device}, the "
+                                 f"scene's tables are on {held}")
+            mesh.check_replicated(scene.data, "the scene's tables")
+            self._render = make_sharded_render(mesh, self.width, self.height,
+                                               max_bounces)
 
     @timed
     def run_sample(self):
@@ -89,18 +108,16 @@ class Renderer:
         the sample at its last stripe and each pixel at its own stripe."""
         key = rng.fold_in(self.key, self.samples)
         if self.chunk_rows is None:
-            sample = render_sample(key, self.scene.data, self.width,
-                                   self.height, self.max_bounces)
+            sample = self._render(key, self.scene.data)
             self.last_n_rays = sample["n_rays"]
             self.state = accumulate(self.state, sample)
         else:
             self.last_n_rays = 0
             rows = torch.arange(self.height, device=self.device)[:, None]
             for row0 in range(0, self.height, self.chunk_rows):
-                sample = render_sample(
-                    rng.fold_in(key, row0), self.scene.data, self.width,
-                    self.height, self.max_bounces, row0=row0,
-                    rows=self.chunk_rows)
+                sample = self._render(rng.fold_in(key, row0),
+                                      self.scene.data, row0=row0,
+                                      rows=self.chunk_rows)
                 self.last_n_rays = self.last_n_rays + sample["n_rays"]
                 stripe = ((rows >= row0) & (rows < row0 + self.chunk_rows))
                 self.state = accumulate(
@@ -117,7 +134,12 @@ class Renderer:
         normalisation is weight-based, and the unidirectional image divides
         by per-pixel counts.  A striped renderer renders the selection in
         batches of ``chunk_rows * width`` pixels, the batch index folded
-        into the key, and accumulates their sum as one sample."""
+        into the key, and accumulates their sum as one sample.  Over a
+        mesh every rank renders the whole selection, as the JAX package
+        does (its adaptive step takes no mesh), and rank 0's sample
+        replaces the others': the card's atomic adds are not
+        deterministic, and replicas that drift could select different
+        pixels."""
         n_select = max(1, int(self.width * self.height * fraction))
         sel = adaptive_select(self.state, n_select)
         key = rng.fold_in(self.key, self.samples)
@@ -136,6 +158,9 @@ class Renderer:
                 # disjoint pixels and their sum carries one sample's stats
                 sample = part if sample is None else {
                     k: sample[k] + part[k] for k in part}
+        if self.mesh is not None:
+            self.mesh.broadcast([sample[k] for k in (
+                "image", "weight", "unidirectional", "uni_count")])
         self.last_n_rays = sample["n_rays"]
         self.state = accumulate(self.state, sample,
                                 count=sample["uni_count"])
@@ -179,20 +204,26 @@ class Renderer:
     # ---- checkpoint / resume ----------------------------------------------
 
     def save_checkpoint(self, path: str):
-        """Accumulators, sample counter and key words (the JAX format)."""
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        np.savez(
-            path,
-            **{k: self._host(k) for k in (
-                "summed_image", "summed_weight", "summed_unidirectional",
-                "n_samples", "summed_sq", "pixel_count")},
-            samples=self.samples,
-            key_data=np.asarray(rng.key_data(self.key), dtype=np.uint32),
-        )
+        """Accumulators, sample counter and key words (the JAX format).
+        Over a mesh rank 0 writes and every rank waits for it."""
+        if self.mesh is None or self.mesh.rank == 0:
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            np.savez(
+                path,
+                **{k: self._host(k) for k in (
+                    "summed_image", "summed_weight", "summed_unidirectional",
+                    "n_samples", "summed_sq", "pixel_count")},
+                samples=self.samples,
+                key_data=np.asarray(rng.key_data(self.key), dtype=np.uint32),
+            )
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load_checkpoint(self, path: str):
+        """Resume from ``save_checkpoint``'s file (every rank of a mesh
+        loads it)."""
         dev = self.scene.device
         hw = (self.height, self.width)
         with np.load(path) as ckpt:

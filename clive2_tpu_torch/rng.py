@@ -78,19 +78,35 @@ def split(k, num: int = 2):
     return torch.stack([b0, b1], dim=1)
 
 
-def random_bits(k, shape):
+def random_bits(k, shape, rows=None):
     """32 random bits per element (partitionable): element i of the
-    row-major flattened shape hashes the 64-bit counter i."""
-    n = 1
-    for s in shape:
-        n *= int(s)
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    row-major flattened shape hashes the 64-bit counter i.
+
+    ``rows`` ([M] integer tensor) draws only those rows of the leading
+    dimension, shape ``(M, *shape[1:])``: bit for bit the same rows of the
+    full draw, whose size then does not matter.  A tile of a wavefront
+    draws its own lanes of the frame's random numbers this way."""
+    inner = 1
+    for s in shape[1:]:
+        inner *= int(s)
+    if rows is None:
+        n = 1
+        for s in shape:
+            n *= int(s)
+        idx = torch.arange(n, dtype=torch.int64, device=k.device)
+        out_shape = tuple(shape)
+    else:
+        rows = rows.to(device=k.device, dtype=torch.int64)
+        idx = (rows[:, None] * inner + torch.arange(
+            inner, dtype=torch.int64, device=k.device)).reshape(-1)
+        out_shape = (rows.shape[0],) + tuple(shape[1:])
     b0, b1 = threefry2x32(k[0], k[1], idx >> 32, idx & _M)
-    return (b0 ^ b1).reshape(shape)
+    return (b0 ^ b1).reshape(out_shape)
 
 
-def uniform(k, shape):
-    """``jax.random.uniform(k, shape)`` in [0, 1) as float32: the top 23
-    bits become the mantissa of a float in [1, 2), minus one."""
-    bits = (random_bits(k, shape) >> 9) | 0x3F800000
+def uniform(k, shape, rows=None):
+    """``jax.random.uniform(k, shape)`` in [0, 1) as float32 (only the
+    leading-dimension ``rows`` of it when given, as ``random_bits``): the
+    top 23 bits become the mantissa of a float in [1, 2), minus one."""
+    bits = (random_bits(k, shape, rows) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0

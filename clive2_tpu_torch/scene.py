@@ -2,7 +2,9 @@
 (port of clive2_tpu/scene.py).
 
 The camera plane and the Cornell-style room are always injected, mesh files
-are merged, and the BVH is built on the host.  The result is a dict of
+are merged, and the BVH is built on the host; a camera move
+(``Scene.with_camera``, ``orbit_camera``) swaps the sensor-plane rows and
+keeps the BVH.  The result is a dict of
 tensors on the requested device.  Which intersection tables a scene gets
 depends on its size and on that device:
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -70,6 +73,59 @@ class Scene:
     n_nodes: int
     device: torch.device
     camera_tri_ids: Any = None    # global ids of the sensor-plane triangles
+    build_seconds: float = 0.0    # host build and upload of the tables
+
+    def with_camera(self, camera: Camera) -> "Scene":
+        """This scene seen from ``camera``: only the camera and the
+        sensor-plane triangles change, no BVH is rebuilt (the reference
+        rebuilds the whole scene every animation frame).
+
+        The sensor plane lives outside the BVH: BVH scenes intersect it as
+        ``camtri``, brute scenes keep it in their triangle table.  Its rows
+        are swapped at ``camera_tri_ids`` in copies of the tables that hold
+        them (the camera, ``camtri`` or the brute table, and the triangle
+        attributes ``face_normal``, ``n0``-``n2`` and ``packed``); every
+        other table is shared with this scene, which is left unchanged.
+        """
+        cam_soup = camera_geometry(camera)
+        ids = np.asarray(self.camera_tri_ids)
+        if len(cam_soup) != len(ids):
+            raise ValueError(f"the new sensor has {len(cam_soup)} "
+                             f"triangles, the scene {len(ids)}")
+        dev = self.device
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32),
+                                      device=dev)
+        # f32 first, then the edges, as the JAX package's swap computes them
+        v = cam_soup.vertices.astype(np.float32)
+        v0, e1, e2 = t(v[:, 0]), t(v[:, 1] - v[:, 0]), t(v[:, 2] - v[:, 0])
+        fn, vn = t(cam_soup.face_normals), t(cam_soup.vertex_normals)
+        rows = torch.as_tensor(ids, dtype=torch.int64, device=dev)
+
+        data = dict(self.data)
+        data["camera"] = to_device(camera_tables(camera), dev)
+        if "camtri" in data:
+            data["camtri"] = dict(v0=v0, e1=e1, e2=e2, ids=rows.to(
+                torch.int32))
+        if "brute" in data:
+            tris = data["brute"]["tris"].clone()
+            tris[rows, 0:3] = v0
+            tris[rows, 3:6] = e1
+            tris[rows, 6:9] = e2
+            data["brute"] = dict(data["brute"], tris=tris)
+        tri = dict(data["tri"])
+        for k, val in (("face_normal", fn), ("n0", vn[:, 0]),
+                       ("n1", vn[:, 1]), ("n2", vn[:, 2])):
+            tri[k] = tri[k].clone()
+            tri[k][rows] = val
+        packed = tri["packed"].clone()
+        packed[rows, 0:3] = fn
+        for col, k in enumerate(range(3, 12, 3)):
+            packed[rows, k:k + 3] = vn[:, col]
+        tri["packed"] = packed
+        data["tri"] = tri
+        return dataclasses.replace(
+            self, camera=camera, data=data, pixel_width=camera.pixel_width,
+            pixel_height=camera.pixel_height, build_seconds=0.0)
 
 
 def to_device(tree, device):
@@ -255,6 +311,7 @@ def create_scene(
     if soup_transform is not None:
         soup = soup_transform(soup)
 
+    t0 = time.perf_counter()
     data, bvh, cam_ids = _build_scene_arrays(soup, materials, camera,
                                              cuda=device.type == "cuda")
     data = to_device(data, device)
@@ -267,6 +324,7 @@ def create_scene(
         n_nodes=bvh.n_nodes,
         device=device,
         camera_tri_ids=cam_ids,
+        build_seconds=time.perf_counter() - t0,
     )
 
 
@@ -338,6 +396,43 @@ def create_scene_from_preset(preset_name: str, pixel_width=1280,
         pixel_height=pixel_height,
         cam_center=preset["cam_center"],
         cam_direction=preset["cam_direction"],
+        file_specs=preset.get("file_specs"),
+        device=device,
+    )
+
+
+def orbit_camera(frame_idx: int, total_frames: int, pixel_width: int,
+                 pixel_height: int) -> Camera:
+    """The turntable camera of frame ``frame_idx`` of ``total_frames``, on
+    the reference's circle of radius 7.5 at height 1.5, looking at the
+    axis."""
+    theta = 2 * np.pi * frame_idx / total_frames
+    return Camera(
+        center=np.array([np.sin(theta) * 7.5, 1.5, np.cos(theta) * 7.5]),
+        direction=np.array([-np.sin(theta), 0, -np.cos(theta)]),
+        pixel_width=pixel_width,
+        pixel_height=pixel_height,
+        phys_width=pixel_width / pixel_height,
+        phys_height=1.0,
+    )
+
+
+def create_scene_from_preset_with_params(
+    preset_name: str, pixel_width=1280, pixel_height=720,
+    frame_idx: int = 0, total_frames: int = 1, device="cuda",
+) -> Scene:
+    """A preset's meshes seen from ``orbit_camera(frame_idx,
+    total_frames)``, on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    preset = scene_presets.get(preset_name)
+    if not preset:
+        raise ValueError(f"Preset '{preset_name}' not found.")
+    cam = orbit_camera(frame_idx, total_frames, pixel_width, pixel_height)
+    return create_scene(
+        pixel_width=pixel_width,
+        pixel_height=pixel_height,
+        cam_center=cam.center,
+        cam_direction=cam.direction,
         file_specs=preset.get("file_specs"),
         device=device,
     )

@@ -1,7 +1,10 @@
 """Inputs that hold the kernels to their rules: a soup of triangles that
 each appear twice, so that every hit is an exact tie in t (the traversal
 kernels' tie rule), and rays at the edges of the brute-force test and of
-its early-reject pre-test.
+its early-reject pre-test; ``launch_counters`` and ``check_launches``,
+which tell which kernels a render ran; and ``spawn_ranks``, which runs a
+function on the ranks of a gloo process group in spawned processes, under
+a time limit (the tile mesh's tests).
 
 Used by the CPU tests (with the JAX package's tree) and by chip_smoke.py
 and the card tests (with the port's tree).
@@ -9,7 +12,135 @@ and the card tests (with the port's tree).
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
+
+
+# the queued fat-leaf traversal's own kernels (intersect_stream2.launches
+# counts its casts), and the plain versions that no render on the card runs
+STREAM2_KERNELS = ("stream2_walk", "stream2_count", "stream2_plan",
+                   "stream2_scatter", "stream2_leaf", "stream2_tail",
+                   "stream2_thread")
+PLAIN_VERSIONS = ("brute_plain", "gather_walk", "stream2_plain",
+                  "wide_plain", "stream_plain")
+
+
+def launch_counters():
+    """{name: (function, attribute)} of every count that tells which
+    kernels a render ran: the ``launches`` of each cast's kernel wrapper
+    and of the queued fat-leaf traversal's kernels (STREAM2_KERNELS), and
+    the ``calls`` of each plain version (PLAIN_VERSIONS)."""
+    from .ops import (brute, intersect, traverse_bvh2, traverse_stream,
+                      traverse_stream2 as s2, traverse_wide)
+
+    kernels = dict(brute=brute.intersect_brute,
+                   bvh2=traverse_bvh2.intersect_bvh2,
+                   stream2=s2.intersect_stream2,
+                   wide=traverse_wide.intersect_wide,
+                   stream=traverse_stream.intersect_stream,
+                   stream2_walk=s2.walk_to_leaf,
+                   stream2_count=s2.count_by_leaf,
+                   stream2_plan=s2.plan_tiles,
+                   stream2_scatter=s2.scatter_by_leaf,
+                   stream2_leaf=s2.leaf_test, stream2_tail=s2.stream2_tail,
+                   stream2_thread=s2.stream2_thread)
+    plain = dict(brute_plain=brute.brute_plain,
+                 gather_walk=intersect.intersect_bvh_packed,
+                 stream2_plain=s2.stream2_plain,
+                 wide_plain=traverse_wide.wide_plain,
+                 stream_plain=traverse_stream.stream_plain)
+    return {**{k: (fn, "launches") for k, fn in kernels.items()},
+            **{k: (fn, "calls") for k, fn in plain.items()}}
+
+
+def check_launches(label, kernel, ran):
+    """Raise unless every kernel named in ``kernel`` ran (``ran``: counts by
+    the names of ``launch_counters``), no plain version ran, and no other
+    kernel ran (with ``stream2``, the queued kernels may)."""
+    idle = [k for k in kernel if ran[k] <= 0]
+    if idle:
+        raise AssertionError(f"{label}: the {idle} kernels never ran")
+    if any(ran[k] for k in PLAIN_VERSIONS):
+        raise AssertionError(f"{label}: a plain version ran: {ran}")
+    allowed = set(kernel) | (set(STREAM2_KERNELS) if "stream2" in kernel
+                             else set())
+    if any(v for k, v in ran.items()
+           if k not in PLAIN_VERSIONS and k not in allowed):
+        raise AssertionError(f"{label}: another kernel ran: {ran}")
+
+
+def mesh_render(rank, size, workdir, device, jobs):
+    """A rank of ``spawn_ranks``: for each job ``(name, preset, width,
+    height, seed, samples)`` build the preset on ``device`` and
+    render ``samples`` samples with ``Renderer(mesh=)``, then write the
+    state, each sample's seconds and every count of ``launch_counters``
+    (``launches/`` + its name) to ``{workdir}/{name}-rank{rank}.npz`` (its
+    accumulators are the same on every rank)."""
+    import torch
+
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch.parallel import make_tile_mesh
+
+    counters = launch_counters()
+    mesh = make_tile_mesh(devices=device)
+    for name, preset, width, height, seed, samples in jobs:
+        scene = ct.create_scene_from_preset(preset, width, height,
+                                            device=device)
+        r = ct.Renderer(scene, seed=seed, mesh=mesh)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        seconds = []
+        for _ in range(samples):
+            mesh.barrier()
+            t0 = time.perf_counter()
+            r.run_sample()
+            r.block()
+            seconds.append(time.perf_counter() - t0)
+        np.savez(os.path.join(workdir, f"{name}-rank{rank}.npz"),
+                 seconds=np.asarray(seconds),
+                 **{f"launches/{k}": getattr(fn, attr)
+                    for k, (fn, attr) in counters.items()},
+                 **{k: v.cpu().numpy() for k, v in r.state.items()})
+        del r, scene
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _rank_main(rank, fn, size, workdir, args):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/pg",
+                            rank=rank, world_size=size)
+    try:
+        fn(rank, size, workdir, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, size: int, workdir: str, args=(), timeout=300.0):
+    """Run ``fn(rank, size, workdir, *args)`` in ``size`` spawned
+    processes, each a rank of a gloo group initialised from a file in
+    ``workdir`` (an empty directory), and wait for them.  ``fn`` must be
+    importable by name.  Raises when a rank fails, or kills every rank and
+    raises ``TimeoutError`` when they outlast ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(workdir, exist_ok=True)
+    ctx = mp.start_processes(_rank_main, args=(fn, size, workdir, args),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{size} ranks of {fn.__name__} outlasted "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
 
 
 def swap_pair_ids(leaf_packed, t, rng):

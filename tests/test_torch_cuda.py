@@ -9,7 +9,8 @@ to 1e-6; built with --fmad=false both round alike; the fat-leaf, streaming
 and wide kernels' any-hit ids too, since each stops where its plain version
 does), each kernel of the queued fat-leaf traversal its plain step on the
 same state, and a small render on the card must match the same render on
-the CPU.
+the CPU.  Camera moves put the brute and BVH2 kernels on moved sensor
+tables, and two gloo ranks on one card render a tile each of one sample.
 """
 
 import numpy as np
@@ -550,3 +551,80 @@ def test_subset_brute_casts(dev):
                                            **kw),
                      brute.brute_plain(c["origin"], c["direction"], tris,
                                        **kw))
+
+
+def test_with_camera_brute_casts(dev):
+    """A Cornell frame moved by with_camera (its brute table's sensor rows
+    swapped): every cast of one sample on the kernel equals brute_plain on
+    the moved table."""
+    base = ct.create_scene_from_preset("empty", 64, 36, device=dev)
+    scene = base.with_camera(ct.orbit_camera(3, 16, 64, 36))
+    tris = scene.data["brute"]["tris"]
+    assert not torch.equal(tris, base.data["brute"]["tris"])
+    casts = _recorded_casts(brute, "intersect_brute", lambda: (
+        render.render_sample(rng.key(6, dev), scene.data, 64, 36)))
+    assert len(casts) == 7
+    for c in casts:
+        kw = dict(active=c["active"], t_max=c["t_max"])
+        _assert_same(brute.intersect_brute(c["origin"], c["direction"], tris,
+                                           **kw),
+                     brute.brute_plain(c["origin"], c["direction"], tris,
+                                       **kw))
+
+
+def test_orbit_frame_bvh2_casts(dev):
+    """A teapots orbit frame (frame 1 of 120 through with_camera): its BVH2
+    casts equal the plain gather walk on every ray."""
+    import os
+
+    from clive2_tpu_torch.load import write_obj
+    from clive2_tpu_torch.models import utah_teapot
+    from clive2_tpu_torch.scene import RESOURCE_DIR
+
+    teapot = os.path.join(RESOURCE_DIR, "teapot.obj")
+    if not os.path.exists(teapot):
+        os.makedirs(RESOURCE_DIR, exist_ok=True)
+        v, f = utah_teapot(n=10)
+        write_obj(teapot, v, f)
+    base = ct.create_scene_from_preset_with_params("teapots", 64, 36, 0, 120,
+                                                   device=dev)
+    scene = base.with_camera(ct.orbit_camera(1, 120, 64, 36))
+    assert scene.data["bvh2"] is base.data["bvh2"]
+    casts = _recorded_casts(traverse_bvh2, "intersect_bvh2", lambda: (
+        render.render_sample(rng.key(7, dev), scene.data, 64, 36)))
+    assert len(casts) == 7
+    for c in casts:
+        kw = dict(active=c["active"], t_max=c["t_max"])
+        got = traverse_bvh2.intersect_bvh2(c["origin"], c["direction"],
+                                           scene.data, any_hit=c["any_hit"],
+                                           **kw)
+        want = intersect.intersect_bvh_packed(c["origin"], c["direction"],
+                                              scene.data["bvh"], **kw)
+        _assert_same(got, want, closest=not c["any_hit"])
+
+
+def test_two_gloo_ranks_on_one_card(dev, tmp_path):
+    """Renderer(mesh=) over two gloo ranks on cuda:0 against one device,
+    one sample of Cornell 64x36: the ranks hold the same state, and it
+    equals the single-device sample up to the order of float sums (the
+    splat scatter's atomic adds and the all-reduce); each rank launched
+    the brute kernel 7 times, as one device does, and no plain version."""
+    from clive2_tpu_torch.testing import (check_launches, mesh_render,
+                                          spawn_ranks)
+
+    jobs = [("cornell", "empty", 64, 36, 3, 1)]
+    spawn_ranks(mesh_render, 2, str(tmp_path), args=("cuda:0", jobs),
+                timeout=300)
+    a, b = (np.load(tmp_path / f"cornell-rank{r}.npz") for r in range(2))
+    r = ct.Renderer(ct.create_scene_from_preset("empty", 64, 36, device=dev),
+                    seed=3)
+    r.run_sample()
+    for k, v in r.state.items():
+        np.testing.assert_array_equal(a[k], b[k], k)
+        np.testing.assert_allclose(a[k], v.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    for rank in (a, b):
+        check_launches("a gloo rank", ("brute",),
+                       {k[9:]: int(rank[k]) for k in rank.files
+                        if k.startswith("launches/")})
+    assert a["launches/brute"] == b["launches/brute"] == 7
