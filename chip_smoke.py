@@ -41,8 +41,17 @@ connection cast held to plain; a Cornell 1080p ``with_camera`` frame, its
 moved brute table's connection cast held to plain), tile meshes
 (``tiles``: ``Renderer(mesh=)`` on an NCCL group of one rank, and on two
 gloo ranks on the one card, spawned under a time limit, each against one
-device), and the two CLIs as subprocesses (``cli``).  Then it compares a
-small render on the card with the same render on the CPU.  The
+device, or in Morton order the two ranks against their tiles rendered on
+one device), and the two CLIs as subprocesses (``cli``).  The wave order
+(``wave_order``): the mesh cells in raster, auto (morton) and morton
+order without per-cast sorts, each kernel's depth-0, depth-3 and
+connection casts in raster, Morton wave and Morton-key order with the
+sort's steps timed apart, the card's busy share over one sample
+(``utils.profiling.trace_to``), a ``CLIVE2_CONNECT_K=4`` sample against the
+full cast and a 64x64 teapots morton render on the card against the CPU's.
+The mesh cells' default order is auto, so under ``slice`` the BVH scenes
+render in Morton order.  Then it compares a small render on the card with
+the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
 phase prints one JSON line; any failure exits non-zero without the final
@@ -106,8 +115,7 @@ def cast_bytes(c, tables):
     """Bytes a cast must move: each ray's origin, direction, active flag
     and cap read once, its id, t, u, v written once, the tables read once."""
     n = c["origin"].shape[0]
-    return n * (12 + 12 + 1 + 4 + 16) + sum(
-        t.numel() * t.element_size() for t in tables.values())
+    return n * (12 + 12 + 1 + 4 + 16) + table_bytes(tables)
 
 
 def cuda_time(fn, iters: int):
@@ -146,18 +154,22 @@ def plain_time(fn):
     return start.elapsed_time(end), out, dict(WORK)
 
 
-def record_casts(module, wrapper, renderer, run=None):
+def record_casts(module, wrapper, renderer, run=None, calls=None):
     """Run one sample of ``renderer`` (``run()`` when given, else
     ``renderer.run_sample()``) with the kernel wrapper ``module.<wrapper>``
     keeping a copy of the inputs of the first cast of each ray count it is
-    given; returns {ray count: inputs}."""
+    given, or with ``calls`` of the calls of those indices (0 the first);
+    returns {ray count (call index): inputs}."""
     fn = getattr(module, wrapper)
     casts = {}
+    seen = [0]
 
     def record(origin, direction, tables, active=None, t_max=None,
                any_hit=False):
-        if origin.shape[0] not in casts:
-            casts[origin.shape[0]] = dict(
+        at = origin.shape[0] if calls is None else seen[0]
+        seen[0] += 1
+        if at not in casts and (calls is None or at in calls):
+            casts[at] = dict(
                 origin=origin.clone(), direction=direction.clone(),
                 active=None if active is None else active.clone(),
                 t_max=None if t_max is None else t_max.clone(),
@@ -243,8 +255,10 @@ def environment(**env):
 
 
 def table_bytes(tables):
-    """Bytes of a kernel's tables."""
-    return sum(t.numel() * t.element_size() for t in tables.values())
+    """Bytes of a kernel's tables (the root box beside them, which keys the
+    Morton sort, is not the kernel's)."""
+    return sum(t.numel() * t.element_size() for k, t in tables.items()
+               if k not in ("lo", "hi"))
 
 
 def brute_pretest(c, tris, warps=1 << 14):
@@ -360,6 +374,32 @@ def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
         out[f"{short} {tag}".strip()] = dict(instructions=len(addr),
                                              triangle_loop=best)
     return out
+
+
+def tiles_on_one_device(scene, seed: int, ranks: int):
+    """The state after the first sample of ``Renderer(scene, seed=seed,
+    mesh=)`` over ``ranks`` ranks, computed on one device: each rank's
+    tile rendered in turn in the mesh's order, its light rays sorted on
+    the bounds of the whole frame's, the tiles summed."""
+    from clive2_tpu_torch import rng
+    from clive2_tpu_torch.integrator import render
+    from clive2_tpu_torch.integrator.trace import generate_light_rays
+
+    w, h, data = scene.pixel_width, scene.pixel_height, scene.data
+    key = rng.fold_in(rng.key(seed, device=scene.device), 0)
+    order = "raster" if h % ranks else render._wave_order(data)
+    lights = generate_light_rays(rng.split(key, 3)[1], data["lights"],
+                                 data["mat"], w * h)["origin"]
+    box = (lights.amin(0), lights.amax(0))
+    parts = [render.render_sample(
+        key, data, w, h, tile=(r * h // ranks,
+                               (r + 1) * h // ranks - r * h // ranks),
+        order=order, light_bounds=lambda lo, hi: box) for r in range(ranks)]
+    sample = {k: sum(p[k] for p in parts)
+              for k in ("image", "weight", "unidirectional")}
+    state = render.accumulate(render.init_accumulators(
+        w, h, device=scene.device), sample)
+    return {k: v.cpu().numpy() for k, v in state.items()}
 
 
 def write_assets(resource_dir):
@@ -959,7 +999,8 @@ def main() -> int:
          scene_tris=dragon_w.n_triangles, scene_build_s=build_s,
          bvh_build_s=bvh_s, wide_nodes=dragon_w.data["wide"]["nodes"].shape[0],
          wide_table_bytes={k: table_bytes({k: v}) for k, v in
-                           dragon_w.data["wide"].items()})
+                           dragon_w.data["wide"].items()
+                           if k not in ("lo", "hi")})
     with environment(CLIVE2_STREAM_IMPL="1"):
         dragon_s1, build_s, bvh_s = build_timed("medium-dragon", 512, 512,
                                                 dev)
@@ -968,7 +1009,8 @@ def main() -> int:
          bvh_build_s=bvh_s,
          sub_leaves=dragon_s1.data["stream"]["subs"].shape[0],
          stream_table_bytes={k: table_bytes({k: v}) for k, v in
-                             dragon_s1.data["stream"].items()})
+                             dragon_s1.data["stream"].items()
+                             if k not in ("lo", "hi")})
     for scene, want in ((dragon, "stream2"), (dragon_w, "wide"),
                         (dragon_s1, "stream")):
         got = sorted(set(scene.data) & set(PACKERS))
@@ -1115,7 +1157,8 @@ def main() -> int:
          pack_s=time.perf_counter() - t0,
          sub_leaves=sponza_s1.data["stream"]["subs"].shape[0],
          stream_table_bytes={k: table_bytes({k: v}) for k, v in
-                             sponza_s1.data["stream"].items()},
+                             sponza_s1.data["stream"].items()
+                             if k not in ("lo", "hi")},
          gather_walk_bytes=table_bytes(sponza.data["bvh"]))
     ab_scenes = {"medium_dragon": with_traversal(dragon, "bvh2"),
                  "sponza": with_traversal(sponza, "bvh2"),
@@ -1270,6 +1313,7 @@ def main() -> int:
     # the queued fat-leaf traversal's kernels, counted apart from its casts
     # (intersect_stream2.launches counts casts)
     # every launch count, plain versions' calls included (testing.py)
+    from clive2_tpu_torch.integrator.render import _wave_order as wave_order
     from clive2_tpu_torch.testing import check_launches, launch_counters
 
     queued = ("stream2", "stream2_walk", "stream2_count", "stream2_plan",
@@ -1313,7 +1357,8 @@ def main() -> int:
         img = r.raw_image
         slices[name] = dict(
             phase="slice_ab" if ab else "slice", name=name, width=w,
-            height=h, spp=2, s_per_sample=times,
+            height=h, order=wave_order(scene.data), spp=2,
+            s_per_sample=times,
             mrays_s=rays / sum(times) / 1e6, rays=rays, counts=ran,
             image_mean=float(img.mean()),
             finite=bool(np.isfinite(img).all()),
@@ -1363,6 +1408,22 @@ def main() -> int:
     def image_ok(label, img):
         if not (np.isfinite(img).all() and img.mean() > 0):
             raise AssertionError(f"{label}: non-finite or black image")
+
+    def agree(a, b, rtol=1e-4, atol=1e-6):
+        """Share of pixels whose image and weight agree, and the largest
+        difference of each, between two states or two samples (tensors or
+        arrays)."""
+        def get(x, *names):
+            v = next(x[k] for k in names if k in x)
+            return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+        img = [get(x, "summed_image", "image") for x in (a, b)]
+        wts = [get(x, "summed_weight", "weight") for x in (a, b)]
+        close = np.isclose(*img, rtol=rtol, atol=atol).all(-1) & np.isclose(
+            *wts, rtol=rtol, atol=atol)
+        return dict(share=float(close.mean()), rtol=rtol, atol=atol,
+                    image_max_abs=float(np.abs(img[0] - img[1]).max()),
+                    weight_max_abs=float(np.abs(wts[0] - wts[1]).max()))
 
     extra_casts = {}
     constants.REFERENCE_MIS = True
@@ -1527,6 +1588,180 @@ def main() -> int:
          sponza_1080p_chunk_rows_54=striped, stripe_casts=held,
          cornell_2160p_chunk_rows_270=uhd_run)
     del uhd
+    torch.cuda.empty_cache()
+
+    # ---- 7b'. the wave order ---------------------------------------------
+    # The mesh cells under three orders, 2 samples each, seed 0: raster;
+    # auto, the default (morton; the streaming tables' extension casts
+    # still sorted per cast); morton with no per-cast sort.  Then each
+    # kernel on its scene's depth-0, depth-3 and connection casts, recorded
+    # unsorted in raster order and in the Morton wave order, the raster
+    # ones also in Morton-key order (intersect_scene's sort), each timed
+    # alone with CUDA events beside the sort's own steps (key, argsort,
+    # the inputs' gathers, the outputs' inverse scatter).  Then the card's
+    # busy share over one sample of teapots 512 and sponza 1080p in raster
+    # and auto order (utils.profiling.trace_to), a CLIVE2_CONNECT_K=4
+    # sample against K=0, and a morton render on the card against the CPU's.
+    from clive2_tpu_torch.ops.intersect import morton_key, ray_order, unsort
+    from clive2_tpu_torch.utils.profiling import device_busy, trace_to
+
+    orders = {"raster": dict(CLIVE2_WAVE_ORDER="raster"),
+              "auto": dict(CLIVE2_WAVE_ORDER="auto"),
+              "morton_no_trace_sort": dict(CLIVE2_WAVE_ORDER="morton",
+                                           CLIVE2_TRACE_SORT="0")}
+    unsorted = dict(CLIVE2_TRACE_SORT="0", CLIVE2_CONNECT_SORT="0")
+    cells = (("teapots_512", teapots, "bvh2", ("bvh2",)),
+             ("dragon_512_wide", dragon_w, "wide", ("wide",)),
+             ("medium_dragon_512", dragon, "stream2",
+              queued + ("stream2_thread",)),
+             ("sponza_1080p", sponza, "stream2", queued),
+             ("sponza_1080p_stream1", sponza_s1, "stream", ("stream",)))
+    cast_names = {0: "depth0", 3: "depth3", 6: "connection"}
+
+    def sample_rays(r, n):
+        """Host seconds and rays of each of ``n`` samples of ``r``."""
+        times, rays = [], 0
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.run_sample()
+            r.block()
+            times.append(time.perf_counter() - t0)
+            rays += int(r.last_n_rays)
+        return times, rays
+
+    def same_hits(a, b, any_hit, label):
+        same = ((a[0] >= 0) == (b[0] >= 0)) if any_hit else (a[0] == b[0])
+        if not bool(same.all()):
+            raise AssertionError(f"{label}: sorted and unsorted casts "
+                                 "disagree")
+
+    def order_casts(label, c, table, scene):
+        """One recorded cast timed as given and in Morton-key order, with
+        the sort's steps."""
+        tables = scene.data[table]
+        ms, got = cuda_time(lambda: launch(table, c, scene.data), 5)
+        key_ms, key = cuda_time(lambda: morton_key(
+            c["origin"], c["direction"], tables["lo"], tables["hi"],
+            c["active"]), 5)
+        sort_ms, order = cuda_time(lambda: ray_order(key), 5)
+        gather_ms, s = cuda_time(lambda: {
+            k: v if k == "any_hit" or v is None else v[order]
+            for k, v in c.items()}, 5)
+        sorted_ms, out = cuda_time(lambda: launch(table, s, scene.data), 5)
+        scatter_ms, back = cuda_time(lambda: unsort(order, out), 5)
+        same_hits(back, got, c["any_hit"], label)
+        glue = key_ms + sort_ms + gather_ms + scatter_ms
+        del got, key, order, s, out, back
+        return dict(ms=ms, key_order_ms=sorted_ms, glue_ms=dict(
+            key=key_ms, argsort=sort_ms, gathers=gather_ms,
+            inverse_scatter=scatter_ms, total=glue),
+            key_order_with_glue_ms=sorted_ms + glue)
+
+    wave = {}
+    for name, scene, table, kernel in cells:
+        w, h = scene.pixel_width, scene.pixel_height
+        cell = dict(table=table, orders={}, casts={})
+        for oname, env in orders.items():
+            with environment(**env):
+                r = ct.Renderer(scene, seed=0, device=dev)
+                out = {}
+                ran = drive(f"wave_order {name} {oname}", kernel, lambda: (
+                    out.update(zip(("times", "rays"), sample_rays(r, 2)))))
+                image_ok(f"wave_order {name} {oname}", r.raw_image)
+                cell["orders"][oname] = dict(
+                    order=wave_order(scene.data), s_per_sample=out["times"],
+                    mrays_s=out["rays"] / sum(out["times"]) / 1e6,
+                    rays=out["rays"], counts=ran,
+                    image_mean=float(r.raw_image.mean()))
+                del r
+        for layout, env in (("raster", dict(CLIVE2_WAVE_ORDER="raster")),
+                            ("wave", dict(CLIVE2_WAVE_ORDER="morton"))):
+            with environment(**env, **unsorted):
+                casts = record_casts(modules[table], f"intersect_{table}",
+                                     ct.Renderer(scene, seed=1, device=dev),
+                                     calls=tuple(cast_names))
+            for i, cname in cast_names.items():
+                c = casts.pop(i)
+                label = f"wave_order {name} {layout} {cname}"
+                figures = order_casts(label, c, table, scene)
+                entry = cell["casts"].setdefault(cname, dict(
+                    rays=c["origin"].shape[0], any_hit=c["any_hit"],
+                    active=int(c["active"].sum())))
+                if layout == "raster":
+                    entry.update(raster_ms=figures["ms"],
+                                 key_order_ms=figures["key_order_ms"],
+                                 glue_ms=figures["glue_ms"],
+                                 key_order_with_glue_ms=figures[
+                                     "key_order_with_glue_ms"])
+                else:
+                    entry["wave_order_ms"] = figures["ms"]
+                del c
+            del casts
+            torch.cuda.empty_cache()
+        wave[name] = cell
+        emit(phase="wave_order", name=name, width=w, height=h, spp=2, **cell)
+    # the device's busy share over one sample (after one to warm up)
+    busy = {}
+    traces = os.path.join(ROOT, "output", "chip_smoke_traces")
+    for name, scene in (("teapots_512", teapots), ("sponza_1080p", sponza)):
+        for oname in ("raster", "auto"):
+            with environment(**orders[oname]):
+                r = ct.Renderer(scene, seed=0, device=dev)
+                r.run_sample()
+                r.block()
+                logdir = os.path.join(traces, f"{name}_{oname}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with trace_to(logdir):
+                    r.run_sample()
+                busy[f"{name} {oname}"] = dict(
+                    device_busy(logdir),
+                    traced_sample_s=time.perf_counter() - t0)
+                del r
+    import shutil
+
+    shutil.rmtree(traces, ignore_errors=True)
+    emit(phase="wave_order_busy", **busy)
+    # CLIVE2_CONNECT_K=4 against K=0: one sample each, the same key
+    states, k_counts = {}, {}
+    for k in ("0", "4"):
+        with environment(CLIVE2_CONNECT_K=k):
+            r = ct.Renderer(dragon, seed=0, device=dev)
+            out = {}
+            k_counts[k] = drive(f"connect_k {k} medium_dragon_512",
+                                queued + ("stream2_thread",),
+                                lambda: out.update(times=samples(r, 1)))
+            states[k] = {key: v.clone() for key, v in r.state.items()}
+            k_counts[k]["s_per_sample"] = out["times"]
+            del r
+    connect_k = dict(agree(states["4"], states["0"]), **{
+        f"k{k}": v for k, v in k_counts.items()})
+    del states
+    # a morton render on the card against the CPU's (BVH2 there, the
+    # gather walk here), both forced to morton
+    imgs = {}
+    with environment(CLIVE2_WAVE_ORDER="morton"):
+        for device in ("cpu", "cuda"):
+            r = ct.Renderer(ct.create_scene_from_preset(
+                "teapots", 64, 64, device=device), seed=3)
+            if device == "cuda":
+                drive("wave_order cpu_vs_card", ("bvh2",), r.run_sample)
+            else:
+                r.run_sample()
+            imgs[device] = r.state["summed_image"].cpu().numpy()
+    close = np.isclose(imgs["cuda"], imgs["cpu"], rtol=1e-3,
+                       atol=1e-6).all(-1)
+    emit(phase="wave_order_checks", connect_k_medium_dragon_512=connect_k,
+         teapots_64_morton_cpu_vs_card=dict(
+             pixels_close=float(close.mean()),
+             image_mean=float(imgs["cuda"].mean())))
+    if connect_k["share"] < 0.999:
+        raise AssertionError(f"CLIVE2_CONNECT_K=4 differs from the full "
+                             f"connection cast: {connect_k}")
+    if close.mean() < 0.99:
+        raise AssertionError("teapots under morton: card and CPU renders "
+                             "disagree")
     del scene, ab_scenes, sponza, sponza_s1, dragon, dragon_w, dragon_s1
     torch.cuda.empty_cache()
     # the verify skill's health band for the Cornell preset at 16:9 (the
@@ -1545,22 +1780,6 @@ def main() -> int:
     # plain walk; then one with_camera frame of Cornell 1080p, whose brute
     # table's sensor rows change, its connection cast held to brute_plain
     from clive2_tpu_torch.integrator.render import render_sample
-
-    def agree(a, b, rtol=1e-4, atol=1e-6):
-        """Share of pixels whose image and weight agree, and the largest
-        difference of each, between two states or two samples (tensors or
-        arrays)."""
-        def get(x, *names):
-            v = next(x[k] for k in names if k in x)
-            return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-
-        img = [get(x, "summed_image", "image") for x in (a, b)]
-        wts = [get(x, "summed_weight", "weight") for x in (a, b)]
-        close = np.isclose(*img, rtol=rtol, atol=atol).all(-1) & np.isclose(
-            *wts, rtol=rtol, atol=atol)
-        return dict(share=float(close.mean()), rtol=rtol, atol=atol,
-                    image_max_abs=float(np.abs(img[0] - img[1]).max()),
-                    weight_max_abs=float(np.abs(wts[0] - wts[1]).max()))
 
     w, h, total = 1280, 720, 120
     t0 = time.perf_counter()
@@ -1683,7 +1902,7 @@ def main() -> int:
     work = os.path.join(ROOT, "output", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    tiles, single, one_counts = {}, {}, {}
+    tiles, single, one_counts, banded = {}, {}, {}, {}
     dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
                             rank=0, world_size=1)
     try:
@@ -1695,10 +1914,15 @@ def main() -> int:
             one_counts[name] = drive(f"tiles one device {name}", (kernel,),
                                      lambda: one.update(times=samples(r1, 1)))
             single[name] = {k: v.cpu().numpy() for k, v in r1.state.items()}
+            # what two ranks render, on this device: in morton order each
+            # band is ordered in place, so it is another sample than one
+            # device's whole frame
+            banded[name] = tiles_on_one_device(scene, 0, 2)
             rm = ct.Renderer(scene, seed=0, device=dev, mesh=mesh)
             ran = drive(f"tiles nccl {name}", (kernel,),
                         lambda: out.update(times=samples(rm, 1)))
-            tiles[name] = dict(s_per_sample_plain=one["times"],
+            tiles[name] = dict(order=wave_order(scene.data),
+                               s_per_sample_plain=one["times"],
                                s_per_sample_nccl_1=out["times"], counts=ran,
                                nccl_1_vs_plain=agree(rm.state, r1.state))
             if ran != one_counts[name]:
@@ -1737,8 +1961,13 @@ def main() -> int:
             s_per_sample_gloo_2=[float(x) for x in a["seconds"]],
             gloo_2_launches={k[9:]: int(a[k]) for k in a
                              if k.startswith("launches/") and a[k]},
-            gloo_2_vs_plain=agree(a, single[name]))
-        if tiles[name]["gloo_2_vs_plain"]["share"] < 0.999:
+            gloo_2_vs_plain=agree(a, single[name]),
+            gloo_2_vs_tiles_one_device=agree(a, banded[name]))
+        # raster order: the ranks' sample is one device's; morton: it is
+        # the two tiles' sample rendered on one device
+        key = ("gloo_2_vs_plain" if tiles[name]["order"] == "raster"
+               else "gloo_2_vs_tiles_one_device")
+        if tiles[name][key]["share"] < 0.999:
             raise AssertionError(f"tiles: two gloo ranks differ from one "
                                  f"device: {tiles[name]}")
     emit(phase="tiles", spawn_s=spawn_s, **tiles)
@@ -1877,6 +2106,12 @@ def main() -> int:
     # the casts of this slice's other paths, beside the main path's rows
     for (name, cast), figures in extra_casts.items():
         next(row for row in rows if row["name"] == name)[cast] = figures
+    # each traversal's casts in raster, Morton wave and Morton-key order
+    for name, cell in (("bvh2", "teapots_512"), ("wide", "dragon_512_wide"),
+                       ("stream2", "sponza_1080p"),
+                       ("stream", "sponza_1080p_stream1")):
+        next(row for row in rows if row["name"] == name)["wave_order"] = dict(
+            cell=cell, casts=wave[cell]["casts"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,20 @@ __device__ __forceinline__ float safe_inverse(float d) {
   return 1.0f / x;
 }
 
+// The bound past which a box or a stack entry is culled, for a best t bt:
+// bt * (1 + 2^-16), not bt.  A box that holds a hit at exactly bt can round
+// its slab entry an ulp past that hit's Moller-Trumbore t (a hit on an edge
+// shared with the box's face); culled at bt, it would be tested or not
+// depending on whether the hit was found before it was reached, so the
+// (t, slot) rule's tie (or an ulp-closer hit) would depend on the visit
+// order, and under persistent warps on the schedule.  Past the bound every
+// walk culls it alike (ops/intersect.py:cull_bound).
+__device__ __forceinline__ float cull_bound(float bt) {
+  return bt * 1.0000152587890625f;
+}
+
 // Slab test of one AABB given by its corners; returns the entry distance, or
-// +inf when the box is missed or lies beyond bt.
+// +inf when the box is missed or lies beyond cull_bound(bt).
 __device__ __forceinline__ float box_entry(float lox, float loy, float loz,
                                            float hix, float hiy, float hiz,
                                            float ox, float oy, float oz,
@@ -38,7 +50,7 @@ __device__ __forceinline__ float box_entry(float lox, float loy, float loz,
   const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
                            fmaxf(fminf(t0z, t1z), 0.0f));
   const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fminf(fmaxf(t0z, t1z), bt));
+                           fminf(fmaxf(t0z, t1z), cull_bound(bt)));
   return tmin <= tmax ? tmin : INFINITY;
 }
 
@@ -83,14 +95,16 @@ __device__ __forceinline__ bool moller_trumbore(const float* __restrict__ tr,
                          tr[7], tr[8], ox, oy, oz, dx, dy, dz, t, u, v);
 }
 
-// Pops the topmost stack entry whose entry distance is at most bt into ref,
-// dropping the entries above it; returns false when none is left.
+// Pops the topmost stack entry whose entry distance is at most
+// cull_bound(bt) into ref, dropping the entries above it; returns false when
+// none is left.
 __device__ __forceinline__ bool pop_entry(const int* stack_ref,
                                           const float* stack_t, int& sp,
                                           float bt, int& ref) {
+  const float bound = cull_bound(bt);
   while (sp > 0) {
     --sp;
-    if (stack_t[sp] <= bt) {
+    if (stack_t[sp] <= bound) {
       ref = stack_ref[sp];
       return true;
     }
@@ -145,15 +159,16 @@ struct Stack {
     ++sp;
   }
 
-  // The topmost entry whose entry distance is at most bt, dropping the
-  // entries above it; kNone when none is left.
+  // The topmost entry whose entry distance is at most cull_bound(bt),
+  // dropping the entries above it; kNone when none is left.
   __device__ __forceinline__ int pop(float bt) {
+    const float bound = cull_bound(bt);
     while (sp > 0) {
       --sp;
       if (sp < kSharedStack) {
         const int j = sp * kWalkThreads + threadIdx.x;
-        if (walk_stack_t[j] <= bt) return walk_stack_ref[j];
-      } else if (deep_t[sp - kSharedStack] <= bt) {
+        if (walk_stack_t[j] <= bound) return walk_stack_ref[j];
+      } else if (deep_t[sp - kSharedStack] <= bound) {
         return deep_ref[sp - kSharedStack];
       }
     }

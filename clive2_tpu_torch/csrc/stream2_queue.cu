@@ -76,14 +76,15 @@ constexpr int kRf = 20;             // ray feature words per row in SMEM
 // ---- (a) walk ---------------------------------------------------------------
 
 // Pops the topmost entry of a [depth, n] stack whose entry distance is at
-// most bt into ref (common.cuh:pop_entry on a strided stack).
+// most cull_bound(bt) into ref (common.cuh:pop_entry on a strided stack).
 __device__ __forceinline__ bool pop_strided(const int* stack_ref,
                                             const float* stack_t,
                                             long long n, long long i, int& sp,
                                             float bt, int& ref) {
+  const float bound = cull_bound(bt);
   while (sp > 0) {
     --sp;
-    if (stack_t[sp * n + i] <= bt) {
+    if (stack_t[sp * n + i] <= bound) {
       ref = stack_ref[sp * n + i];
       return true;
     }

@@ -10,9 +10,24 @@ visibility rule asks that the hit BE the target).  Stage B unrolls the
 per-strategy MIS chains as masked elementwise ops over the wavefront.  t=1
 splats are one scatter-add per channel; splat pixels outside the image are
 dropped.
+
+The JAX package's A/B knobs of that cast, read from the environment at call
+time:
+  CLIVE2_ANY_HIT=0       closest-hit casts capped just beyond the target
+                         under the corrected estimator too;
+  CLIVE2_CONNECT_SORT    {auto, 0, 1}: the cast's Morton sort
+                         (``intersect_scene``; auto sorts the streaming
+                         tables' casts);
+  CLIVE2_CONNECT_K=K     a compacted [K, N] cast of each pixel's first K
+                         active strategies, the rest in a second, full cast
+                         that runs only when some pixel has more (0: off).
+Each casts the same rays with the same caps, so per ray the results are
+the same.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -21,6 +36,17 @@ from ..constants import DELTA, MAX_BOUNCES
 from ..ops.gather import gather_rows
 from ..ops.intersect import intersect_scene
 from ..ops.sampling import INV_2PI, INV_PI, PI, dot, normalize
+from .trace import sort_knob
+
+
+def any_hit_casts() -> bool:
+    """False under ``CLIVE2_ANY_HIT=0``."""
+    return os.environ.get("CLIVE2_ANY_HIT", "1") != "0"
+
+
+def connect_k() -> int:
+    """``CLIVE2_CONNECT_K`` (0, the default, casts the full batch)."""
+    return int(os.environ.get("CLIVE2_CONNECT_K", "0"))
 
 
 def _vstatic(tree, d: int):
@@ -52,9 +78,51 @@ def _splat_image(pix, vals, width: int, height: int):
     return out
 
 
+def _compacted_cast(origin, direction, active, t_max, scene, k: int,
+                    sort, any_hit):
+    """Stage A's cast of [P, N] rays through a [K, N] cast of each lane's
+    first ``k`` active pairs, the pairs past them through a full cast that
+    runs only when there are any.  Returns (tri [P, N], t [P, N])."""
+    p_cnt, n = active.shape
+    dev = active.device
+    act_i = active.to(torch.int32)
+    rank = torch.cumsum(act_i, 0) - act_i
+    score = torch.where(active, p_cnt - torch.arange(
+        p_cnt, dtype=torch.int32, device=dev)[:, None], 0)
+    # active pairs score distinct values, so ties (which lax.top_k and
+    # torch.topk may break differently) fall only among dead pairs, and
+    # those are dropped
+    vals, idxs = torch.topk(score.T, k, dim=1)            # [N, K]
+    sel = idxs.T                                          # [K, N] pair ids
+    act_k = (vals > 0).T
+    flat = lambda a: a.reshape((k * n,) + a.shape[2:])
+    pick = lambda a: a.gather(0, sel.reshape(sel.shape + (1,) * (
+        a.dim() - 2)).expand((k,) + a.shape[1:]))
+    hi_k, ht_k, _, _ = intersect_scene(
+        flat(pick(origin)), flat(pick(direction)), scene,
+        active=flat(act_k), t_max=flat(pick(t_max)), any_hit=any_hit,
+        sort=sort)
+    pix = torch.arange(n, device=dev).expand(k, n)
+    row = torch.where(act_k, sel, p_cnt)                  # dead -> dropped
+    cast_tri = torch.full((p_cnt + 1, n), -1, dtype=torch.int32, device=dev)
+    cast_t = torch.full((p_cnt + 1, n), float("inf"), device=dev)
+    cast_tri[row, pix] = hi_k.reshape(k, n)
+    cast_t[row, pix] = ht_k.reshape(k, n)
+    cast_tri, cast_t = cast_tri[:p_cnt], cast_t[:p_cnt]
+    rem = active & (rank >= k)
+    if rem.any():
+        hi_r, ht_r, _, _ = intersect_scene(
+            origin.reshape(p_cnt * n, 3), direction.reshape(p_cnt * n, 3),
+            scene, active=rem.reshape(-1), t_max=t_max.reshape(-1),
+            any_hit=any_hit, sort=sort)
+        cast_tri = torch.where(rem, hi_r.reshape(p_cnt, n), cast_tri)
+        cast_t = torch.where(rem, ht_r.reshape(p_cnt, n), cast_t)
+    return cast_tri, cast_t
+
+
 def connect_paths(cam_path, light_path, scene, width: int, height: int,
                   max_bounces: int = MAX_BOUNCES,
-                  debug_per_strategy: bool = False):
+                  debug_per_strategy: bool = False, sort=None):
     """All-strategies BDPT connection for a wavefront of path pairs.
 
     Returns dict:
@@ -70,8 +138,13 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
     be whole frames: lane i is pixel i mod W*H, and the frames' images are
     summed, so that one call can carry many samples.  A diagnostic for the
     convergence oracles, built only when asked for.
+
+    ``sort`` is the cast's Morton-sort policy (``intersect_scene``); None
+    reads ``CLIVE2_CONNECT_SORT``.
     """
     reference = constants.REFERENCE_MIS
+    any_hit = not reference and any_hit_casts()
+    cast_sort = sort_knob("CLIVE2_CONNECT_SORT") if sort is None else sort
     CV, cam_len = cam_path["vertices"], cam_path["length"]
     LV, light_len = light_path["vertices"], light_path["length"]
     mat = scene["mat"]
@@ -121,9 +194,9 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
     den = dot(proj_dir, cam_dir)
     num = dot(cam["center"] - lv_o, cam_dir)
     d_t1 = torch.where(den < -1e-12, num / den, float("inf"))
-    if reference:
-        # the reference's closest-hit visibility (the hit must BE the
-        # target): cap just beyond the target so that it registers
+    if not any_hit:
+        # closest-hit visibility (the hit must BE the target): cap just
+        # beyond the target so that it registers
         t_max = torch.where(is_t1, d_t1, d_gen) * 1.001 + 1e-4
     else:
         # strictly below the target: every recordable hit is a true
@@ -132,14 +205,18 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
     del cv_o, proj_dir, delta_pc, d_gen, den, num, d_t1
 
     p_cnt = len(pairs)
-    hit_i, hit_t, _, _ = intersect_scene(
-        lv_o.reshape(p_cnt * n, 3), direction.reshape(p_cnt * n, 3), scene,
-        active=active.reshape(-1), t_max=t_max.reshape(-1),
-        any_hit=not reference,
-    )
+    k = connect_k()
+    if 0 < k < p_cnt:
+        cast_tri, cast_t = _compacted_cast(lv_o, direction, active, t_max,
+                                           scene, k, cast_sort, any_hit)
+    else:
+        hit_i, hit_t, _, _ = intersect_scene(
+            lv_o.reshape(p_cnt * n, 3), direction.reshape(p_cnt * n, 3),
+            scene, active=active.reshape(-1), t_max=t_max.reshape(-1),
+            any_hit=any_hit, sort=cast_sort)
+        cast_tri = hit_i.reshape(p_cnt, n)
+        cast_t = hit_t.reshape(p_cnt, n)
     del lv_o, direction, t_max
-    cast_tri = hit_i.reshape(p_cnt, n)
-    cast_t = hit_t.reshape(p_cnt, n)
     cast_active = active
     pair_index = {ts: i for i, ts in enumerate(pairs)}
 

@@ -16,9 +16,15 @@ BDPT bookkeeping (as in the JAX package):
 
 Random numbers come from threefry keys folded per (purpose, depth), bit for
 bit with the JAX package (``clive2_tpu_torch.rng``).
+
+``CLIVE2_TRACE_SORT`` in {auto, 0, 1} sets the Morton sort of the extension
+casts (auto: ``intersect_scene``'s default, which sorts the streaming
+tables' casts); it is read at call time.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -26,7 +32,7 @@ from .. import constants, rng
 from ..constants import DELTA, MAX_BOUNCES
 from ..ops import bsdf
 from ..ops.gather import gather_rows
-from ..ops.intersect import intersect_scene
+from ..ops.intersect import cell_index, intersect_scene
 from ..ops.sampling import (
     INV_2PI,
     dot,
@@ -36,6 +42,42 @@ from ..ops.sampling import (
     random_hemisphere_uniform,
     sample_triangle_uniform,
 )
+
+
+def sort_knob(name):
+    """A sort policy from the environment, read at call time: unset or
+    "auto" -> None (``intersect_scene``'s default), "0" -> False, anything
+    else -> True."""
+    v = os.environ.get(name, "auto")
+    return None if v in ("auto", "") else v != "0"
+
+
+def _cells3(p, plo, phi, bits: int):
+    """3D Morton code of ``p`` [N, 3] on a 2^bits grid over [plo, phi]
+    (x major)."""
+    q = cell_index((p - plo) / torch.clamp(phi - plo, min=1e-30)
+                   * (1 << bits), 1 << bits)
+    out = torch.zeros(p.shape[:-1], dtype=torch.int64, device=p.device)
+    for b in range(bits):             # interleave x, y, z bit by bit
+        for ax in range(3):
+            out |= ((q[..., ax] >> b) & 1) << (3 * b + (2 - ax))
+    return out
+
+
+def light_gen_key(origin, direction, lo=None, hi=None):
+    """Generation-time sort key of a light wavefront (port of the JAX
+    package's, bit for bit): a coarse position Morton code (3 bits per
+    axis, over the wavefront's own bounds ``lo``/``hi``: by default its
+    origins' min and max) major, a direction Morton code (7 bits per axis)
+    minor; 30 bits.  Light origins lie on the emitters, where the
+    traversal's entry-point key collapses into one cell, so direction
+    decides within an emitter and the position bits keep emitters apart.
+    [N] int64."""
+    lo = origin.amin(0) if lo is None else lo
+    hi = origin.amax(0) if hi is None else hi
+    pos = _cells3(origin, lo, hi, 3)
+    unit = direction.new_tensor(1.0)
+    return (pos << 21) | _cells3(direction, -unit, unit, 7)
 
 
 def generate_camera_rays(key, cam, width: int, height: int, row0: int = 0,
@@ -153,13 +195,14 @@ def _select_bounce(mat_type, f_lottery, fres, diffuse, reflect, transmit):
 
 
 def trace_subpaths(key, rays, scene, from_camera,
-                   max_bounces: int = MAX_BOUNCES, lanes=None):
+                   max_bounces: int = MAX_BOUNCES, lanes=None, sort=None):
     """Trace a wavefront of subpaths to ``max_bounces`` stored vertices.
 
     ``from_camera`` is a bool or a per-ray [N] bool tensor, so camera and
     light wavefronts trace as one merged wavefront.  Ray i draws row i of
     each depth's random numbers, or row ``lanes[i]`` when ``lanes`` ([N]
-    int) is given.  Returns
+    int) is given.  ``sort`` is the extension casts' Morton-sort policy
+    (``intersect_scene``); None reads ``CLIVE2_TRACE_SORT``.  Returns
       vertices: dict of [D, N, ...] tensors (fields as in generate_*)
       valid:    [D, N] bool, vertex d stored
       length:   [N] i32
@@ -167,6 +210,7 @@ def trace_subpaths(key, rays, scene, from_camera,
                 breaking cast, capped at max_bounces)
     """
     reference = constants.REFERENCE_MIS
+    cast_sort = sort_knob("CLIVE2_TRACE_SORT") if sort is None else sort
     tri = scene["tri"]
     mat = scene["mat"]
     dev = rays["origin"].device
@@ -180,7 +224,8 @@ def trace_subpaths(key, rays, scene, from_camera,
     verts, stores = [], []
     for depth in range(max_bounces):
         hit_i, hit_t, hit_u, hit_v = intersect_scene(
-            cur["origin"], cur["direction"], scene, active=active)
+            cur["origin"], cur["direction"], scene, active=active,
+            sort=cast_sort)
         hit_ok = hit_i >= 0
         safe_i = torch.clamp(hit_i, min=0)
 

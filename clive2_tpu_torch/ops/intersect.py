@@ -6,7 +6,9 @@ Contract of every intersector here and of the CUDA kernels behind
 ``active`` [N] bool mask (inactive rays miss) and an optional per-ray
 ``t_max`` [N] cap (hits at or beyond it are ignored).  Returns
 (tri_id [N] i32, t, u, v): misses report tri_id -1 and t = inf, and hits
-closer than DELTA are rejected as self-hits.
+closer than DELTA are rejected as self-hits.  ``intersect_scene`` may
+Morton-sort a cast's rays by ``morton_key`` before the traversal and put
+the results back in the caller's order.
 
 The Möller-Trumbore arithmetic is written out per component in one fixed
 order (``_mt``) and shared by every plain version, and the kernels in
@@ -30,6 +32,19 @@ INF = float("inf")
 WORK = collections.Counter()
 
 
+# A box or a stack entry is culled past cull_bound(best t), not past the
+# best t itself: a box that holds a hit at exactly the best t can round its
+# slab entry an ulp past that hit's Möller-Trumbore t, and culled at the best
+# t it would be tested or not depending on the visit order, so the (t, slot)
+# tie rule (or an ulp-closer hit) would too (csrc/common.cuh:cull_bound).
+CULL_SLACK = 1.0 + 2.0 ** -16
+
+
+def cull_bound(bt):
+    """The culling bound of best t ``bt``, as the kernels round it."""
+    return bt * CULL_SLACK
+
+
 def safe_inverse(d):
     """1/direction with zero components nudged to keep the slab test
     NaN-free."""
@@ -46,28 +61,30 @@ def ray_box_test(origin, inv_dir, bmin, bmax, t_max):
     tmin = torch.minimum(t0, t1)
     tmax = torch.maximum(t0, t1)
     tmin_f = torch.clamp(tmin.amax(-1), min=0.0)
-    tmax_f = torch.minimum(tmax.amin(-1), t_max)
+    tmax_f = torch.minimum(tmax.amin(-1), cull_bound(t_max))
     return tmin_f <= tmax_f
 
 
 def box_entry(o, inv, box, bt):
     """Slab test of [..., 6] boxes (min(3) max(3)) for rays o/inv [..., 3]
-    capped at bt [...]: the entry distance, or inf when missed or beyond bt
-    (csrc/common.cuh:box_entry)."""
+    capped at bt [...]: the entry distance, or inf when missed or beyond
+    ``cull_bound(bt)`` (csrc/common.cuh:box_entry)."""
     t0 = (box[..., 0:3] - o) * inv
     t1 = (box[..., 3:6] - o) * inv
     tmin = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)
-    tmax = torch.minimum(torch.maximum(t0, t1).amin(-1), bt)
+    tmax = torch.minimum(torch.maximum(t0, t1).amin(-1), cull_bound(bt))
     return torch.where(tmin <= tmax, tmin, INF)
 
 
 def pop_stack(rays, ref, sp, stack_ref, stack_t, bt):
     """One lockstep pop for ``rays`` of the plain walks: the topmost stack
-    entry whose entry distance is at most the ray's best t becomes its next
-    ``ref``, and the entries above it are dropped, as the kernels' pop loop
-    does.  Returns the bool mask of the rays that found one."""
+    entry whose entry distance is at most the culling bound of the ray's
+    best t becomes its next ``ref``, and the entries above it are dropped,
+    as the kernels' pop loop does.  Returns the bool mask of the rays that
+    found one."""
     levels = torch.arange(stack_t.shape[1], device=rays.device)
-    ok = (levels < sp[rays, None]) & (stack_t[rays] <= bt[rays, None])
+    ok = (levels < sp[rays, None]) & (stack_t[rays]
+                                      <= cull_bound(bt[rays, None]))
     j = (ok * (levels + 1)).amax(1) - 1
     found = j >= 0
     ref[rays[found]] = stack_ref[rays[found], j[found]].to(ref.dtype)
@@ -249,8 +266,73 @@ def merge_camtri(origin, direction, camtri, hit, active):
     )
 
 
+def cell_index(x, cells: int):
+    """Integer cells of ``x``, as the JAX package quantises:
+    ``clip(x.astype(uint32), 0, cells - 1)``, where XLA's conversion sends
+    NaN and negative values to 0 and saturates past the top.  int64, since
+    torch's uint32 has few operations."""
+    return torch.where(torch.isnan(x), 0.0, x).clamp(0, cells - 1).to(
+        torch.int64)
+
+
+def _spread10(x):
+    """The 10 low bits of ``x`` spread to every third bit."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_key(origin, direction, lo, hi, active=None):
+    """Packet-coherence sort key of each ray (port of
+    traverse_pallas2._morton_key, bit for bit): the 30-bit 3D Morton code
+    of the ray's entry point into the scene box ``lo``/``hi`` (the origin
+    itself when it lies inside), major, then the x and y direction octant
+    bits, minor.  Camera rays share an origin but their entry points tile
+    the box; bounce rays start on surfaces, where entry == origin.
+    Inactive rays key 0xFFFFFFFF and sort last.  [N] int64 holding the
+    JAX package's uint32 values."""
+    octant = ((direction[:, 0] > 0).to(torch.int64) * 4
+              + (direction[:, 1] > 0).to(torch.int64) * 2
+              + (direction[:, 2] > 0).to(torch.int64))
+    inv = safe_inverse(direction)
+    t0 = (lo - origin) * inv
+    t1 = (hi - origin) * inv
+    t_enter = torch.clamp(torch.minimum(t0, t1).amax(-1), min=0.0)
+    entry = origin + direction * torch.nan_to_num(
+        t_enter, nan=0.0, posinf=0.0, neginf=0.0)[:, None]
+    q = cell_index((entry - lo) / torch.clamp(hi - lo, min=1e-6) * 1024,
+                   1024)
+    m = ((_spread10(q[:, 0]) << 2) | (_spread10(q[:, 1]) << 1)
+         | _spread10(q[:, 2]))
+    key = (m << 2) | (octant >> 1)
+    if active is not None:
+        key = torch.where(active, key, 0xFFFFFFFF)
+    return key
+
+
+def ray_order(key):
+    """The stable argsort of ``key`` (``jnp.argsort`` is stable)."""
+    return torch.sort(key, stable=True).indices
+
+
+def unsort(order, values):
+    """Each tensor of ``values`` (in the order ``order`` gave) scattered back
+    to the caller's order."""
+    return tuple(torch.empty_like(v).index_copy_(0, order, v)
+                 for v in values)
+
+
+def traversal_of(scene):
+    """The name of the traversal table ``intersect_scene`` takes for a BVH
+    scene (``wide``, ``bvh2``, ``stream2`` or ``stream``), or None for the
+    gather walk of a scene without one."""
+    return next((k for k in ("wide", "bvh2", "stream2", "stream")
+                 if k in scene), None)
+
+
 def intersect_scene(origin, direction, scene, active=None, t_max=None,
-                    any_hit=False):
+                    any_hit=False, sort=False):
     """The dispatch behind every cast, keyed by the scene's tables.
 
     In the JAX package's order: a ``brute`` table (scenes of at most 256
@@ -263,22 +345,41 @@ def intersect_scene(origin, direction, scene, active=None, t_max=None,
     kernel on CUDA tensors and its plain version on CPU tensors.
     ``any_hit`` lets the traversals stop at the first hit under ``t_max``
     (visibility casts whose cap excludes the target); the exhaustive paths
-    return the closest hit, which is a valid answer too.  Rays stay in the
-    caller's (raster) order: no kernel's answer depends on it.
+    return the closest hit, which is a valid answer too.
+
+    ``sort`` hands the traversal its rays in ``morton_key`` order, keyed on
+    the root box its table keeps (``lo``/``hi``), and scatters the hits
+    back to the caller's order; no traversal's answer depends on the
+    order, only its coherence.  ``None`` sorts exactly the streaming
+    tables' casts (``stream``, ``stream2``), as the JAX package's default
+    does.  The brute test and a scene without a traversal table (the
+    gather walk) ignore it.
     """
     if "brute" in scene:
         from .brute import intersect_brute
 
         return intersect_brute(origin, direction, scene["brute"]["tris"],
                                active=active, t_max=t_max)
-    if "wide" in scene:
+    name = traversal_of(scene)
+    if name == "wide":
         from .traverse_wide import intersect_wide as traverse
-    elif "bvh2" in scene or not ("stream2" in scene or "stream" in scene):
+    elif name in ("bvh2", None):
         from .traverse_bvh2 import intersect_bvh2 as traverse
-    elif "stream2" in scene:
+    elif name == "stream2":
         from .traverse_stream2 import intersect_stream2 as traverse
     else:
         from .traverse_stream import intersect_stream as traverse
-    hit = traverse(origin, direction, scene, active=active, t_max=t_max,
-                   any_hit=any_hit)
+    if sort is None:
+        sort = name in ("stream", "stream2")
+    if sort and name is not None:
+        table = scene[name]
+        order = ray_order(morton_key(origin, direction, table["lo"],
+                                     table["hi"], active))
+        pick = lambda x: None if x is None else x[order]
+        hit = unsort(order, traverse(
+            origin[order], direction[order], scene, active=pick(active),
+            t_max=pick(t_max), any_hit=any_hit))
+    else:
+        hit = traverse(origin, direction, scene, active=active, t_max=t_max,
+                       any_hit=any_hit)
     return merge_camtri(origin, direction, scene["camtri"], hit, active)

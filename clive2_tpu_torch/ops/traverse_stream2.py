@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from ..constants import DELTA
-from .intersect import INF, WORK, _mt, box_entry, safe_inverse
+from .intersect import INF, WORK, _mt, box_entry, cull_bound, safe_inverse
 # the cut, the top tree and its walk are the stream1 kernel's
 # (ops/traverse_stream.py), as in the JAX package, where stream2 imports
 # ``_cut_mask`` from traverse_stream
@@ -364,7 +364,7 @@ def _pop(st, rays):
     (intersect.pop_stack's rule); a ray that finds no entry retires."""
     levels = torch.arange(st.stack_t.shape[0], device=rays.device)
     ok = ((levels < st.sp[rays, None])
-          & (st.stack_t[:, rays].T <= st.bt[rays, None]))
+          & (st.stack_t[:, rays].T <= cull_bound(st.bt[rays, None])))
     j = (ok * (levels + 1)).amax(1) - 1
     found = j >= 0
     st.ref[rays[found]] = st.stack_ref[j[found], rays[found]]

@@ -47,6 +47,13 @@ class TileMesh:
                 t.copy_(part.view_as(t))
         return tensors
 
+    def bounds(self, lo, hi):
+        """(min of ``lo``, max of ``hi``) elementwise over the ranks, in one
+        collective: the bounds of a wavefront split over them."""
+        both = torch.cat([-lo.reshape(-1), hi.reshape(-1)])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.group)
+        return -both[:lo.numel()].view_as(lo), both[lo.numel():].view_as(hi)
+
     def broadcast(self, tensors):
         """Overwrite each tensor with rank 0's.  Returns ``tensors``."""
         for t in tensors:

@@ -182,13 +182,18 @@ def traversal_tables(bvh_rows, n_world: int, cuda: bool,
     """The traversal tables of a BVH scene with ``n_world`` triangles in
     its tree, packed from the gather walk's rows ``bvh_rows``: those of
     ``traversal`` (``wide``, ``bvh2``, ``stream`` or ``stream2``) when it
-    is given, else of ``selected_traversal``."""
+    is given, else of ``selected_traversal``.  Beside them the table keeps
+    the root box, ``lo``/``hi`` (the JAX packers' ``node_mins[0]`` /
+    ``node_maxes[0]``), which keys its casts' Morton sort."""
     traversal = traversal or selected_traversal(n_world, cuda)
     if traversal is None:
         return {}
     rows = (np.asarray(bvh_rows["node_packed"]),
             np.asarray(bvh_rows["leaf_packed"]))
-    return {traversal: PACKERS[traversal](*rows)}
+    tables = PACKERS[traversal](*rows)
+    tables.update(lo=rows[0][0, 0:3].astype(np.float32),
+                  hi=rows[0][0, 3:6].astype(np.float32))
+    return {traversal: tables}
 
 
 def _build_scene_arrays(soup: TriangleSoup, materials: MaterialTable,

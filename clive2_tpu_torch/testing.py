@@ -143,6 +143,36 @@ def spawn_ranks(fn, size: int, workdir: str, args=(), timeout=300.0):
             p.join()
 
 
+# A ray whose tie the traversals once broke by their visit order: in the
+# teapots scene (the ``teapots`` preset with the port's
+# ``models.utah_teapot(n=10)`` as teapot.obj, as chip_smoke.py writes it) it
+# hits triangles 1439 and 1549 at one t, on their shared edge, and the slab
+# entry of 1549's leaf box (the lower slot) rounds an ulp past that t
+# (ops/intersect.py:cull_bound).  Origin, direction and cap as f32 bits.
+ULP_TIE_RAY = dict(o=[-1056270224, 1084563974, -1054867456],
+                   d=[1059311587, -1101212673, 1060950647], t_max=1103344237,
+                   tied=(1439, 1549), want=1549)
+
+
+def teapots_scene(workdir, width, height, device):
+    """The ``teapots`` preset with its teapot.obj written into ``workdir``
+    by the port's generator."""
+    from . import create_scene
+    from .load import write_obj
+    from .models import utah_teapot
+    from .scene import scene_presets
+
+    path = os.path.join(str(workdir), "teapot.obj")
+    write_obj(path, *utah_teapot(n=10))
+    preset = scene_presets["teapots"]
+    return create_scene(
+        pixel_width=width, pixel_height=height,
+        cam_center=preset["cam_center"],
+        cam_direction=preset["cam_direction"], device=device,
+        file_specs=[dict(spec, file_path=path)
+                    for spec in preset["file_specs"]])
+
+
 def swap_pair_ids(leaf_packed, t, rng):
     """Swap the ids of a random half of the pairs in the gather walk's leaf
     rows of a soup whose triangle i + t is a copy of triangle i (i < t), so

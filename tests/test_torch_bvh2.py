@@ -27,6 +27,7 @@ from clive2_tpu.bvh.build import leaf_tables as jax_leaf_tables
 from clive2_tpu.ops import intersect as jax_isect
 from clive2_tpu.ops import traverse_pallas2 as jax_tp2
 from clive2_tpu_torch.ops import intersect, traverse_bvh2 as tb
+from clive2_tpu_torch.testing import ULP_TIE_RAY, teapots_scene
 from test_torch_intersect import (_assert_hits, _bvh2_verts, _bvh_tables,
                                   _caps, _rays, _t, decode_bvh2)
 from test_torch_stream2 import _jax_tree
@@ -180,6 +181,11 @@ def test_gather_walk_takes_the_lower_slot_on_ties():
     _assert_hits(got, want, "gather walk on ties")
 
 
+def _cull(bt):
+    """csrc/common.cuh:cull_bound in f32 numpy scalars."""
+    return np.float32(bt) * np.float32(intersect.CULL_SLACK)
+
+
 def _box_entry(lo, hi, o, inv, bt):
     """csrc/common.cuh:box_entry in f32 numpy scalars."""
     t0 = (lo - o) * inv
@@ -187,7 +193,7 @@ def _box_entry(lo, hi, o, inv, bt):
     tmin = max(max(min(t0[0], t1[0]), min(t0[1], t1[1])),
                max(min(t0[2], t1[2]), np.float32(0)))
     tmax = min(min(max(t0[0], t1[0]), max(t0[1], t1[1])),
-               min(max(t0[2], t1[2]), bt))
+               min(max(t0[2], t1[2]), _cull(bt)))
     return tmin if tmin <= tmax else np.float32(np.inf)
 
 
@@ -229,7 +235,7 @@ def _table_walk(p, o, d, t_max, any_hit, near_first):
                 break
         while stack:
             ref, t_entry = stack.pop()
-            if t_entry <= bt:
+            if t_entry <= _cull(bt):
                 break
         else:
             break
@@ -275,6 +281,56 @@ def test_table_walk_takes_the_lower_slot_on_ties():
     for near_first in (True, False):
         got = _walk_all(p, o[:n], d[:n], inf, near_first=near_first)
         _assert_hits(got, want, f"ties near_first={near_first}")
+
+
+def test_a_tie_an_ulp_past_its_box_is_still_tested(tmp_path):
+    """Triangles 1439 and 1549 of the teapots scene share an edge that the
+    ray hits: the same t from both.  1549's leaf has the lower slot, but
+    its box's slab entry rounds an ulp past that t, so a walk that tests
+    1439's leaf first (the nearer box) culled 1549's at the best t, and the
+    persistent-warp kernel answered 1439 or 1549 by its schedule (found on
+    the card in a Morton-order sample's reference-estimator connection
+    cast).  Culled past ``cull_bound``, the kernel's walk takes the lower
+    slot in either child order, as the gather walk does."""
+    scene = teapots_scene(tmp_path, 512, 512, "cpu")
+    rows = {k: v.numpy() for k, v in scene.data["bvh"].items()}
+    bits = lambda x: np.asarray(x, np.int32).view(np.float32)
+    o, d = bits(ULP_TIE_RAY["o"])[None], bits(ULP_TIE_RAY["d"])[None]
+    t_max = bits([ULP_TIE_RAY["t_max"]])
+    want = intersect.intersect_bvh_packed(_t(o), _t(d), scene.data["bvh"],
+                                          t_max=_t(t_max))
+    assert int(want[0]) == ULP_TIE_RAY["want"]
+    # both triangles hit at the same t, and the winner's leaf box enters
+    # past it
+    leaf = rows["leaf_packed"].reshape(len(rows["leaf_packed"]), -1, 10)
+    inv = intersect.safe_inverse(_t(d))
+    for tri in ULP_TIE_RAY["tied"]:
+        ell, k = (int(x[0]) for x in np.nonzero(leaf[:, :, 9] == tri))
+        hit, t, _, _ = intersect.moller_trumbore(
+            _t(o), _t(d), *(_t(leaf[ell, k, c:c + 3])[None]
+                            for c in (0, 3, 6)))
+        assert bool(hit[0]) and float(t[0]) == float(want[1][0])
+        if tri == ULP_TIE_RAY["want"]:
+            node = rows["node_packed"][rows["node_packed"][:, 7] == ell][0]
+            entry = intersect.box_entry(_t(o), inv, _t(node[0:6])[None],
+                                        torch.tensor([np.inf]))
+            assert float(t[0]) < float(entry[0]) <= float(
+                intersect.cull_bound(t[0]))
+    p = _pack(rows)
+    for near_first in (True, False):
+        got = _walk_all(p, o, d, t_max, near_first=near_first)
+        _assert_hits(got, want, f"ulp tie near_first={near_first}")
+    # the other traversals that run Möller-Trumbore, each on its own tables
+    # (the fat-leaf walk's own arithmetic breaks this tie by t)
+    from clive2_tpu_torch import scene as port_scene
+    from clive2_tpu_torch.ops import traverse_stream, traverse_wide
+
+    for name, plain in (("wide", traverse_wide.wide_plain),
+                        ("stream", traverse_stream.stream_plain)):
+        tables = port_scene.to_device(port_scene.traversal_tables(
+            rows, 0, cuda=False, traversal=name), "cpu")[name]
+        got = plain(_t(o), _t(d), tables, t_max=_t(t_max))
+        assert int(got[0][0]) == ULP_TIE_RAY["want"], name
 
 
 # ---- the wrapper -------------------------------------------------------------

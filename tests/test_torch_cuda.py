@@ -64,6 +64,50 @@ def _soup(seed, t):
         (c + rng.uniform(-0.4, 0.4, (t, 3, 3))).astype(np.float32))
 
 
+@pytest.mark.parametrize("table", ["bvh2", "wide", "stream", "stream2"])
+def test_a_tie_an_ulp_past_its_box_goes_to_the_lower_slot(dev, tmp_path,
+                                                          table):
+    """testing.ULP_TIE_RAY: a tie on a shared edge whose lower-slot leaf box
+    enters an ulp past the hit.  Each traversal kernel answers as its plain
+    version does, whether the ray fills a warp alone or is cast among
+    random rays: the lower slot, but for the fat-leaf walk, whose own
+    arithmetic breaks the tie by t."""
+    from clive2_tpu_torch import scene as scene_mod
+    from clive2_tpu_torch.testing import ULP_TIE_RAY, teapots_scene
+
+    scene = teapots_scene(tmp_path, 512, 512, dev)
+    rows = {k: v.cpu().numpy() for k, v in scene.data["bvh"].items()}
+    data = dict(scene.data, **scene_mod.to_device(scene_mod.traversal_tables(
+        rows, 0, cuda=True, traversal=table), dev))
+    bits = lambda x: torch.tensor(x, dtype=torch.int32).view(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    o, d, _, _ = _rays(gen, 1 << 16, dev)
+    o[::97] = bits(ULP_TIE_RAY["o"]).to(dev)
+    d[::97] = bits(ULP_TIE_RAY["d"]).to(dev)
+    t_max = torch.full((1 << 16,), float("inf"), device=dev)
+    t_max[::97] = bits([ULP_TIE_RAY["t_max"]]).to(dev)
+    wrapper, plain = {
+        "bvh2": (traverse_bvh2.intersect_bvh2,
+                 lambda *a, **k: intersect.intersect_bvh_packed(
+                     *a[:2], scene.data["bvh"], **k)),
+        "wide": (traverse_wide.intersect_wide,
+                 lambda *a, **k: traverse_wide.wide_plain(
+                     *a[:2], data["wide"], **k)),
+        "stream": (traverse_stream.intersect_stream,
+                   lambda *a, **k: traverse_stream.stream_plain(
+                       *a[:2], data["stream"], **k)),
+        "stream2": (traverse_stream2.intersect_stream2,
+                    lambda *a, **k: traverse_stream2.stream2_plain(
+                        *a[:2], data["stream2"], **k))}[table]
+    want = plain(o, d, t_max=t_max)
+    if table != "stream2":
+        assert (want[0][::97] == ULP_TIE_RAY["want"]).all()
+    alone = wrapper(o[:32].clone().copy_(o[0]), d[:32].clone().copy_(d[0]),
+                    data, t_max=t_max[:32].clone().fill_(t_max[0]))
+    assert (alone[0] == want[0][0]).all()
+    _assert_same(wrapper(o, d, data, t_max=t_max), want)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_brute_kernel_matches_plain(dev, masked):
     gen = torch.Generator(device=dev).manual_seed(1)

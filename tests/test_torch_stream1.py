@@ -31,7 +31,7 @@ from clive2_tpu_torch.ops import intersect
 from clive2_tpu_torch.ops import traverse_stream as ts
 from clive2_tpu_torch.ops import traverse_stream2 as s2
 from test_pallas_kernels import _assert_hits_equal
-from test_torch_bvh2 import _box_entry, _constant
+from test_torch_bvh2 import _box_entry, _constant, _cull
 from test_torch_intersect import _assert_hits, _soup, _t, decode_nodes
 from test_torch_stream2 import _jax_tree
 from test_torch_wide import _aimed_rays, tie_case
@@ -290,7 +290,7 @@ def _record_walk(p, o, d, t_max, any_hit, eager):
     def pop():
         while stack:
             r, t_entry = stack.pop()
-            if t_entry <= bt:
+            if t_entry <= _cull(bt):
                 return r
         return None
 

@@ -47,7 +47,10 @@ def sample():
     tr = ct.Renderer(ts, seed=SEED)
     calls = traverse_stream2.stream2_plain.calls
     walks = intersect.intersect_bvh_packed.calls
-    with NearTies() as ties:
+    # the JAX package's CPU scene has no traversal table and renders in
+    # raster order; with one, the port's default order would be morton
+    with NearTies() as ties, pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CLIVE2_WAVE_ORDER", "raster")
         jr.run_sample()
         tr.run_sample()
     return dict(

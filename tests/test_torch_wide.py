@@ -324,9 +324,11 @@ class _Lane:
         return _box_entry(box[0:3], box[3:6], self.o, self.inv, self.bt)
 
     def pop(self):
+        from test_torch_bvh2 import _cull
+
         while self.stack:
             ref, t_entry = self.stack.pop()
-            if t_entry <= self.bt:
+            if t_entry <= _cull(self.bt):
                 return ref
         return None
 

@@ -14,15 +14,18 @@ as a near tie where any cast of that slot disagrees.  A near-tie slot
 touches its pixel's 3x3 filter footprint and the pixels its light subpath
 splats onto; every other pixel must match at the golden tests' tolerance.
 The unidirectional image takes no connection, and matches on every pixel.
-A slot's pixel is its lane for a full frame; for an image stripe or a pixel
-subset it is what the port's ``render_sample*`` generated camera rays for
-(``row0 * W + lane``, ``pixel_sel[lane]``), recorded per call.
+A slot's pixel is its lane for a full frame; for an image stripe, a pixel
+subset or a wavefront in Morton order it is the pixel the port's
+``trace_and_connect`` gave that lane (``row0 * W + lane``,
+``pixel_sel[lane]``, ``pixel_idx[lane]``), recorded per call.  Under the
+Morton order the light half of a trace is in ``light_gen_key`` order, and
+its lane j belongs to the slot of the light ray generated at ``lorder[j]``,
+also recorded per call.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import jax
 import numpy as np
@@ -69,7 +72,10 @@ class NearTies:
     def __init__(self):
         self.jax_casts, self.torch_casts = [], []
         self.jax_splats, self.torch_splats = [], []
-        self.torch_pixels = []        # per render_sample* call: lane -> pixel
+        # per trace_and_connect call: lane -> pixel, and the light order
+        # (None in raster order)
+        self.torch_pixels, self.torch_light_orders = [], []
+        self._lorder = None
 
     def _jax_wrap(self, fn, out):
         def wrapped(*a, **k):
@@ -86,6 +92,20 @@ class NearTies:
             return res
         return wrapped
 
+    def _pairing(self, fn):
+        def wrapped(lorder, *a, **k):
+            self._lorder = lorder.cpu().numpy()
+            return fn(lorder, *a, **k)
+        return wrapped
+
+    def _pixels(self, fn):
+        def wrapped(sensor_pos, pixel_idx, *a, **k):
+            self.torch_pixels.append(pixel_idx.cpu().numpy())
+            self.torch_light_orders.append(self._lorder)
+            self._lorder = None
+            return fn(sensor_pos, pixel_idx, *a, **k)
+        return wrapped
+
     def __enter__(self):
         self._stack = contextlib.ExitStack()
         patches = [
@@ -98,8 +118,10 @@ class NearTies:
              self.torch_casts),
             (torch_connect, "_strategy_t1", self._torch_wrap,
              self.torch_splats),
-            (torch_render, "generate_camera_rays",
-             functools.partial(self._torch_wrap, item=1), self.torch_pixels),
+            (torch_render, "pair_lights", lambda fn, _: self._pairing(fn),
+             None),
+            (torch_render, "filter_weights", lambda fn, _: self._pixels(fn),
+             None),
         ]
         for mod, name, wrap, out in patches:
             orig = getattr(mod, name)
@@ -128,12 +150,35 @@ class NearTies:
                 for s0 in self._sample_starts(samples, per)]
 
     def _lanes(self, sample, n):
-        """Lane -> flat pixel of recorded sample ``sample``: as recorded
-        from the port's camera rays, or the identity over ``n`` pixels when
-        the samples were traced without ``render_sample*``."""
+        """(lane -> flat pixel, light order or None) of recorded sample
+        ``sample``: as recorded from the port's calls, or the identity over
+        ``n`` pixels when the samples were traced without
+        ``trace_and_connect``."""
         if not self.torch_pixels:
-            return np.arange(n)
-        return self.torch_pixels[sample].astype(np.int64)
+            return np.arange(n), None
+        return (self.torch_pixels[sample].astype(np.int64),
+                self.torch_light_orders[sample])
+
+    def slots(self, sample, n=None, max_bounces: int = 6):
+        """[M] bool: the camera lanes of recorded sample ``sample`` any of
+        whose casts (its camera ray's, its paired light ray's, its
+        connections') differ between the renderers."""
+        per = max_bounces + 1
+        s0 = self._sample_starts([sample], per)[0]
+        lanes, lorder = self._lanes(sample, n)
+        m = lanes.size
+        slot = np.zeros(m, bool)
+        for a, b in zip(self.jax_casts[s0:s0 + per],
+                        self.torch_casts[s0:s0 + per]):
+            diff = a != b
+            if diff.size == 2 * m:        # merged camera+light trace
+                light = diff[m:]
+                if lorder is not None:    # traced lane j holds lorder[j]
+                    light = light[np.argsort(lorder)]
+                slot |= diff[:m] | light
+            else:                         # [P, M] connection cast
+                slot |= diff.reshape(-1, m).any(0)
+        return slot
 
     def pixels(self, width: int, height: int, samples=None,
                max_bounces: int = 6):
@@ -143,23 +188,16 @@ class NearTies:
         casts_per_sample = max_bounces + 1
         near = np.zeros((height, width), bool)
         for s0 in self._sample_starts(samples, casts_per_sample):
-            lanes = self._lanes(s0 // casts_per_sample, n)
-            m = lanes.size
-            slot = np.zeros(m, bool)
-            for a, b in zip(self.jax_casts[s0:s0 + casts_per_sample],
-                            self.torch_casts[s0:s0 + casts_per_sample]):
-                diff = a != b
-                if diff.size == 2 * m:        # merged camera+light trace
-                    slot |= diff[:m] | diff[m:]
-                else:                         # [P, M] connection cast
-                    slot |= diff.reshape(-1, m).any(0)
+            sample = s0 // casts_per_sample
+            lanes, _ = self._lanes(sample, n)
+            slot = self.slots(sample, n, max_bounces)
             seed = np.zeros(n, bool)
             seed[lanes[slot]] = True
             img = np.pad(seed.reshape(height, width), 1)
             for dy in range(3):
                 for dx in range(3):
                     near |= img[dy:dy + height, dx:dx + width]
-            k = s0 // casts_per_sample * max_bounces
+            k = sample * max_bounces
             for splats in (self.jax_splats, self.torch_splats):
                 for pix in splats[k:k + max_bounces]:
                     pix = pix[slot]
