@@ -50,8 +50,19 @@ sort's steps timed apart, the card's busy share over one sample
 (``utils.profiling.trace_to``), a ``CLIVE2_CONNECT_K=4`` sample against the
 full cast and a 64x64 teapots morton render on the card against the CPU's.
 The mesh cells' default order is auto, so under ``slice`` the BVH scenes
-render in Morton order.  Then it compares a small render on the card with
-the same render on the CPU.  The
+render in Morton order.  Then the port's counterparts of the JAX
+package's tools in scripts/ that ran TPU kernels, each through its own
+entry point with its launch counts (``packet_stats``: kernel_stats on
+teapots 512 and dragon 512, three ray populations at packets of 1,024 and
+32 rays, the packet walk kernel's counts, t and ids against its plain
+version on every packet and ray; ``packet_ablation``:
+kernel_microbench's five variants on teapots 512's connection casts beside
+the BVH2 kernel on the same cast, and that kernel's mean over 5
+back-to-back calls beside the host's time to issue them and the
+allocator's cudaMalloc calls among them; ``link_probe``: the probe's phases and
+verdict, its kernel bit for bit against a * 2 + 1; the packet walk also
+on the tie soup in phase 4).  Then it compares a small render on the card
+with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
 phase prints one JSON line; any failure exits non-zero without the final
@@ -803,12 +814,12 @@ def main() -> int:
     import clive2_tpu_torch as ct
     from clive2_tpu_torch import kernels, rng
     from clive2_tpu_torch.integrator.trace import generate_camera_rays
-    from clive2_tpu_torch.ops import (brute, intersect, traverse_bvh2,
-                                      traverse_stream, traverse_stream2,
-                                      traverse_wide)
+    from clive2_tpu_torch.ops import (brute, intersect, packet_walk,
+                                      traverse_bvh2, traverse_stream,
+                                      traverse_stream2, traverse_wide)
     from clive2_tpu_torch.ops.intersect import WORK
     from clive2_tpu_torch.scene import PACKERS
-    from clive2_tpu_torch.testing import tie_soup
+    from clive2_tpu_torch.testing import leaf_tie_winner, tie_soup
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -965,13 +976,33 @@ def main() -> int:
     err["bvh2"] = max(err["bvh2"], tie_check(
         traverse_bvh2.intersect_bvh2(*tie_rays, ties), "bvh2"))
     checks += 1
+    # the packet walk on the tie soup: inside a leaf the larger id of a tied
+    # pair wins (testing.leaf_tie_winner); the kernel equals its plain
+    # version on the first 2^12 rays
+    packet_ties = {}
+    for packet, group in packet_walk.SIZES:
+        kw = dict(packet=packet, group=group)
+        t, ids = packet_walk.packet_walk(*tie_rays, ties["bvh2"], **kw)
+        want = leaf_tie_winner(rows["leaf_packed"], ids.cpu().numpy())
+        same = want >= 0
+        if not (ids.cpu().numpy()[same] == want[same]).all():
+            raise AssertionError(f"packet walk [{packet}] tie soup: a tie "
+                                 "inside a leaf went to the smaller id")
+        few = tuple(x[:1 << 12] for x in tie_rays)
+        pt, pi = packet_walk.packet_walk_plain(*few, ties["bvh2"], **kw)
+        if not (torch.equal(pt, t[:1 << 12]) and torch.equal(pi,
+                                                              ids[:1 << 12])):
+            raise AssertionError(f"packet walk [{packet}] tie soup: the "
+                                 "kernel differs from its plain version")
+        packet_ties[packet] = int(same.sum())
     if tie_hits < 10_000:
         raise AssertionError(f"tie soup: only {tie_hits} hits")
     torch.cuda.synchronize()
     emit(phase="kernel_bvh2_vs_plain", checks=checks, scene_tris=
          teapots.n_triangles, scene_build_s=build_s,
          tie_soup=dict(tris=10_000, rays=1 << 18, hits=tie_hits,
-                       lower_slot_wins=True),
+                       lower_slot_wins=True,
+                       packet_walk_same_leaf_ties=packet_ties),
          bvh2_table_bytes=table_bytes(teapots.data["bvh2"]),
          max_abs_err_t=err["bvh2"], ids_equal=True, any_hit_verdicts_equal=True)
     del rows, o, aim, want, want_any, got
@@ -1998,6 +2029,147 @@ def main() -> int:
     emit(phase="cli", **clis)
     shutil.rmtree(work, ignore_errors=True)
 
+    # ---- 7f. the tools of scripts/ that ran TPU kernels -------------------
+    # kernel_stats and kernel_microbench (the packet walk) and link_probe,
+    # each driven through its own entry point with the launch counts from
+    # 0, then each kernel held to its plain version on the inputs the tool
+    # gave it
+    from clive2_tpu_torch.ops import link_probe as probe_kernel
+    from clive2_tpu_torch.scripts import (kernel_microbench, kernel_stats,
+                                          link_probe)
+
+    def quiet(line):
+        pass
+
+    def held_packets(label, c, tables, packet, group, variant, count,
+                     kernel_ms=None):
+        """The packet walk on cast ``c``: the kernel (timed as the
+        microbench times it, unless its time is given) against one call of the plain version,
+        counts, t and ids equal on every packet and ray; the figures, with
+        the bound from the plain call's work."""
+        kw = dict(tables=tables, packet=packet, group=group,
+                  variant=variant, count=count)
+        ms, got = kernel_microbench.timed(
+            lambda: packet_walk.packet_walk(**c, **kw), dev)
+        n = c["origin"].shape[0]
+        packets = packet_walk.packet_count(n, packet)
+        plain_ms, want, work = plain_time(
+            lambda: packet_walk.packet_walk_plain(**c, **kw))
+        for what, a, b in zip(("t", "ids", "counts"), got, want):
+            if not torch.equal(a, b):
+                bad = int((a != b).reshape(a.shape[0], -1).any(1).sum())
+                raise AssertionError(f"{label}: {what} differ from the "
+                                     f"plain version on {bad} rows")
+        nbytes = (n * (12 + 12 + 1 + 4 + 4 + 4) + 12 * packets * count
+                  + table_bytes({k: tables[k] for k in ("nodes", "tris")}))
+        b_ms, b_by = bound(nbytes, work_ops(work))
+        return dict(rays=n, active=kernel_stats.active_rays(c),
+                    packets=packets, packet=packet, group=group,
+                    variant=variant, ms=kernel_ms or ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by,
+                    bound_share=b_ms / (kernel_ms or ms), matches_plain=True)
+
+    tools = {}
+    t0 = time.perf_counter()
+    dragon_b = ct.create_scene_from_preset("dragon", 512, 512, device=dev)
+    stats_rows = {}
+    for name, scene in (("teapots_512", teapots), ("dragon_512", dragon_b)):
+        t1 = time.perf_counter()
+        records = []
+        ran = drive(f"packet_stats {name}", ("packet_walk", "bvh2"),
+                    lambda: records.extend(kernel_stats.run(scene,
+                                                            out=quiet)))
+        tables = scene.data["bvh2"]
+        for r in records:
+            key = (name, r["population"], r["packet"])
+            stats_rows[key] = held_packets(
+                f"packet_stats {' '.join(map(str, key))}", r["cast"],
+                tables, r["packet"], r["group"], packet_walk.COUNTING, True)
+            stats_rows[key]["report"] = r["figures"]
+        emit(phase="packet_stats", scene=name, scene_tris=scene.n_triangles,
+             seconds=time.perf_counter() - t1, launches=ran,
+             casts={f"{p} [{k}]": v for (n_, p, k), v in stats_rows.items()
+                    if n_ == name})
+        tools.setdefault("packet_stats", {}).update(
+            {name: ran["packet_walk"]})
+    del dragon_b
+
+    t1 = time.perf_counter()
+    bench = {}
+    ran = drive("packet_ablation teapots_512", ("packet_walk", "bvh2"),
+                lambda: bench.update(zip(("cast", "records", "bvh2"),
+                                         kernel_microbench.run(teapots,
+                                                               out=quiet))))
+    ablation = {}
+    for r in bench["records"]:
+        key = f"{r['variant']} [{r['packet']}]"
+        ablation[key] = held_packets(
+            f"packet_ablation {key}", bench["cast"], teapots.data["bvh2"],
+            r["packet"], r["group"], r["variant"], False, kernel_ms=r["ms"])
+        ablation[key].update(mrays_s=r["mrays_s"],
+                             us_per_packet=r["us_per_packet"])
+    # why a mean of 5 back-to-back calls misread the BVH2 kernel on this
+    # cast: the card's time over the 5, the host's time to issue them and
+    # the caching allocator's cudaMalloc calls among them, as the cache
+    # stands and after torch.cuda.empty_cache()
+    cast = bench["cast"]
+
+    def bvh2_cast():
+        return traverse_bvh2.intersect_bvh2(
+            cast["origin"], cast["direction"], {"bvh2": teapots.data["bvh2"]},
+            active=cast["active"], t_max=cast["t_max"])
+
+    def back_to_back(n=5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        mallocs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        t1 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            bvh2_cast()
+        end.record()
+        host_ms = (time.perf_counter() - t1) * 1e3 / n
+        torch.cuda.synchronize()
+        return dict(mean_ms=start.elapsed_time(end) / n,
+                    host_ms_per_call=host_ms,
+                    cuda_mallocs=torch.cuda.memory_stats().get(
+                        "segment.all.allocated", 0) - mallocs)
+
+    bvh2_cast()
+    back_to_back_ms = {"cache_as_is": back_to_back()}
+    torch.cuda.empty_cache()
+    back_to_back_ms["after_empty_cache"] = back_to_back()
+    emit(phase="packet_ablation", scene="teapots_512",
+         seconds=time.perf_counter() - t1, launches=ran,
+         cast="connection casts (t=2,s=2), Morton-sorted",
+         variants=ablation, bvh2_kernel_same_cast=bench["bvh2"],
+         bvh2_back_to_back=back_to_back_ms)
+    tools["packet_ablation"] = ran["packet_walk"]
+
+    t1 = time.perf_counter()
+    probe_rows = []
+    ran = drive("link_probe", ("link_probe",),
+                lambda: probe_rows.extend(link_probe.probe(dev,
+                                                           out=quiet)[1]))
+    a = torch.randn(link_probe.SHAPE, generator=gen, device=dev) * 1e3
+    a.view(-1)[:4] = torch.tensor([0.0, -0.0, float("inf"), 3e38],
+                                  device=dev)
+    ms, got = cuda_time(lambda: probe_kernel.scale_shift(a), 20)
+    plain_ms, want = cuda_time(lambda: probe_kernel.scale_shift_plain(a), 20)
+    one, two = torch.ones((), device=dev), torch.full((), 2.0, device=dev)
+    lib_ms, lib = cuda_time(lambda: torch.addcmul(one, a, two), 20)
+    if not (torch.equal(got, want) and torch.equal(lib, want)):
+        raise AssertionError("link probe kernel: not a * 2 + 1 bit for bit")
+    b_ms, b_by = bound(2 * a.numel() * 4, 2 * a.numel())
+    probe_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by, bit_equal=True)
+    emit(phase="link_probe", rows=probe_rows,
+         verdict=link_probe.verdict(probe_rows),
+         launches=ran, kernel=probe_row, seconds=time.perf_counter() - t1,
+         tools_seconds=time.perf_counter() - t0)
+    tools["link_probe"] = ran["link_probe"]
+
     # ---- 8. the same small render on the CPU and on the card --------------
     imgs = {}
     for device in ("cpu", "cuda"):
@@ -2106,6 +2278,43 @@ def main() -> int:
     # the casts of this slice's other paths, beside the main path's rows
     for (name, cast), figures in extra_casts.items():
         next(row for row in rows if row["name"] == name)[cast] = figures
+    # the tools of scripts/ (phase 7f): each row's launches are its tool's
+    # run's; max_abs_err 0: every compared count, t and id equal
+    no_walk_call = "no PyTorch call computes a packet walk"
+    head = stats_rows["teapots_512", "connection casts (t=2,s=2)", 1024]
+    full = ablation["full [1024]"]
+    rows += [
+        dict(name="packet_walk_counting", route="cuda",
+             source="clive2_tpu_torch/csrc/packet_walk.cu",
+             replaces="scripts/kernel_stats.py:31",
+             launches=sum(tools["packet_stats"].values()), max_abs_err=0.0,
+             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+             library_ms=None, library_note=no_walk_call,
+             cast="teapots 512 connection casts, 1,024-ray packets",
+             casts={" ".join(map(str, k)): {
+                 f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+                 for k, v in stats_rows.items()}),
+        dict(name="packet_walk_variants", route="cuda",
+             source="clive2_tpu_torch/csrc/packet_walk.cu",
+             replaces="scripts/kernel_microbench.py:38",
+             launches=tools["packet_ablation"], max_abs_err=0.0,
+             **{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+             library_ms=None, library_note=no_walk_call,
+             cast="teapots 512 connection casts, variant full, 1,024-ray "
+                  "packets",
+             variants={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+                       for k, v in ablation.items()},
+             bvh2_kernel_same_cast_ms=bench["bvh2"]["ms"]),
+        dict(name="link_probe", route="cuda",
+             source="clive2_tpu_torch/csrc/link_probe.cu",
+             replaces="scripts/link_probe.py:84",
+             launches=tools["link_probe"], max_abs_err=0.0,
+             **{k: probe_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+             library_call="torch.addcmul(1, a, 2): a * 2 + 1 in one call",
+             cast="f32 [256, 128]")]
     # each traversal's casts in raster, Morton wave and Morton-key order
     for name, cell in (("bvh2", "teapots_512"), ("wide", "dragon_512_wide"),
                        ("stream2", "sponza_1080p"),

@@ -60,6 +60,11 @@ _SIGNATURES = {
     "clive2_s2q_scatter": [_P, ctypes.c_int64, _P, _P, _P],
     "clive2_s2q_leaf_tf32": [_P] * 4 + [ctypes.c_int64] + [_P] * 8,
     "clive2_s2q_leaf_fp32": [_P] * 4 + [ctypes.c_int64] + [_P] * 8,
+    # nodes, tris, packet, variant, count | t, id, counts
+    "clive2_packet_walk": _RAYS + [_P, _P] + [ctypes.c_int] * 3 + [_P] * 3
+    + [_P],
+    # a, o, n (csrc/link_probe.cu)
+    "clive2_link_probe": [_P, _P, ctypes.c_int64, _P],
 }
 
 _lib = None

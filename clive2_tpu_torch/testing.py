@@ -1,6 +1,7 @@
 """Inputs that hold the kernels to their rules: a soup of triangles that
 each appear twice, so that every hit is an exact tie in t (the traversal
-kernels' tie rule), and rays at the edges of the brute-force test and of
+kernels' tie rule, and the packet walk's inside a leaf:
+``leaf_tie_winner``), and rays at the edges of the brute-force test and of
 its early-reject pre-test; ``launch_counters`` and ``check_launches``,
 which tell which kernels a render ran; and ``spawn_ranks``, which runs a
 function on the ranks of a gloo process group in spawned processes, under
@@ -24,7 +25,8 @@ STREAM2_KERNELS = ("stream2_walk", "stream2_count", "stream2_plan",
                    "stream2_scatter", "stream2_leaf", "stream2_tail",
                    "stream2_thread")
 PLAIN_VERSIONS = ("brute_plain", "gather_walk", "stream2_plain",
-                  "wide_plain", "stream_plain")
+                  "wide_plain", "stream_plain", "packet_walk_plain",
+                  "link_probe_plain")
 
 
 def launch_counters():
@@ -32,8 +34,9 @@ def launch_counters():
     kernels a render ran: the ``launches`` of each cast's kernel wrapper
     and of the queued fat-leaf traversal's kernels (STREAM2_KERNELS), and
     the ``calls`` of each plain version (PLAIN_VERSIONS)."""
-    from .ops import (brute, intersect, traverse_bvh2, traverse_stream,
-                      traverse_stream2 as s2, traverse_wide)
+    from .ops import (brute, intersect, link_probe, packet_walk,
+                      traverse_bvh2, traverse_stream, traverse_stream2 as s2,
+                      traverse_wide)
 
     kernels = dict(brute=brute.intersect_brute,
                    bvh2=traverse_bvh2.intersect_bvh2,
@@ -45,12 +48,16 @@ def launch_counters():
                    stream2_plan=s2.plan_tiles,
                    stream2_scatter=s2.scatter_by_leaf,
                    stream2_leaf=s2.leaf_test, stream2_tail=s2.stream2_tail,
-                   stream2_thread=s2.stream2_thread)
+                   stream2_thread=s2.stream2_thread,
+                   packet_walk=packet_walk.packet_walk,
+                   link_probe=link_probe.scale_shift)
     plain = dict(brute_plain=brute.brute_plain,
                  gather_walk=intersect.intersect_bvh_packed,
                  stream2_plain=s2.stream2_plain,
                  wide_plain=traverse_wide.wide_plain,
-                 stream_plain=traverse_stream.stream_plain)
+                 stream_plain=traverse_stream.stream_plain,
+                 packet_walk_plain=packet_walk.packet_walk_plain,
+                 link_probe_plain=link_probe.scale_shift_plain)
     return {**{k: (fn, "launches") for k, fn in kernels.items()},
             **{k: (fn, "calls") for k, fn in plain.items()}}
 
@@ -195,6 +202,32 @@ def swap_pair_ids(leaf_packed, t, rng):
         return swap[np.where(slot_of[k] < slot_of[k + t], k, k + t)]
 
     return flat.reshape(np.shape(leaf_packed)), lower
+
+
+def leaf_tie_winner(leaf_packed, ids):
+    """The id the packet walk (ops/packet_walk.py) must report for each hit
+    ``ids`` [N] on a soup whose triangles come in identical pairs
+    (``tie_soup``): where both copies of the hit pair lie in one leaf of the
+    gather walk's rows ``leaf_packed``, the larger id (the walk's rule
+    inside a leaf); -1 where the pair spans two leaves (the leaf the packet
+    visits first wins, strictly smaller t being needed to replace) or the
+    ray missed."""
+    slots = np.shape(leaf_packed)[1] // 10
+    flat = np.asarray(leaf_packed).reshape(-1, 10)
+    real = np.nonzero(flat[:, 9] >= 0)[0]
+    leaf_of = dict(zip(flat[real, 9].astype(np.int64), real // slots))
+    pairs = {}
+    for slot in real:
+        pairs.setdefault(flat[slot, :9].tobytes(), []).append(
+            int(flat[slot, 9]))
+    partner = {}
+    for a, b in (p for p in pairs.values() if len(p) == 2):
+        partner[a], partner[b] = b, a
+    out = np.full(len(ids), -1, np.int64)
+    for i, k in enumerate(np.asarray(ids)):
+        if k >= 0 and leaf_of[partner[k]] == leaf_of[k]:
+            out[i] = max(k, partner[k])
+    return out
 
 
 def tie_soup(seed, t):

@@ -11,6 +11,9 @@ does), each kernel of the queued fat-leaf traversal its plain step on the
 same state, and a small render on the card must match the same render on
 the CPU.  Camera moves put the brute and BVH2 kernels on moved sensor
 tables, and two gloo ranks on one card render a tile each of one sample.
+The packet walk of the traversal tools (every variant, both packet sizes)
+matches its plain version's counts, t and ids, and the link probe's
+kernel is a * 2 + 1 bit for bit.
 """
 
 import numpy as np
@@ -672,3 +675,42 @@ def test_two_gloo_ranks_on_one_card(dev, tmp_path):
                        {k[9:]: int(rank[k]) for k in rank.files
                         if k.startswith("launches/")})
     assert a["launches/brute"] == b["launches/brute"] == 7
+
+
+@pytest.mark.parametrize("packet,group", [(1024, 128), (32, 32)])
+@pytest.mark.parametrize("variant", ["full", "noleaf", "nogroupskip",
+                                     "noorder", "noreduce"])
+def test_packet_walk_matches_plain(dev, variant, packet, group):
+    """The packet walk kernel (csrc/packet_walk.cu) against its plain
+    version on a 900-triangle soup: counts on every packet, t and ids on
+    every ray, including a partial last packet and an empty cast."""
+    from clive2_tpu_torch.ops import packet_walk
+
+    soup = _soup(21, 900)
+    bvh = build_bvh(soup)
+    rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              traverse_bvh2.pack_bvh2(rows["node_packed"],
+                                      rows["leaf_packed"]).items()}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    o, d, active, t_max = _rays(gen, 5000, dev)
+    kw = dict(packet=packet, group=group, variant=variant, count=True)
+    got = packet_walk.packet_walk(o, d, tables, active, t_max, **kw)
+    torch.cuda.synchronize()
+    want = packet_walk.packet_walk_plain(o, d, tables, active, t_max, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    empty = packet_walk.packet_walk(o[:0], d[:0], tables, **kw)
+    assert [x.numel() for x in empty] == [0, 0, 0]
+
+
+def test_link_probe_kernel_is_two_a_plus_one(dev):
+    from clive2_tpu_torch.ops.link_probe import scale_shift
+    from clive2_tpu_torch.scripts import link_probe
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for shape in (link_probe.SHAPE, (1000,), (0,)):
+        a = torch.randn(shape, generator=gen, device=dev) * 1e3
+        got = scale_shift(a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, a * 2.0 + 1.0)
