@@ -60,8 +60,12 @@ kernel_microbench's five variants on teapots 512's connection casts beside
 the BVH2 kernel on the same cast, and that kernel's mean over 5
 back-to-back calls beside the host's time to issue them and the
 allocator's cudaMalloc calls among them; ``link_probe``: the probe's phases and
-verdict, its kernel bit for bit against a * 2 + 1; the packet walk also
-on the tie soup in phase 4).  Then it compares a small render on the card
+verdict, its kernel bit for bit against a * 2 + 1; ``mosaic_probes``:
+probe_mosaic_layouts's five probes, each OK only when its kernel equalled
+its plain version (the bulk slab copy bit for bit, the two bf16 ``mma``
+products within 2^-14 |A|ᵀ|B|), each kernel timed beside its plain
+version and one PyTorch call, and a K-major A against a row-major one on
+the same product; the packet walk also on the tie soup in phase 4).  Then it compares a small render on the card
 with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
@@ -71,7 +75,8 @@ launches on the main path, error, time, plain time, the time of the one
 PyTorch call that computes the same function where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s of FP32, counted from the work the plain walks
-did in one call) and the card's name and power limit.  The last line is
+did in one call; the bf16 products' over 989 TFLOP/s of the tensor cores)
+and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports no JAX.
 
@@ -103,6 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (stream2.cuh:slot_test)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
+BF16_TC_FLOPS_S = 989e12      # dense bf16 on the tensor cores
 OPS = dict(boxes=25, triangles=50, slots=40)
 
 
@@ -115,9 +121,9 @@ def work_ops(work, scale=1):
     return scale * sum(OPS[k] * v for k, v in work.items())
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flops_s=FP32_FLOPS_S):
     """The least time the card could take: (ms, what binds)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_FLOPS_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / flops_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -144,6 +150,26 @@ def cuda_time(fn, iters: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn):
+    """Device milliseconds per call of ``fn`` with no host path between the
+    calls: GRAPH_CALLS calls captured in one CUDA graph, its replay timed
+    as kernel_microbench.timed times a call (median of 5 after a warm-up),
+    over GRAPH_CALLS.  ``fn`` has run before (lazy set-up stays out of the
+    capture)."""
+    import torch
+
+    from clive2_tpu_torch.scripts.kernel_microbench import timed
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return timed(g.replay, torch.device("cuda"))[0] / GRAPH_CALLS
 
 
 def plain_time(fn):
@@ -1409,16 +1435,16 @@ def main() -> int:
     # held to their plain versions
     from clive2_tpu_torch import constants, oracles
 
-    def drive(label, kernel, run):
+    def drive(label, kernel, run, compared=()):
         """``run()`` with the launch counts from 0; fails when a kernel of
-        ``kernel`` never ran, a plain version ran, or another kernel ran.
-        Returns the counts."""
+        ``kernel`` never ran, a plain version ran (but those of
+        ``compared``), or another kernel ran.  Returns the counts."""
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         run()
         torch.cuda.synchronize()
         ran = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
-        check_launches(label, kernel, ran)
+        check_launches(label, kernel, ran, compared)
         return {k: v for k, v in ran.items() if v}
 
     def samples(r, n, adaptive=None):
@@ -2035,8 +2061,9 @@ def main() -> int:
     # 0, then each kernel held to its plain version on the inputs the tool
     # gave it
     from clive2_tpu_torch.ops import link_probe as probe_kernel
+    from clive2_tpu_torch.ops import mosaic_probes
     from clive2_tpu_torch.scripts import (kernel_microbench, kernel_stats,
-                                          link_probe)
+                                          link_probe, probe_mosaic_layouts)
 
     def quiet(line):
         pass
@@ -2169,6 +2196,109 @@ def main() -> int:
          launches=ran, kernel=probe_row, seconds=time.perf_counter() - t1,
          tools_seconds=time.perf_counter() - t0)
     tools["link_probe"] = ran["link_probe"]
+
+    # the layout probes (probe_mosaic_layouts): the tool through its entry
+    # point, which holds each kernel to its plain version (its records keep
+    # the output and the largest error); then each kernel timed on the
+    # tool's inputs, beside its plain version and one PyTorch call, each
+    # the median of 5 single launches (ms: the wrapper's host path
+    # included) and per call of GRAPH_CALLS replayed from a CUDA graph
+    # (graph_ms: the card's time alone)
+    t1 = time.perf_counter()
+    probe_lines, probes = [], []
+    ran = drive("mosaic_probes", ("slab_copy", "matmul_t", "matmul"),
+                lambda: probes.extend(probe_mosaic_layouts.run(
+                    dev, out=probe_lines.append)),
+                compared=("slab_copy_plain", "matmul_t_plain",
+                          "matmul_plain"))
+    if not all(r["ok"] for r in probes):
+        raise AssertionError(f"mosaic_probes: {probe_lines}")
+    tools["mosaic_probes"] = ran
+
+    def timed(fn):
+        return kernel_microbench.timed(fn, dev)
+
+    mosaic = {}
+    for r in probes:
+        kernel, args, got = r["kernel"], r["args"], r["out"]
+        fn = getattr(mosaic_probes, kernel)
+        plain = getattr(mosaic_probes, f"{kernel}_plain")
+        ms = timed(lambda: fn(*args))[0]
+        plain_ms, want = timed(lambda: plain(*args))
+        row = dict(shapes=[list(a.shape) for a in args], ms=ms,
+                   plain_ms=plain_ms, max_abs_err=r["max_abs_err"],
+                   graph_ms=graph_ms(lambda: fn(*args)),
+                   plain_graph_ms=graph_ms(lambda: plain(*args)))
+        if kernel == "slab_copy":
+            x, = args
+            lib_ms, lib = timed(lambda: x[2, :8, :128].float())
+            # bound_ms: the function's own bytes, its window read as bf16
+            # and written as f32; slab_bound_ms: the whole slab read, which
+            # is what the probe moves (slab_gb_s its rate)
+            slab = 2 * x[2].numel()
+            b_ms, b_by = bound(6 * got.numel(), 0)
+            slab_ms = bound(slab + 4 * got.numel(), 0)[0]
+            row.update(library_ms=lib_ms,
+                       library_call="x[2, :8, :128].float()",
+                       library_graph_ms=graph_ms(
+                           lambda: x[2, :8, :128].float()),
+                       library_max_abs_err=float((lib - want).abs().max()),
+                       slab_bytes=slab, slab_bound_ms=slab_ms,
+                       slab_graph_bound_share=slab_ms / row["graph_ms"],
+                       slab_gb_s=slab / row["graph_ms"] / 1e6)
+        else:
+            a, b = args
+            lhs = a.t() if kernel == "matmul_t" else a
+            diff = (got - want).abs()
+            scale = mosaic_probes.abs_product(a, b, kernel == "matmul_t")
+            # the library call: torch.mm on the bf16 operands with an f32
+            # output where this PyTorch has out_dtype, else on the f32
+            # casts (TF32 off); both timed where both exist
+            f32 = (lambda: torch.mm(lhs.float(), b.float()),
+                   "torch.mm on the f32 casts, TF32 off")
+            bf16 = (lambda: torch.mm(lhs, b, out_dtype=torch.float32),
+                    "torch.mm(bf16, bf16, out_dtype=torch.float32)")
+            row["mm_f32_ms"], lib = timed(f32[0])
+            libs, call = {"mm_f32": lib}, f32
+            try:
+                row["mm_bf16_ms"], libs["mm_bf16"] = timed(bf16[0])
+                call = bf16
+            except (TypeError, RuntimeError) as e:     # no out_dtype
+                row["mm_bf16_note"] = f"{type(e).__name__}: {e}"[:200]
+            b_ms, b_by = bound(2 * (a.numel() + b.numel()) + 4 * got.numel(),
+                               2 * lhs.shape[0] * lhs.shape[1] * b.shape[1],
+                               BF16_TC_FLOPS_S)
+            row.update(
+                err_over_abs_product=float((diff / scale)[scale > 0].max()),
+                library_ms=row["mm_bf16_ms" if call is bf16 else "mm_f32_ms"],
+                library_call=call[1], library_graph_ms=graph_ms(call[0]),
+                library_max_abs_err={k: float((v - want).abs().max())
+                                     for k, v in libs.items()})
+        row.update(bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                   graph_bound_share=b_ms / row["graph_ms"])
+        mosaic[r["tag"]] = row
+    # a K-major A against a row-major one on the same product: dot128's
+    # A stored transposed through matmul_t, in turns with matmul, each
+    # from a CUDA graph
+    a, b = probes[-1]["args"]
+    a_k = a.t().contiguous()
+    k_major, outs = {"row_major_graph_ms": [], "k_major_graph_ms": []}, {}
+    for name, fn in (("row_major", lambda: mosaic_probes.matmul(a, b)),
+                     ("k_major", lambda: mosaic_probes.matmul_t(a_k, b)),
+                     ("k_major", lambda: mosaic_probes.matmul_t(a_k, b)),
+                     ("row_major", lambda: mosaic_probes.matmul(a, b))):
+        outs[name] = fn()
+        k_major[f"{name}_graph_ms"].append(graph_ms(fn))
+    if not bool(((outs["k_major"] - mosaic_probes.matmul_plain(a, b)).abs()
+                 <= mosaic_probes.REL * mosaic_probes.abs_product(a, b)
+                 ).all()):
+        raise AssertionError("mosaic_probes: the K-major product is off its "
+                             "plain version past 2^-14 |A|ᵀ|B|")
+    k_major.update(shape="[640, 128] @ [128, 128]",
+                   bit_equal=torch.equal(outs["row_major"], outs["k_major"]))
+    emit(phase="mosaic_probes", lines=probe_lines, launches=ran,
+         probes=mosaic, k_major_ab=k_major, seconds=time.perf_counter() - t1,
+         tools_seconds=time.perf_counter() - t0)
 
     # ---- 8. the same small render on the CPU and on the card --------------
     imgs = {}
@@ -2315,6 +2445,34 @@ def main() -> int:
                                           "bound_by", "library_ms")},
              library_call="torch.addcmul(1, a, 2): a * 2 + 1 in one call",
              cast="f32 [256, 128]")]
+    # the layout probes (phase mosaic_probes): the copy's row is dma128's
+    # (the largest slab), with every copy under ``probes``; its bound_ms is
+    # the window's bytes, slab_bound_ms the slab's
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "graph_ms", "plain_graph_ms",
+            "library_graph_ms")
+    rows.append(dict(
+        name="slab_copy", route="cuda",
+        source="clive2_tpu_torch/csrc/mosaic_probes.cu",
+        replaces="scripts/probe_mosaic_layouts.py:41",
+        launches=tools["mosaic_probes"]["slab_copy"],
+        max_abs_err=mosaic["dma128"]["max_abs_err"],
+        slab_bound_ms=mosaic["dma128"]["slab_bound_ms"],
+        **{k: mosaic["dma128"][k] for k in keys},
+        cast="bf16 [4, 640, 128], slab 2 (dma128)",
+        probes={tag: mosaic[tag] for tag in ("dma64", "dma128", "dmaT")}))
+    for name, tag, line, cast in (
+            ("matmul_t", "dotT", 70, "bf16 [64, 640]ᵀ @ [64, 128] (dotT)"),
+            ("matmul", "dot128", 85, "bf16 [640, 128] @ [128, 128] (dot128)")):
+        rows.append(dict(
+            name=name, route="cuda",
+            source="clive2_tpu_torch/csrc/mosaic_probes.cu",
+            replaces=f"scripts/probe_mosaic_layouts.py:{line}",
+            launches=tools["mosaic_probes"][name],
+            max_abs_err=mosaic[tag]["max_abs_err"],
+            **{k: mosaic[tag][k] for k in keys},
+            cast=cast,
+            err_over_abs_product=mosaic[tag]["err_over_abs_product"]))
     # each traversal's casts in raster, Morton wave and Morton-key order
     for name, cell in (("bvh2", "teapots_512"), ("wide", "dragon_512_wide"),
                        ("stream2", "sponza_1080p"),

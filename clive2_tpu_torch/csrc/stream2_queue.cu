@@ -257,46 +257,6 @@ __device__ __forceinline__ bool clearly_misses(float a, float u, float v,
          st - bt * aa > kEps * (mt + bt * ma) + kFloor;
 }
 
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copies bytes (a multiple of 16) from global src into shared dst with one
-// bulk asynchronous copy and waits for it on the mbarrier bar.  Every
-// thread of the block calls it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  const uint32_t b = shared_addr(bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-        "r"(bytes)
-        : "memory");
-    if (bytes)
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(dst)),
-          "l"(src), "r"(bytes), "r"(b)
-          : "memory");
-  }
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(b)
-        : "memory");
-  }
-}
-
 // One block per tile of 128 queued rays at one fat leaf; blocks past the
 // round's tile count (info[1]) return.  A tile's first entry always holds
 // a ray and names the fat leaf; entries past the fat leaf's count are

@@ -65,6 +65,10 @@ _SIGNATURES = {
     + [_P],
     # a, o, n (csrc/link_probe.cu)
     "clive2_link_probe": [_P, _P, ctypes.c_int64, _P],
+    # the layout probes (csrc/mosaic_probes.cu): src, rows, cols, out |
+    # a, b, c, m, n, k, trans_a
+    "clive2_slab_copy": [_P, ctypes.c_int, ctypes.c_int, _P, _P],
+    "clive2_mma_bf16": [_P] * 3 + [ctypes.c_int] * 4 + [_P],
 }
 
 _lib = None

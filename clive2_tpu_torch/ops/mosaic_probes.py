@@ -1,0 +1,163 @@
+"""The layout probes' kernels: a bf16 slab copied through shared memory, and
+two bf16 products with f32 sums.
+
+Replace the TPU kernels of ``scripts/probe_mosaic_layouts.py``:
+``dma_probe.kern`` (``pallas_call`` at :47) by ``slab_copy``, ``dotT_kern``
+(:77) by ``matmul_t`` and ``dot128_kern`` (:90) by ``matmul``.  The kernels
+are csrc/mosaic_probes.cu (a bulk asynchronous copy; ``mma.sync`` with
+``ldmatrix``); the ``*_plain`` functions are their plain versions.  A
+wrapper takes the plain version for a CPU tensor and launches the kernel
+for a CUDA tensor; it raises on anything the kernel does not take.
+
+The plain products multiply by broadcast in f32 and sum over K, not
+``torch.matmul``: a product of two bf16 values is exact in f32, so only the
+order of the sums differs from the kernel's, and no TF32 flag reaches it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+SLAB = 2                      # the script's src.at[2]
+WINDOW = (8, 128)             # the script's out[...] = slot[:8, :128]
+MAX_SLAB_BYTES = 227 * 1024 - 128    # csrc/mosaic_probes.cu:kMaxSlabBytes
+TILE = dict(m=64, n=64, k=32)        # the product kernel's block tile
+REL = 2.0 ** -14     # a product's tolerance against its plain version,
+                     # times abs_product: elementwise
+
+
+def slab_copy_plain(x):
+    """``x[SLAB]`` copied into a slot, then the slot's top-left window of
+    at most ``WINDOW`` as f32."""
+    slab_copy_plain.calls += 1
+    slot = x[SLAB].clone()
+    return slot[:WINDOW[0], :WINDOW[1]].float()
+
+
+slab_copy_plain.calls = 0
+
+
+def _product(a, b):
+    """a [M, K] @ b [K, N] in f32: broadcast products summed over K."""
+    return (a.float().unsqueeze(2) * b.float().unsqueeze(0)).sum(1)
+
+
+def matmul_t_plain(a, b):
+    """aᵀ b in f32 for a [K, M], b [K, N]: the script's ``dot_general``
+    contracting dim 0 of both."""
+    matmul_t_plain.calls += 1
+    return _product(a.t(), b)
+
+
+matmul_t_plain.calls = 0
+
+
+def matmul_plain(a, b):
+    """a b in f32 for a [M, K], b [K, N]."""
+    matmul_plain.calls += 1
+    return _product(a, b)
+
+
+matmul_plain.calls = 0
+
+
+def abs_product(a, b, transposed=False):
+    """|A|ᵀ|B| (or |A||B|) in f32: times ``REL``, how far two f32 sums of
+    the same exact bf16 products may differ, elementwise."""
+    return _product((a.t() if transposed else a).abs(), b.abs())
+
+
+def _check_cuda(what, *ts):
+    for t in ts:
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"{what} takes bf16 CUDA tensors, got "
+                             f"{t.dtype} on {t.device}")
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{what}: operands on {[str(t.device) for t in ts]}")
+
+
+def _aligned(t, what, step=16):
+    if t.data_ptr() % step:
+        raise ValueError(f"{what} must be {step}-byte aligned")
+    return t
+
+
+def slab_copy(x):
+    """``slab_copy_plain`` on a CPU tensor; on a CUDA one the kernel: one
+    bulk asynchronous copy of ``x[SLAB]`` (bf16 [N, R, C]) into shared
+    memory, then its window as f32."""
+    if x.device.type == "cpu":
+        return slab_copy_plain(x)
+    from .. import kernels
+
+    _check_cuda("slab_copy", x)
+    if x.dim() != 3 or x.shape[0] <= SLAB:
+        raise ValueError(f"slab_copy takes [N, R, C] with N above {SLAB}, "
+                         f"got {tuple(x.shape)}")
+    rows, cols = x.shape[1:]
+    nbytes = 2 * rows * cols
+    if not rows or not cols or nbytes % 16 or nbytes > MAX_SLAB_BYTES:
+        raise ValueError(f"a slab of {rows} x {cols} bf16 is {nbytes} bytes:"
+                         f" the bulk copy takes a multiple of 16 bytes, at "
+                         f"most {MAX_SLAB_BYTES}")
+    slab = _aligned(x.contiguous()[SLAB], "the slab")
+    out = torch.empty(min(rows, WINDOW[0]), min(cols, WINDOW[1]),
+                      device=x.device)
+    kernels.call("clive2_slab_copy", x.device, kernels.ptr(slab),
+                 ctypes.c_int(rows), ctypes.c_int(cols), kernels.ptr(out))
+    slab_copy.launches += 1
+    return out
+
+
+slab_copy.launches = 0
+
+
+def _mma(name, a, b, m, k, transposed):
+    from .. import kernels
+
+    _check_cuda(name, a, b)
+    if b.dim() != 2 or b.shape[0] != k:
+        raise ValueError(f"{name}: b must be [{k}, N], got {tuple(b.shape)}")
+    n = b.shape[1]
+    if m % TILE["m"] or n % TILE["n"] or k % TILE["k"] or not m * n * k:
+        raise ValueError(f"{name}: M={m}, N={n}, K={k}; the kernel takes "
+                         f"M and N multiples of 64 and K of 32")
+    a = _aligned(a.contiguous(), f"{name}: a")
+    b = _aligned(b.contiguous(), f"{name}: b")
+    c = torch.empty(m, n, device=a.device)
+    kernels.call("clive2_mma_bf16", a.device, kernels.ptr(a), kernels.ptr(b),
+                 kernels.ptr(c), ctypes.c_int(m), ctypes.c_int(n),
+                 ctypes.c_int(k), ctypes.c_int(int(transposed)))
+    return c
+
+
+def matmul_t(a, b):
+    """aᵀ b (a bf16 [K, M], b [K, N]) as f32 [M, N]: ``matmul_t_plain`` on
+    the CPU, the ``mma.sync`` kernel with a K-major A on the card."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_t_plain(a, b)
+    if a.dim() != 2:
+        raise ValueError(f"matmul_t: a must be [K, M], got {tuple(a.shape)}")
+    c = _mma("matmul_t", a, b, a.shape[1], a.shape[0], True)
+    matmul_t.launches += 1
+    return c
+
+
+matmul_t.launches = 0
+
+
+def matmul(a, b):
+    """a b (a bf16 [M, K], b [K, N]) as f32 [M, N]: ``matmul_plain`` on the
+    CPU, the ``mma.sync`` kernel on the card."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_plain(a, b)
+    if a.dim() != 2:
+        raise ValueError(f"matmul: a must be [M, K], got {tuple(a.shape)}")
+    c = _mma("matmul", a, b, a.shape[0], a.shape[1], False)
+    matmul.launches += 1
+    return c
+
+
+matmul.launches = 0

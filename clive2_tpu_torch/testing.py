@@ -26,7 +26,8 @@ STREAM2_KERNELS = ("stream2_walk", "stream2_count", "stream2_plan",
                    "stream2_thread")
 PLAIN_VERSIONS = ("brute_plain", "gather_walk", "stream2_plain",
                   "wide_plain", "stream_plain", "packet_walk_plain",
-                  "link_probe_plain")
+                  "link_probe_plain", "slab_copy_plain", "matmul_t_plain",
+                  "matmul_plain")
 
 
 def launch_counters():
@@ -34,9 +35,9 @@ def launch_counters():
     kernels a render ran: the ``launches`` of each cast's kernel wrapper
     and of the queued fat-leaf traversal's kernels (STREAM2_KERNELS), and
     the ``calls`` of each plain version (PLAIN_VERSIONS)."""
-    from .ops import (brute, intersect, link_probe, packet_walk,
-                      traverse_bvh2, traverse_stream, traverse_stream2 as s2,
-                      traverse_wide)
+    from .ops import (brute, intersect, link_probe, mosaic_probes as mp,
+                      packet_walk, traverse_bvh2, traverse_stream,
+                      traverse_stream2 as s2, traverse_wide)
 
     kernels = dict(brute=brute.intersect_brute,
                    bvh2=traverse_bvh2.intersect_bvh2,
@@ -50,26 +51,32 @@ def launch_counters():
                    stream2_leaf=s2.leaf_test, stream2_tail=s2.stream2_tail,
                    stream2_thread=s2.stream2_thread,
                    packet_walk=packet_walk.packet_walk,
-                   link_probe=link_probe.scale_shift)
+                   link_probe=link_probe.scale_shift,
+                   slab_copy=mp.slab_copy, matmul_t=mp.matmul_t,
+                   matmul=mp.matmul)
     plain = dict(brute_plain=brute.brute_plain,
                  gather_walk=intersect.intersect_bvh_packed,
                  stream2_plain=s2.stream2_plain,
                  wide_plain=traverse_wide.wide_plain,
                  stream_plain=traverse_stream.stream_plain,
                  packet_walk_plain=packet_walk.packet_walk_plain,
-                 link_probe_plain=link_probe.scale_shift_plain)
+                 link_probe_plain=link_probe.scale_shift_plain,
+                 slab_copy_plain=mp.slab_copy_plain,
+                 matmul_t_plain=mp.matmul_t_plain,
+                 matmul_plain=mp.matmul_plain)
     return {**{k: (fn, "launches") for k, fn in kernels.items()},
             **{k: (fn, "calls") for k, fn in plain.items()}}
 
 
-def check_launches(label, kernel, ran):
+def check_launches(label, kernel, ran, compared=()):
     """Raise unless every kernel named in ``kernel`` ran (``ran``: counts by
-    the names of ``launch_counters``), no plain version ran, and no other
+    the names of ``launch_counters``), no plain version ran but those named
+    in ``compared`` (a tool that holds its kernels to them), and no other
     kernel ran (with ``stream2``, the queued kernels may)."""
     idle = [k for k in kernel if ran[k] <= 0]
     if idle:
         raise AssertionError(f"{label}: the {idle} kernels never ran")
-    if any(ran[k] for k in PLAIN_VERSIONS):
+    if any(ran[k] for k in PLAIN_VERSIONS if k not in compared):
         raise AssertionError(f"{label}: a plain version ran: {ran}")
     allowed = set(kernel) | (set(STREAM2_KERNELS) if "stream2" in kernel
                              else set())

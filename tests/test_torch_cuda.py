@@ -13,7 +13,8 @@ the CPU.  Camera moves put the brute and BVH2 kernels on moved sensor
 tables, and two gloo ranks on one card render a tile each of one sample.
 The packet walk of the traversal tools (every variant, both packet sizes)
 matches its plain version's counts, t and ids, and the link probe's
-kernel is a * 2 + 1 bit for bit.
+kernel is a * 2 + 1 bit for bit.  The layout probes' kernels match their
+plain versions at the script's shapes and raise off their tiles.
 """
 
 import numpy as np
@@ -714,3 +715,52 @@ def test_link_probe_kernel_is_two_a_plus_one(dev):
         got = scale_shift(a)
         torch.cuda.synchronize()
         assert torch.equal(got, a * 2.0 + 1.0)
+
+
+@pytest.mark.parametrize("tag", ["dma64", "dma128", "dmaT", "dotT",
+                                 "dot128"])
+def test_mosaic_probe_kernel_matches_plain(dev, tag):
+    """Each layout probe's kernel at the script's shapes: the copies equal
+    their plain version bit for bit, the products within 2^-14 |A|ᵀ|B|
+    (scripts/probe_mosaic_layouts.py in this package: ``held``)."""
+    from clive2_tpu_torch.ops import mosaic_probes as mp
+    from clive2_tpu_torch.scripts import probe_mosaic_layouts as tool
+
+    _, kernel, shapes = next(p for p in tool.PROBES if p[0] == tag)
+    args = tool.inputs(shapes, dev)
+    wrapper = getattr(mp, kernel)
+    launches = wrapper.launches
+    got, _ = tool.held(kernel, args)
+    assert wrapper.launches == launches + 1
+    assert got.is_cuda and got.dtype == torch.float32
+
+
+# shapes off the kernels' tiles: a slab of 30 bytes, K = 40, M = 600
+OFF_TILE = {"slab_copy": [(4, 5, 3)], "matmul_t": [(40, 640), (40, 128)],
+            "matmul": [(600, 128), (128, 128)]}
+
+
+@pytest.mark.parametrize("kernel", list(OFF_TILE))
+def test_mosaic_probe_kernels_raise_off_their_tiles(dev, kernel):
+    """The wrapper raises, and does not fall back, on a shape its kernel
+    does not take; so does the C entry when called past the wrapper."""
+    import ctypes
+
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.ops import mosaic_probes as mp
+
+    args = [torch.zeros(s, dtype=torch.bfloat16, device=dev)
+            for s in OFF_TILE[kernel]]
+    with pytest.raises(ValueError):
+        getattr(mp, kernel)(*args)
+    out = torch.empty(640, 128, device=dev)
+    ptr = kernels.ptr
+    if kernel == "slab_copy":
+        entry = ("clive2_slab_copy", ptr(args[0]), ctypes.c_int(5),
+                 ctypes.c_int(3), ptr(out))
+    else:
+        entry = ("clive2_mma_bf16", ptr(args[0]), ptr(args[1]), ptr(out),
+                 ctypes.c_int(600), ctypes.c_int(128), ctypes.c_int(40),
+                 ctypes.c_int(int(kernel == "matmul_t")))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.call(entry[0], dev, *entry[1:])

@@ -1,0 +1,216 @@
+"""The port's layout probes (clive2_tpu_torch/scripts/probe_mosaic_layouts.py
+over ops/mosaic_probes.py) against the JAX package's
+scripts/probe_mosaic_layouts.py.
+
+The script's five probes are captured as it builds them (its ``probe`` is
+replaced by a recorder and its ``main`` called; the script is not edited)
+and run in interpret mode on the CPU, on the port's numpy-seeded inputs
+cast to bf16.  The port's plain versions are held to them: the copies bit
+for bit, the products within 2^-16 (|A|ᵀ|B|) elementwise (the products of
+bf16 values are exact in f32; only the order of the sums differs).  The
+script's ``dma64`` fails on its own store, not on the copy: the port returns
+the window that exists (ROADMAP queue 3).  The kernels
+(csrc/mosaic_probes.cu) run only on the card: tests/test_torch_cuda.py and
+chip_smoke.py's phase ``mosaic_probes``.
+"""
+
+import ast
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from clive2_tpu_torch.ops import mosaic_probes as mp
+from clive2_tpu_torch.scripts import probe_mosaic_layouts as tool
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+import probe_mosaic_layouts as script  # noqa: E402
+
+TAGS = [tag for tag, _, _ in tool.PROBES]
+
+
+@pytest.fixture(scope="module")
+def captured():
+    """{tag: (fn, args)} of the script's probes, in its order."""
+    probes = {}
+    with pytest.MonkeyPatch.context() as mpatch:
+        mpatch.setattr(script, "probe",
+                       lambda tag, fn, *args: probes.setdefault(tag,
+                                                                (fn, args)))
+        script.main()
+    return probes
+
+
+def _probe(tag):
+    return next(p for p in tool.PROBES if p[0] == tag)
+
+
+def _jax_inputs(tag):
+    return [jnp.asarray(a).astype(jnp.bfloat16)
+            for a in tool.arrays(_probe(tag)[2])]
+
+
+def _run_script(captured, tag):
+    fn = captured[tag][0]
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(jax.jit(fn)(*_jax_inputs(tag)))
+
+
+def _abs_product(tag):
+    """|A|ᵀ|B| (or |A||B|) in float64 from the bf16 inputs."""
+    a, b = (t.double().abs().numpy() for t in tool.inputs(_probe(tag)[2],
+                                                         "cpu"))
+    return (a.T if tag == "dotT" else a) @ b
+
+
+def test_script_probes_are_the_tools(captured):
+    """The same five probes in the same order, at the same shapes and
+    dtype."""
+    assert list(captured) == TAGS
+    for tag, kernel, shapes in tool.PROBES:
+        args = captured[tag][1]
+        assert tuple(a.shape for a in args) == shapes
+        assert all(a.dtype == jnp.bfloat16 for a in args)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_bf16_casts_are_equal_bit_for_bit(tag):
+    shapes = _probe(tag)[2]
+    for want, got in zip(_jax_inputs(tag), tool.inputs(shapes, "cpu")):
+        np.testing.assert_array_equal(
+            got.view(torch.int16).numpy().view(np.uint16),
+            np.asarray(want).view(np.uint16))
+
+
+@pytest.mark.parametrize("tag", ["dma128", "dmaT"])
+def test_copy_equals_the_script_bit_for_bit(captured, tag):
+    want = _run_script(captured, tag)
+    x, = tool.inputs(_probe(tag)[2], "cpu")
+    got = mp.slab_copy(x).numpy()
+    assert got.shape == want.shape == mp.WINDOW
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("tag", ["dotT", "dot128"])
+def test_product_within_the_tolerance_of_the_script(captured, tag):
+    want = _run_script(captured, tag)
+    _, kernel, shapes = _probe(tag)
+    got = getattr(mp, kernel)(*tool.inputs(shapes, "cpu")).numpy()
+    assert got.shape == want.shape == (640, 128)
+    assert (np.abs(got - want) <= 2.0 ** -16 * _abs_product(tag)).all()
+
+
+@pytest.mark.parametrize("tag", ["dotT", "dot128"])
+def test_plain_product_within_the_tolerance_of_float64(tag):
+    """The plain version against the exact sums (float64 of the bf16
+    values), so neither side's f32 order is the reference."""
+    _, kernel, shapes = _probe(tag)
+    args = tool.inputs(shapes, "cpu")
+    a, b = (t.double().numpy() for t in args)
+    exact = (a.T if tag == "dotT" else a) @ b
+    got = getattr(mp, f"{kernel}_plain")(*args).numpy()
+    assert got.dtype == np.float32
+    assert (np.abs(got - exact) <= 2.0 ** -16 * _abs_product(tag)).all()
+
+
+def test_reference_dma64_probe_fails_on_its_store(captured):
+    """The script's dma64 copies fine and then stores slot[:8, :128] of a
+    [640, 64] slot, an [8, 64] value, into its (8, 128) output.  The port
+    returns the window that exists, x[2, :8, :64]."""
+    with pytest.raises(ValueError, match="Invalid shape for `swap`"):
+        _run_script(captured, "dma64")
+    x, = tool.inputs(_probe("dma64")[2], "cpu")
+    got = mp.slab_copy(x)
+    assert got.shape == (8, 64) and got.dtype == torch.float32
+    assert torch.equal(got, x[2, :8, :64].float())
+
+
+@pytest.mark.parametrize("kernel", ["slab_copy", "matmul_t", "matmul"])
+def test_wrappers_take_the_plain_version_on_the_cpu(kernel):
+    tag = next(t for t, k, _ in tool.PROBES if k == kernel)
+    args = tool.inputs(_probe(tag)[2], "cpu")
+    plain = getattr(mp, f"{kernel}_plain")
+    wrapper = getattr(mp, kernel)
+    calls, launches = plain.calls, wrapper.launches
+    got = wrapper(*args)
+    assert plain.calls == calls + 1 and wrapper.launches == launches
+    assert torch.equal(got, plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["slab_copy", "matmul_t", "matmul"])
+def test_wrappers_refuse_other_devices(kernel):
+    tag = next(t for t, k, _ in tool.PROBES if k == kernel)
+    args = [torch.empty(s, dtype=torch.bfloat16, device="meta")
+            for s in _probe(tag)[2]]
+    with pytest.raises(ValueError, match="bf16 CUDA tensors"):
+        getattr(mp, kernel)(*args)
+
+
+def test_tool_prints_five_oks_on_the_cpu(capsys):
+    assert tool.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == ["devices: ['cpu']"] + [f"{t}: OK" for t in TAGS]
+
+
+def test_tool_reports_a_failing_probe_and_exits_1(monkeypatch, capsys):
+    monkeypatch.setattr(mp, "matmul",
+                        lambda a, b: mp.matmul_plain(a, b) + 0.1)
+    assert tool.main(["--device", "cpu"]) == 1
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1].startswith("dot128: FAIL the product is off")
+    assert lines[1:-1] == [f"{t}: OK" for t in TAGS[:-1]]
+
+
+def test_tool_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tool.run("cuda", out=lambda line: None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tool.main([])
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", ["clive2_tpu_torch/ops/mosaic_probes.py",
+                                  "clive2_tpu_torch/scripts/"
+                                  "probe_mosaic_layouts.py"])
+def test_new_modules_import_no_jax(path):
+    mods = list(_imports(os.path.join(ROOT, path)))
+    assert "torch" in mods
+    assert not [m for m in mods
+                if m.split(".")[0] in ("jax", "jaxlib", "clive2_tpu")]
+
+
+def test_kernel_source_is_a_bulk_copy_and_mma_products():
+    """csrc/mosaic_probes.cu: the copy is one cp.async.bulk on an mbarrier
+    (common.cuh:bulk_load), the products mma.sync bf16 with ldmatrix; no
+    library product inside."""
+    csrc = os.path.join(ROOT, "clive2_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "mosaic_probes.cu")).read()
+    common = open(os.path.join(csrc, "common.cuh")).read()
+    assert "bulk_load(slab_bytes" in src
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    for ptx in ("cp.async.bulk.shared::cluster.global.mbarrier",
+                "mbarrier.arrive.expect_tx", "mbarrier.try_wait.parity"):
+        assert ptx in common
+    for ptx in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                "ldmatrix.sync.aligned.m8n8.x4.shared.b16"):
+        assert ptx in src
+    code = "\n".join(ln.split("//")[0] for ln in src.splitlines()).lower()
+    for name in ("cublas", "cutlass", "torch", "#include <mma"):
+        assert name not in code
