@@ -62,10 +62,13 @@ back-to-back calls beside the host's time to issue them and the
 allocator's cudaMalloc calls among them; ``link_probe``: the probe's phases and
 verdict, its kernel bit for bit against a * 2 + 1; ``mosaic_probes``:
 probe_mosaic_layouts's five probes, each OK only when its kernel equalled
-its plain version (the bulk slab copy bit for bit, the two bf16 ``mma``
+its plain version (the bulk slab copy bit for bit, the two bf16 ``wgmma``
 products within 2^-14 |A|ᵀ|B|), each kernel timed beside its plain
-version and one PyTorch call, and a K-major A against a row-major one on
-the same product; the packet walk also on the tie soup in phase 4).  Then it compares a small render on the card
+version and one PyTorch call (single launches and from a CUDA graph, as
+the link probe's kernel too), a K-major A against a row-major one on the
+same product, and the product kernel's registers, shared memory, spills,
+tile and grid beside the tile widths tried in PR 15; the packet walk also
+on the tie soup in phase 4).  Then it compares a small render on the card
 with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
@@ -110,10 +113,50 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOPS_S = 67e12
 BF16_TC_FLOPS_S = 989e12      # dense bf16 on the tensor cores
 OPS = dict(boxes=25, triangles=50, slots=40)
+# the bf16 product kernel's tile widths (kBN) and epilogues as measured in
+# PR 15's chip calls 2-3 by a sweep tool that rebuilt the source with each
+# variant and was not kept (NVIDIA H100 80GB HBM3, 700.00 W): ms per call
+# from a CUDA graph, median of 4 rounds, beside torch.mm's in the same
+# rounds; "32 direct" is the source's
+MMA_TILES_TRIED = dict(
+    source="PR 15 chip calls 2-3 (tile sweep, tool not kept)",
+    dotT={"32 direct": 0.002340799942612648,
+          "64 direct": 0.002505600079894066,
+          "128 direct": 0.0028656000271439553,
+          "32 tma_store": 0.0025296000763773917,
+          "64 tma_store": 0.0028271999210119246,
+          "128 tma_store": 0.003519999980926514,
+          "torch.mm": 0.002812799997627735},
+    dot128={"32 direct": 0.0025200000032782554,
+            "64 direct": 0.00260000005364418,
+            "128 direct": 0.0030767999589443205,
+            "32 tma_store": 0.0027408000081777573,
+            "64 tma_store": 0.0029967999085783958,
+            "128 tma_store": 0.003691200166940689,
+            "torch.mm": 0.0030735999345779417})
 
 
 def emit(**kv):
     print(json.dumps(kv), flush=True)
+
+
+def mma_ptxas_figures(report):
+    """Registers, static shared memory bytes and spill-store bytes of each
+    bf16 product kernel instance (matmul_t: A transposed; matmul) in
+    ptxas's report on mosaic_probes.cu."""
+    figures = {}
+    for part in report.split("Compiling entry function")[1:]:
+        name = part.split("'", 2)[1]
+        if "mma_kernel" not in name:
+            continue
+        kernel = "matmul_t" if "ILb1E" in name else "matmul"
+        smem = re.search(r"(\d+) bytes smem", part)
+        figures[kernel] = dict(
+            registers=int(re.search(r"Used (\d+) registers", part).group(1)),
+            static_smem_bytes=int(smem.group(1)) if smem else 0,
+            spill_store_bytes=int(re.search(r"(\d+) bytes spill stores",
+                                            part).group(1)))
+    return figures
 
 
 def work_ops(work, scale=1):
@@ -150,26 +193,6 @@ def cuda_time(fn, iters: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
-
-
-GRAPH_CALLS = 20
-
-
-def graph_ms(fn):
-    """Device milliseconds per call of ``fn`` with no host path between the
-    calls: GRAPH_CALLS calls captured in one CUDA graph, its replay timed
-    as kernel_microbench.timed times a call (median of 5 after a warm-up),
-    over GRAPH_CALLS.  ``fn`` has run before (lazy set-up stays out of the
-    capture)."""
-    import torch
-
-    from clive2_tpu_torch.scripts.kernel_microbench import timed
-
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
-        for _ in range(GRAPH_CALLS):
-            fn()
-    return timed(g.replay, torch.device("cuda"))[0] / GRAPH_CALLS
 
 
 def plain_time(fn):
@@ -2064,6 +2087,7 @@ def main() -> int:
     from clive2_tpu_torch.ops import mosaic_probes
     from clive2_tpu_torch.scripts import (kernel_microbench, kernel_stats,
                                           link_probe, probe_mosaic_layouts)
+    from clive2_tpu_torch.scripts.kernel_microbench import graph_ms
 
     def quiet(line):
         pass
@@ -2189,8 +2213,14 @@ def main() -> int:
     if not (torch.equal(got, want) and torch.equal(lib, want)):
         raise AssertionError("link probe kernel: not a * 2 + 1 bit for bit")
     b_ms, b_by = bound(2 * a.numel() * 4, 2 * a.numel())
+    # ms: the mean of 20 wrapper calls, their host path included; graph_ms:
+    # the card's time alone, per call of 20 replayed from a CUDA graph
     probe_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b_ms, bound_by=b_by, bit_equal=True)
+                     bound_ms=b_ms, bound_by=b_by, bit_equal=True,
+                     graph_ms=graph_ms(
+                         lambda: probe_kernel.scale_shift(a)),
+                     library_graph_ms=graph_ms(
+                         lambda: torch.addcmul(one, a, two)))
     emit(phase="link_probe", rows=probe_rows,
          verdict=link_probe.verdict(probe_rows),
          launches=ran, kernel=probe_row, seconds=time.perf_counter() - t1,
@@ -2218,7 +2248,7 @@ def main() -> int:
     def timed(fn):
         return kernel_microbench.timed(fn, dev)
 
-    mosaic = {}
+    mosaic, in_turns = {}, {}
     for r in probes:
         kernel, args, got = r["kernel"], r["args"], r["out"]
         fn = getattr(mosaic_probes, kernel)
@@ -2254,9 +2284,10 @@ def main() -> int:
             # the library call: torch.mm on the bf16 operands with an f32
             # output where this PyTorch has out_dtype, else on the f32
             # casts (TF32 off); both timed where both exist
-            f32 = (lambda: torch.mm(lhs.float(), b.float()),
+            f32 = (lambda lhs=lhs, b=b: torch.mm(lhs.float(), b.float()),
                    "torch.mm on the f32 casts, TF32 off")
-            bf16 = (lambda: torch.mm(lhs, b, out_dtype=torch.float32),
+            bf16 = (lambda lhs=lhs, b=b: torch.mm(lhs, b,
+                                                  out_dtype=torch.float32),
                     "torch.mm(bf16, bf16, out_dtype=torch.float32)")
             row["mm_f32_ms"], lib = timed(f32[0])
             libs, call = {"mm_f32": lib}, f32
@@ -2274,6 +2305,8 @@ def main() -> int:
                 library_call=call[1], library_graph_ms=graph_ms(call[0]),
                 library_max_abs_err={k: float((v - want).abs().max())
                                      for k, v in libs.items()})
+            in_turns[f"{r['tag']} kernel"] = lambda fn=fn, a=a, b=b: fn(a, b)
+            in_turns[f"{r['tag']} library"] = call[0]
         row.update(bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
                    graph_bound_share=b_ms / row["graph_ms"])
         mosaic[r["tag"]] = row
@@ -2296,8 +2329,34 @@ def main() -> int:
                              "plain version past 2^-14 |A|ᵀ|B|")
     k_major.update(shape="[640, 128] @ [128, 128]",
                    bit_equal=torch.equal(outs["row_major"], outs["k_major"]))
+    # the product kernel as built: ptxas's figures per instance, the tile
+    # and grid of each product, and the tile widths and epilogues tried
+    tile = mosaic_probes.TILE
+    resources = mma_ptxas_figures(kernels.ptxas_report("mosaic_probes.cu"))
+    records = {r["tag"]: r for r in probes}
+    # dynamic_smem_bytes: what the entry asks for at this K, B's rows
+    design = {tag: dict(resources[kernel], tile=[tile["m"], tile["n"]],
+                        grid=[records[tag]["out"].shape[1] // tile["n"],
+                              records[tag]["out"].shape[0] // tile["m"]],
+                        dynamic_smem_bytes=mosaic_probes.smem_bytes(
+                            records[tag]["args"][1].shape[0]))
+              for tag, kernel in (("dotT", "matmul_t"), ("dot128", "matmul"))}
+    # the two products and their library calls again in turns (forward,
+    # reversed, twice), each from a CUDA graph: the ratios from the medians
+    # of 4 (the upper one), which one reading of each is too noisy to settle
+    turns = {name: [] for name in in_turns}
+    for keys in (list(turns), list(turns)[::-1]) * 2:
+        for name in keys:
+            turns[name].append(graph_ms(in_turns[name]))
+    med = {name: sorted(v)[len(v) // 2] for name, v in turns.items()}
+    for tag in ("dotT", "dot128"):
+        design[tag]["graph_over_library"] = (med[f"{tag} kernel"]
+                                             / med[f"{tag} library"])
+    design.update(turns_graph_ms=turns, dot128_over_dotT=med["dot128 kernel"]
+                  / med["dotT kernel"])
     emit(phase="mosaic_probes", lines=probe_lines, launches=ran,
-         probes=mosaic, k_major_ab=k_major, seconds=time.perf_counter() - t1,
+         probes=mosaic, k_major_ab=k_major, product_kernel=design,
+         tiles_tried=MMA_TILES_TRIED, seconds=time.perf_counter() - t1,
          tools_seconds=time.perf_counter() - t0)
 
     # ---- 8. the same small render on the CPU and on the card --------------
@@ -2442,7 +2501,8 @@ def main() -> int:
              replaces="scripts/link_probe.py:84",
              launches=tools["link_probe"], max_abs_err=0.0,
              **{k: probe_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
+                                          "bound_by", "library_ms",
+                                          "graph_ms", "library_graph_ms")},
              library_call="torch.addcmul(1, a, 2): a * 2 + 1 in one call",
              cast="f32 [256, 128]")]
     # the layout probes (phase mosaic_probes): the copy's row is dma128's

@@ -4,10 +4,11 @@ two bf16 products with f32 sums.
 Replace the TPU kernels of ``scripts/probe_mosaic_layouts.py``:
 ``dma_probe.kern`` (``pallas_call`` at :47) by ``slab_copy``, ``dotT_kern``
 (:77) by ``matmul_t`` and ``dot128_kern`` (:90) by ``matmul``.  The kernels
-are csrc/mosaic_probes.cu (a bulk asynchronous copy; ``mma.sync`` with
-``ldmatrix``); the ``*_plain`` functions are their plain versions.  A
-wrapper takes the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor; it raises on anything the kernel does not take.
+are csrc/mosaic_probes.cu (a bulk asynchronous copy; ``wgmma`` on
+operands that TMA loads into shared memory, all of K at once); the
+``*_plain`` functions are their plain versions.  A wrapper takes the plain
+version for a CPU tensor and launches the kernel for a CUDA tensor; it
+raises on anything the kernel does not take.
 
 The plain products multiply by broadcast in f32 and sum over K, not
 ``torch.matmul``: a product of two bf16 values is exact in f32, so only the
@@ -23,9 +24,20 @@ import torch
 SLAB = 2                      # the script's src.at[2]
 WINDOW = (8, 128)             # the script's out[...] = slot[:8, :128]
 MAX_SLAB_BYTES = 227 * 1024 - 128    # csrc/mosaic_probes.cu:kMaxSlabBytes
-TILE = dict(m=64, n=64, k=32)        # the product kernel's block tile
+# the product kernel's steps (csrc/mosaic_probes.cu: kBM, kBN, kKStep): M
+# and N multiples of a block's tile, K of one wgmma's depth, up to MAX_K
+# (kMaxK: all of K resident in shared memory)
+TILE = dict(m=64, n=32, k=16)
+MAX_K = 512
 REL = 2.0 ** -14     # a product's tolerance against its plain version,
                      # times abs_product: elementwise
+
+
+def smem_bytes(k):
+    """Dynamic shared memory the product kernel asks for at depth ``k``
+    (csrc/mosaic_probes.cu:mma_smem_bytes): A's and B's 64-deep TMA boxes
+    and 1 KB to align them to the swizzle's repeat."""
+    return 1024 + -(-k // 64) * 64 * 2 * (TILE["m"] + TILE["n"])
 
 
 def slab_copy_plain(x):
@@ -114,6 +126,13 @@ def slab_copy(x):
 slab_copy.launches = 0
 
 
+def _tma_operand(t, what):
+    """``t`` contiguous with the 16-byte aligned base TMA reads from.  Its
+    rows are M, N or K bf16 apart, which TILE makes a multiple of 32 bytes,
+    so TMA's 16-byte row stride needs no check of its own."""
+    return _aligned(t.contiguous(), what)
+
+
 def _mma(name, a, b, m, k, transposed):
     from .. import kernels
 
@@ -121,11 +140,13 @@ def _mma(name, a, b, m, k, transposed):
     if b.dim() != 2 or b.shape[0] != k:
         raise ValueError(f"{name}: b must be [{k}, N], got {tuple(b.shape)}")
     n = b.shape[1]
-    if m % TILE["m"] or n % TILE["n"] or k % TILE["k"] or not m * n * k:
+    if (m % TILE["m"] or n % TILE["n"] or k % TILE["k"] or k > MAX_K
+            or not m * n * k):
         raise ValueError(f"{name}: M={m}, N={n}, K={k}; the kernel takes "
-                         f"M and N multiples of 64 and K of 32")
-    a = _aligned(a.contiguous(), f"{name}: a")
-    b = _aligned(b.contiguous(), f"{name}: b")
+                         f"M a multiple of {TILE['m']}, N of {TILE['n']} "
+                         f"and K of {TILE['k']} up to {MAX_K}")
+    a = _tma_operand(a, f"{name}: a")
+    b = _tma_operand(b, f"{name}: b")
     c = torch.empty(m, n, device=a.device)
     kernels.call("clive2_mma_bf16", a.device, kernels.ptr(a), kernels.ptr(b),
                  kernels.ptr(c), ctypes.c_int(m), ctypes.c_int(n),
@@ -135,7 +156,8 @@ def _mma(name, a, b, m, k, transposed):
 
 def matmul_t(a, b):
     """aᵀ b (a bf16 [K, M], b [K, N]) as f32 [M, N]: ``matmul_t_plain`` on
-    the CPU, the ``mma.sync`` kernel with a K-major A on the card."""
+    the CPU, the ``wgmma`` kernel with a K-major A (transposed in shared
+    memory) on the card."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_t_plain(a, b)
     if a.dim() != 2:
@@ -150,7 +172,7 @@ matmul_t.launches = 0
 
 def matmul(a, b):
     """a b (a bf16 [M, K], b [K, N]) as f32 [M, N]: ``matmul_plain`` on the
-    CPU, the ``mma.sync`` kernel on the card."""
+    CPU, the ``wgmma`` kernel on the card."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_plain(a, b)
     if a.dim() != 2:

@@ -67,6 +67,22 @@ def timed(fn, device):
     return sorted(times)[ITERS // 2], out
 
 
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn):
+    """Device milliseconds per call of ``fn`` with no host path between the
+    calls: GRAPH_CALLS calls captured in one CUDA graph, its replay timed
+    as ``timed`` times a call (median of 5 after a warm-up), over
+    GRAPH_CALLS.  ``fn`` has run before (lazy set-up stays out of the
+    capture)."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return timed(g.replay, torch.device("cuda"))[0] / GRAPH_CALLS
+
+
 def line(name, ms, n_active, n_packets):
     return (f"  {name:12s} {ms:8.2f} ms  {n_active / ms / 1e3:7.2f} Mrays/s"
             f"  {ms * 1e3 / n_packets:8.3f} us/packet")

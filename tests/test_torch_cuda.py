@@ -14,7 +14,11 @@ tables, and two gloo ranks on one card render a tile each of one sample.
 The packet walk of the traversal tools (every variant, both packet sizes)
 matches its plain version's counts, t and ids, and the link probe's
 kernel is a * 2 + 1 bit for bit.  The layout probes' kernels match their
-plain versions at the script's shapes and raise off their tiles.
+plain versions at the script's shapes, the products also across several
+tiles and from the smallest K to the largest on normals, mixed magnitudes
+and cancelling sums, and raise off their tiles and past MAX_K:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k mosaic
 """
 
 import numpy as np
@@ -733,6 +737,81 @@ def test_mosaic_probe_kernel_matches_plain(dev, tag):
     got, _ = tool.held(kernel, args)
     assert wrapper.launches == launches + 1
     assert got.is_cuda and got.dtype == torch.float32
+
+
+# products across several M and N tiles, at the smallest K, at a K that
+# ends inside a TMA box (48, 208) and at the largest (MAX_K), beside the
+# script's shapes: (M, N, K), N a multiple of every tile width tried
+PRODUCT_SHAPES = [(640, 128, 128), (640, 128, 64), (192, 256, 16),
+                  (128, 384, 48), (64, 128, 208), (256, 256, 512)]
+
+
+def _product_operands(kind, m, n, k):
+    """f64 A [M, K] and B [K, N]: normals; normals times powers of two
+    from 2^-24 to 2^24 elementwise ("large"); or a second half of K that
+    undoes the first up to a 2^-8 change in A ("cancelling")."""
+    rng = np.random.default_rng(m * n + k)
+    a, b = rng.standard_normal((m, k)), rng.standard_normal((k, n))
+    if kind == "large":
+        a *= 2.0 ** rng.integers(-24, 25, size=a.shape)
+        b *= 2.0 ** rng.integers(-24, 25, size=b.shape)
+    elif kind == "cancelling":
+        h = k // 2
+        a[:, h:2 * h] = a[:, :h] * (1 + 2.0 ** -8
+                                    * rng.standard_normal((m, h)))
+        b[h:2 * h] = -b[:h]
+    return a, b
+
+
+@pytest.mark.parametrize("kind", ["normal", "large", "cancelling"])
+@pytest.mark.parametrize("shape", PRODUCT_SHAPES)
+@pytest.mark.parametrize("kernel", ["matmul", "matmul_t"])
+def test_mosaic_products_within_rel_of_plain(dev, kernel, shape, kind):
+    """Each product kernel within ``REL`` |A|ᵀ|B| of its plain version on
+    every element, one launch a call."""
+    from clive2_tpu_torch.ops import mosaic_probes as mp
+
+    m, n, k = shape
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+            for x in _product_operands(kind, m, n, k))
+    transposed = kernel == "matmul_t"
+    a = (a.t().contiguous() if transposed else a).to(dev)
+    b = b.to(dev)
+    wrapper = getattr(mp, kernel)
+    launches = wrapper.launches
+    got = wrapper(a, b)
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 1
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    want = getattr(mp, f"{kernel}_plain")(a, b)
+    bound = mp.REL * mp.abs_product(a, b, transposed)
+    excess = (got - want).abs() - bound
+    i, j = divmod(int(excess.argmax()), n)
+    assert bool((excess <= 0).all()), (
+        f"worst element [{i}, {j}]: kernel {got[i, j].item()!r}, plain "
+        f"{want[i, j].item()!r}, bound {bound[i, j].item()!r}")
+
+
+def test_mosaic_products_raise_past_max_k(dev):
+    """K past MAX_K (all of K resident in shared memory) raises, in the
+    wrapper and in the C entry."""
+    import ctypes
+
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.ops import mosaic_probes as mp
+
+    k = mp.MAX_K + mp.TILE["k"]
+    a = torch.ones(64, k, dtype=torch.bfloat16, device=dev)
+    b = torch.ones(k, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="up to"):
+        mp.matmul(a, b)
+    with pytest.raises(ValueError, match="up to"):
+        mp.matmul_t(a.t().contiguous(), b)
+    out = torch.empty(64, 128, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.call("clive2_mma_bf16", dev, kernels.ptr(a), kernels.ptr(b),
+                     kernels.ptr(out), ctypes.c_int(64), ctypes.c_int(128),
+                     ctypes.c_int(k), ctypes.c_int(0))
 
 
 # shapes off the kernels' tiles: a slab of 30 bytes, K = 40, M = 600

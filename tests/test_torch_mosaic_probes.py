@@ -16,6 +16,7 @@ chip_smoke.py's phase ``mosaic_probes``.
 
 import ast
 import os
+import re
 import sys
 
 import jax
@@ -195,22 +196,62 @@ def test_new_modules_import_no_jax(path):
                 if m.split(".")[0] in ("jax", "jaxlib", "clive2_tpu")]
 
 
+def _source():
+    csrc = os.path.join(ROOT, "clive2_tpu_torch", "csrc")
+    return (open(os.path.join(csrc, "mosaic_probes.cu")).read(),
+            open(os.path.join(csrc, "common.cuh")).read())
+
+
 def test_kernel_source_is_a_bulk_copy_and_mma_products():
     """csrc/mosaic_probes.cu: the copy is one cp.async.bulk on an mbarrier
-    (common.cuh:bulk_load), the products mma.sync bf16 with ldmatrix; no
-    library product inside."""
-    csrc = os.path.join(ROOT, "clive2_tpu_torch", "csrc")
-    src = open(os.path.join(csrc, "mosaic_probes.cu")).read()
-    common = open(os.path.join(csrc, "common.cuh")).read()
+    (common.cuh:bulk_load); the products are wgmma on shared memory that
+    TMA tensor loads filled, issued as one committed group and waited for;
+    no mma.sync, ldmatrix or library product inside."""
+    src, common = _source()
     assert "bulk_load(slab_bytes" in src
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
     for ptx in ("cp.async.bulk.shared::cluster.global.mbarrier",
                 "mbarrier.arrive.expect_tx", "mbarrier.try_wait.parity"):
         assert ptx in common
-    for ptx in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
-                "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
-                "ldmatrix.sync.aligned.m8n8.x4.shared.b16"):
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n",
+                "k16.f32.bf16.bf16",
+                "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier",
+                "mbarrier.arrive.expect_tx", "wgmma.fence.sync.aligned",
+                "wgmma.commit_group.sync.aligned",
+                "wgmma.wait_group.sync.aligned 0",
+                "__grid_constant__ CUtensorMap", "cuTensorMapEncodeTiled"):
         assert ptx in src
     code = "\n".join(ln.split("//")[0] for ln in src.splitlines()).lower()
-    for name in ("cublas", "cutlass", "torch", "#include <mma"):
+    for name in ("mma.sync", "ldmatrix", "cublas", "cutlass", "torch",
+                 "#include <mma"):
         assert name not in code
+
+
+def test_wrapper_steps_are_the_kernel_constants():
+    """ops/mosaic_probes.py's TILE and MAX_K are the source's kBM, kBN,
+    kKStep and kMaxK, and the wgmma's width is kBN."""
+    src, _ = _source()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    assert mp.TILE == dict(m=const("kBM"), n=const("kBN"),
+                           k=const("kKStep"))
+    assert mp.MAX_K == const("kMaxK")
+    assert mp.MAX_K % mp.TILE["k"] == 0
+    assert re.findall(r"wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16",
+                      src) == [str(mp.TILE["n"])]
+
+
+@pytest.mark.parametrize("k", [16, 48, 64, 80, 128, 256, 512])
+def test_smem_bytes_is_the_sources(k):
+    """ops/mosaic_probes.py:smem_bytes is what the source's mma_smem_bytes
+    asks for at K, with the source's constants put in."""
+    src, _ = _source()
+    body = re.search(r"constexpr int mma_smem_bytes\(int k\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    names = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src), k=k)
+    expr = re.sub(r"\b(k\w*)\b", lambda m: str(names[m.group(1)]), body)
+    # C's int division on positive operands is Python's //
+    assert mp.smem_bytes(k) == eval(expr.replace("/", "//"))
