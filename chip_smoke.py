@@ -55,7 +55,9 @@ package's tools in scripts/ that ran TPU kernels, each through its own
 entry point with its launch counts (``packet_stats``: kernel_stats on
 teapots 512 and dragon 512, three ray populations at packets of 1,024 and
 32 rays, the packet walk kernel's counts, t and ids against its plain
-version on every packet and ray; ``packet_ablation``:
+version on every packet and ray, each cast timed by single launches and
+from a CUDA graph, with the mean and most pops per packet;
+``packet_ablation``:
 kernel_microbench's five variants on teapots 512's connection casts beside
 the BVH2 kernel on the same cast, and that kernel's mean over 5
 back-to-back calls beside the host's time to issue them and the
@@ -140,23 +142,58 @@ def emit(**kv):
     print(json.dumps(kv), flush=True)
 
 
-def mma_ptxas_figures(report):
+def ptxas_figures(report, tag_of):
     """Registers, static shared memory bytes and spill-store bytes of each
-    bf16 product kernel instance (matmul_t: A transposed; matmul) in
-    ptxas's report on mosaic_probes.cu."""
+    kernel instance in ptxas's report that ``tag_of(mangled name)`` names
+    (None: not reported)."""
     figures = {}
     for part in report.split("Compiling entry function")[1:]:
-        name = part.split("'", 2)[1]
-        if "mma_kernel" not in name:
+        tag = tag_of(part.split("'", 2)[1])
+        if tag is None:
             continue
-        kernel = "matmul_t" if "ILb1E" in name else "matmul"
         smem = re.search(r"(\d+) bytes smem", part)
-        figures[kernel] = dict(
+        figures[tag] = dict(
             registers=int(re.search(r"Used (\d+) registers", part).group(1)),
             static_smem_bytes=int(smem.group(1)) if smem else 0,
             spill_store_bytes=int(re.search(r"(\d+) bytes spill stores",
                                             part).group(1)))
     return figures
+
+
+def mma_tag(name):
+    """The bf16 product kernel's instances in mosaic_probes.cu: matmul_t
+    (A transposed) and matmul."""
+    if "mma_kernel" not in name:
+        return None
+    return "matmul_t" if "ILb1E" in name else "matmul"
+
+
+PACKET_KERNEL = re.compile(
+    r"packet_walk_kernelILi(\d+)ELi\d+ELi(\d)ELi(\d)ELb([01])E")
+
+
+def packet_tag(name):
+    """A packet walk kernel instance (csrc/packet_walk.cu) by its variant,
+    packet size and counting, e.g. "noreduce [1024] count"."""
+    from clive2_tpu_torch.ops.packet_walk import VARIANTS
+
+    m = PACKET_KERNEL.search(name)
+    if m is None:
+        return None
+    modes = (("skip", "always", "none")[int(m.group(2))],
+             ("tmin", "fixed", "any")[int(m.group(3))])
+    variant = next(k for k, v in VARIANTS.items() if v == modes)
+    return f"{variant} [{m.group(1)}]" + (" count" if m.group(4) == "1"
+                                          else "")
+
+
+def resident_blocks(registers, smem, threads):
+    """Blocks of ``threads`` an H100 SM holds with ptxas's figures: 65,536
+    registers allocated in 8 a thread, 2,048 threads, 228 KB of shared
+    memory of which each block reserves 1 KB, at most 32 blocks."""
+    regs = -(-registers // 8) * 8
+    return min(65536 // (regs * threads), 2048 // threads,
+               (228 << 10) // (smem + 1024), 32)
 
 
 def work_ops(work, scale=1):
@@ -393,7 +430,8 @@ def brute_fmad(c, tris, ref):
 
 
 def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
-                                      "stream_kernel", "wide_kernel")):
+                                      "stream_kernel", "wide_kernel",
+                                      "packet_walk_kernel")):
     """SASS instruction counts of the named kernels in a built library
     (``cuobjdump -sass``): per kernel instance, its instructions, and for
     the innermost loop that holds a MUFU.RCP (the triangle test's
@@ -429,8 +467,9 @@ def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
             if rcp and (best is None or len(body) > best["instructions"]):
                 best = dict(instructions=len(body), mufu_rcp=rcp,
                             per_test=len(body) / rcp)
-        tag = "any_hit" if "ILb1E" in name else (
-            "closest" if "ILb0E" in name else "")
+        tag = packet_tag(name) if short == "packet_walk_kernel" else (
+            "any_hit" if "ILb1E" in name else (
+                "closest" if "ILb0E" in name else ""))
         out[f"{short} {tag}".strip()] = dict(instructions=len(addr),
                                              triangle_loop=best)
     return out
@@ -884,21 +923,30 @@ def main() -> int:
     emit(phase="build", library=os.path.relpath(so),
          sources=[os.path.relpath(src) for src in kernels.sources()],
          nvcc_seconds=nvcc_s, seconds=time.perf_counter() - t0)
-    # the persistent traversal kernels' and the brute kernel's resources:
-    # ptxas's report (registers, shared memory, spills), what the runtime
-    # reports (resident blocks), and their SASS instruction counts
+    # the persistent traversal kernels', the brute kernel's and the packet
+    # walk's resources: ptxas's report (registers, shared memory, spills),
+    # what the runtime reports (resident blocks; for the packet walk, per
+    # instance, from ptxas's figures), and their SASS instruction counts
     for name, src, module in (("bvh2", "traverse_bvh2.cu", traverse_bvh2),
                               ("stream", "traverse_stream.cu",
                                traverse_stream),
                               ("wide", "traverse_wide.cu", traverse_wide),
-                              ("brute", "brute.cu", None)):
+                              ("brute", "brute.cu", None),
+                              ("packet_walk", "packet_walk.cu", None)):
         ptxas = kernels.ptxas_report(src)
+        instances = None
+        if name == "packet_walk":
+            instances = ptxas_figures(ptxas, packet_tag)
+            for tag, f in instances.items():
+                f["resident_blocks"] = resident_blocks(
+                    f["registers"], f["static_smem_bytes"],
+                    1024 if "[1024]" in tag else 256)
         emit(phase=f"{name}_resources",
              ptxas=[ln.strip() for ln in ptxas.splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln],
              runtime=None if module is None else {
                  "any_hit" if a else "closest": module.kernel_info(any_hit=a)
-                 for a in (False, True)})
+                 for a in (False, True)}, instances=instances)
     emit(phase="sass", library=os.path.relpath(so), kernels=sass_figures(so))
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -2095,13 +2143,19 @@ def main() -> int:
     def held_packets(label, c, tables, packet, group, variant, count,
                      kernel_ms=None):
         """The packet walk on cast ``c``: the kernel (timed as the
-        microbench times it, unless its time is given) against one call of the plain version,
-        counts, t and ids equal on every packet and ray; the figures, with
-        the bound from the plain call's work."""
+        microbench times it, unless its time is given, and from a CUDA
+        graph) against one call of the plain version, counts, t and ids
+        equal on every packet and ray; the figures, with the bound from the
+        plain call's work and the pops per packet, mean and most (the
+        launch is at most two waves, so the longest packets may set its
+        time)."""
         kw = dict(tables=tables, packet=packet, group=group,
                   variant=variant, count=count)
         ms, got = kernel_microbench.timed(
             lambda: packet_walk.packet_walk(**c, **kw), dev)
+        g_ms = graph_ms(lambda: packet_walk.packet_walk(**c, **kw))
+        stats = (got if count else packet_walk.packet_walk(
+            **c, **dict(kw, count=True)))[2]
         n = c["origin"].shape[0]
         packets = packet_walk.packet_count(n, packet)
         plain_ms, want, work = plain_time(
@@ -2114,11 +2168,15 @@ def main() -> int:
         nbytes = (n * (12 + 12 + 1 + 4 + 4 + 4) + 12 * packets * count
                   + table_bytes({k: tables[k] for k in ("nodes", "tris")}))
         b_ms, b_by = bound(nbytes, work_ops(work))
+        pops = stats[:, 0].double()
         return dict(rays=n, active=kernel_stats.active_rays(c),
                     packets=packets, packet=packet, group=group,
-                    variant=variant, ms=kernel_ms or ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by,
-                    bound_share=b_ms / (kernel_ms or ms), matches_plain=True)
+                    variant=variant, ms=kernel_ms or ms, graph_ms=g_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    bound_share=b_ms / (kernel_ms or ms),
+                    graph_bound_share=b_ms / g_ms,
+                    pops_per_packet=float(pops.mean()),
+                    max_pops_per_packet=int(pops.max()), matches_plain=True)
 
     tools = {}
     t0 = time.perf_counter()
@@ -2332,7 +2390,8 @@ def main() -> int:
     # the product kernel as built: ptxas's figures per instance, the tile
     # and grid of each product, and the tile widths and epilogues tried
     tile = mosaic_probes.TILE
-    resources = mma_ptxas_figures(kernels.ptxas_report("mosaic_probes.cu"))
+    resources = ptxas_figures(kernels.ptxas_report("mosaic_probes.cu"),
+                              mma_tag)
     records = {r["tag"]: r for r in probes}
     # dynamic_smem_bytes: what the entry asks for at this K, B's rows
     design = {tag: dict(resources[kernel], tile=[tile["m"], tile["n"]],
@@ -2477,23 +2536,25 @@ def main() -> int:
              source="clive2_tpu_torch/csrc/packet_walk.cu",
              replaces="scripts/kernel_stats.py:31",
              launches=sum(tools["packet_stats"].values()), max_abs_err=0.0,
-             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by")},
+             **{k: head[k] for k in ("ms", "graph_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
              library_ms=None, library_note=no_walk_call,
              cast="teapots 512 connection casts, 1,024-ray packets",
              casts={" ".join(map(str, k)): {
-                 f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+                 f: v[f] for f in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                   "max_pops_per_packet")}
                  for k, v in stats_rows.items()}),
         dict(name="packet_walk_variants", route="cuda",
              source="clive2_tpu_torch/csrc/packet_walk.cu",
              replaces="scripts/kernel_microbench.py:38",
              launches=tools["packet_ablation"], max_abs_err=0.0,
-             **{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by")},
+             **{k: full[k] for k in ("ms", "graph_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
              library_ms=None, library_note=no_walk_call,
              cast="teapots 512 connection casts, variant full, 1,024-ray "
                   "packets",
-             variants={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+             variants={k: {f: v[f] for f in ("ms", "graph_ms", "plain_ms",
+                                             "bound_ms")}
                        for k, v in ablation.items()},
              bvh2_kernel_same_cast_ms=bench["bvh2"]["ms"]),
         dict(name="link_probe", route="cuda",

@@ -13,21 +13,58 @@
 // with both children's boxes and references, and 48-byte triangle rows
 // v0(3) id e1(3) 0 e2(3) 0, a leaf being ~(first << kLeafBits | count).
 //
-// Design, the simple one: a packet of kPacket rays is kPacket threads, one
+// Design, for Hopper.  A packet of kPacket rays is kPacket threads, one
 // ray each.  At 1,024 rays (the TPU's packet, groups of 128) a packet is a
-// block; at 32 (one warp, one group) a block holds kWarpPackets packets, one
-// per warp, so that the SMs fill.  A packet's stack and the rows of the leaf
-// it tests sit in shared memory.  Each step every thread reads the popped
-// node record (one broadcast 64-byte record), tests both child boxes for
-// its ray, and the packet reduces: "some ray hits" with __syncthreads_or or
-// __any_sync, the packet's least entry distance with a shuffle min in each
-// warp and a pass over the warps' minima.  Every thread then holds the same
-// verdicts and keeps the same stack pointer; one thread writes the pushes.
-// A leaf child some ray hits is tested at once: the packet copies its <= 8
-// rows into shared memory, and each group of kGroup rays runs
-// Möller-Trumbore on them when some ray of the group hit the leaf box (one
-// __any_sync per warp, or one flag per warp combined over the group's
-// warps), or always (nogroupskip).
+// block of 32 warps; at 32 (one warp, one group) a block holds
+// kWarpPackets packets, one per warp, so that the SMs fill.  Every warp
+// keeps its own copy of the packet's stack, the record of the node it pops
+// next and the rows of the leaves it tests, in its slice of shared memory,
+// so only __syncwarp orders them.  A step:
+//
+//  1. wait for the popped node's record (copied by cp.async the step
+//     before) and read it (four broadcast LDS.128);
+//  2. test both child boxes for the thread's ray;
+//  3. the warp's verdicts: __ballot_sync of the two hits, and
+//     __reduce_min_sync of the two entry distances' bits (below); a warp
+//     some of whose rays hit a leaf child starts copying that leaf's <= 24
+//     rows (cp.async, one 16-byte copy a lane) while the packet decides;
+//  4. (1,024 rays only) the exchange: lane 0 writes the warp's record
+//     {least entry bits of A, of B, any hit of A, of B} (16 bytes) into
+//     record[step & 1][warp]; one __syncthreads; lane i reads warp i's
+//     record (one LDS.128) and the warp reduces the 32 records with two
+//     __reduce_min_sync and two __ballot_sync.  Every warp now holds the
+//     packet's verdicts, and bit w of the ballots says whether warp w hit
+//     a child's box, so group g's flag is nibble g (4 warps of 128 rays)
+//     and the groups tested are the non-zero nibbles: the leaf test needs
+//     no barrier of its own;
+//  5. push and pop on the warp's own stack (lane 0 writes, __syncwarp):
+//     the next node is then known, and its record's copy starts before
+//     this step's leaf tests, so its latency hides under them;
+//  6. the leaf tests, A then B: Möller-Trumbore on the warp's copy of the
+//     rows.  In the skip variants a warp none of whose rays hit the leaf
+//     box skips its tests (hit gates every update, so its rays could not
+//     take a hit, and the groups tested are counted from the flags, not
+//     from what ran); nogroupskip runs every warp of every group.
+//
+// One barrier a step suffices for the double-buffered records.  A warp
+// writes record[k & 1] before the barrier of step k and every warp reads
+// it after that barrier and before it arrives at the barrier of step k + 1.
+// The next write to record[k & 1] is at step k + 2, after the barrier of
+// step k + 1, which no warp passes before every warp has arrived at it, so
+// before every read of step k is done.  The record of step k + 1 goes to
+// the other buffer.  Every warp computes the same verdicts from the same
+// records, so all keep the same stack and leave the loop at the same step.
+//
+// The bit minima.  An entry distance is >= 0 (packet_box clamps it at 0)
+// and not NaN (entry <= leave fails for NaN, so a NaN entry is no hit).
+// With the sign bit cleared (fmaxf may return -0.0, which must read as
+// +0.0) the bits of such floats order as the floats do, as unsigned
+// integers, and +inf (a ray with no hit, or an entry that overflowed to
+// inf under bt = inf) keeps its bits 0x7f800000.  So the least bits are
+// the least distance's, "some ray hits" is least < 0x7f800000 and "A on
+// top" is least_a <= least_b, exactly as packet_walk_plain reads its
+// float minima (ops/packet_walk.py: nearest < INF, near_a <= near_b).
+// noreduce takes "some ray hits" from the ballots alone.
 //
 // Its order is fixed by the packet: the pops, pushes and leaf tests are
 // decided from the packet's verdicts alone, which do not depend on how the
@@ -37,11 +74,8 @@
 // t itself (not common.cuh:cull_bound), as the TPU kernels do.
 //
 // What bounds it on the H100: the latency of the packet's serial steps, not
-// operations or bytes.  A step is a dependent node load, a block-wide
-// reduction or two and a barrier, for every ray of the packet, hit or not;
-// the 1,024-ray packet pays 32 warps' barrier per step, the 32-ray packet a
-// warp's shuffles.  Rays that left the packet's union keep their lanes busy
-// (the packet walk's inherent cost, which the TPU paid as well).
+// operations or bytes.  Rays that left the packet's union keep their lanes
+// busy (the packet walk's inherent cost, which the TPU paid as well).
 //
 // Rounding: compiled with --fmad=false; the slab test and Möller-Trumbore
 // follow the plain version's expression order, so every box verdict, t and
@@ -59,6 +93,7 @@ constexpr int kStack = 128;        // ops/packet_walk.py:STACK
 constexpr int kLeafRows = 8;       // ops/traverse_bvh2.py:LEAF_SLOTS
 constexpr int kLeafBits = 4;       // ops/traverse_bvh2.py:LEAF_BITS
 constexpr int kWarpPackets = 8;    // 32-ray packets per block
+constexpr unsigned kNoEntry = 0x7f800000u;   // +inf's bits
 
 enum LeafMode { kSkip = 0, kAlways = 1, kNoLeaf = 2 };
 enum OrderMode { kNear = 0, kFixed = 1, kAnyHit = 2 };
@@ -83,123 +118,106 @@ __device__ __forceinline__ bool packet_box(float lox, float loy, float loz,
   return entry <= leave;
 }
 
-__device__ __forceinline__ float warp_min(float x) {
-  for (int s = 16; s > 0; s >>= 1)
-    x = fminf(x, __shfl_xor_sync(kWarp, x, s));
-  return x;
+// An entry distance as bits that order as the distance (the note): the
+// sign cleared, or +inf's bits where the box is not hit.
+__device__ __forceinline__ unsigned entry_bits(bool hit, float entry) {
+  return hit ? __float_as_uint(entry) & 0x7fffffffu : kNoEntry;
 }
 
-// What a packet of kPacket threads shares: its stack, the rows of the leaf
-// it tests, and (1,024-ray packets) the warps' minima and group flags.
+// One 16-byte asynchronous copy from global to shared memory (cp.async,
+// cached in L1: the packet's warps read the same record); a group of them
+// is committed, and waited for until at most kPending later groups fly.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// What one warp keeps of its packet: its copy of the stack, the record of
+// the node it pops next, and the rows of child A's and B's leaves.
+struct WarpShared {
+  int stack[kStack];
+  float4 node[4];
+  float4 rows[2][3 * kLeafRows];
+};
+
+// A packet's warps and (1,024-ray packets) their records of a step, by the
+// step's parity: {least entry bits of A, of B, any hit of A, of B}.
 template <int kPacket>
 struct PacketShared {
   static constexpr int kWarps = kPacket / 32;
-  int stack[kStack];
-  float4 rows[kLeafRows * 3];
-  float min_a[kWarps];
-  float min_b[kWarps];
-  int flag[kWarps];
+  WarpShared warp[kWarps];
+  int4 record[2][kWarps];
 };
 
-template <int kPacket>
-__device__ __forceinline__ void packet_sync() {
-  if (kPacket == 32) __syncwarp(); else __syncthreads();
-}
-
-template <int kPacket>
-__device__ __forceinline__ bool packet_any(bool x) {
-  return kPacket == 32 ? __any_sync(kWarp, x) : __syncthreads_or(x) != 0;
-}
-
-// The packet's least value of a and of b.  The barriers order the reads of
-// the shared minima against their next writes.
-template <int kPacket>
-__device__ __forceinline__ void packet_min(PacketShared<kPacket>& sh,
-                                           float& a, float& b) {
-  a = warp_min(a);
-  b = warp_min(b);
-  if (kPacket == 32) return;
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    sh.min_a[warp] = a;
-    sh.min_b[warp] = b;
-  }
-  __syncthreads();
-  a = sh.min_a[0];
-  b = sh.min_b[0];
-  for (int w = 1; w < PacketShared<kPacket>::kWarps; ++w) {
-    a = fminf(a, sh.min_a[w]);
-    b = fminf(b, sh.min_b[w]);
-  }
-  __syncthreads();
-}
-
-// One leaf (ref, a leaf code) against the packet: the rays of each group
-// where some ray hit the box (kSkip) or of every group (kAlways) test its
-// triangles; a ray takes the least t under its best t (hit must hold), the
-// largest id among hits at exactly that t.  Returns the groups tested.
-template <int kPacket, int kGroup, int kLeaf>
-__device__ __forceinline__ int leaf_test(PacketShared<kPacket>& sh, int lane,
-                                         int ref, bool hit,
-                                         const float4* __restrict__ tris,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         float& bt, int& bi) {
+// Starts copying the rows of leaf ref into rows: lane k < 3 x count copies
+// float4 k.
+__device__ __forceinline__ void copy_rows(float4* rows,
+                                          const float4* __restrict__ tris,
+                                          int ref, int lane) {
   const int code = ~ref;
-  const int first = code >> kLeafBits;
-  const int count = code & ((1 << kLeafBits) - 1);
-  static_assert(kPacket == 32 ? kGroup == 32
-                                : kGroup % 32 == 0 && kPacket % kGroup == 0,
-                "a 32-ray packet is one group; larger groups are whole warps");
-  packet_sync<kPacket>();            // the last rows and flags were read
-  if (lane < 3 * count)
-    sh.rows[lane] = __ldg(tris + 3 * (long long)first + lane);
-  const bool warp_hit = __any_sync(kWarp, hit);
-  if (kPacket > 32 && (lane & 31) == 0) sh.flag[lane >> 5] = warp_hit;
-  packet_sync<kPacket>();            // the rows and flags are visible
-  bool go = true;
-  int tested = kPacket / kGroup;
-  if (kLeaf == kSkip && kPacket == 32) {
-    go = warp_hit;                   // one group: the warp
-    tested = go;
-  } else if (kLeaf == kSkip) {       // a group's flag: any of its warps'
-    constexpr int kGroupWarps = kGroup / 32;
-    tested = 0;
-    for (int g = 0; g < kPacket / kGroup; ++g) {
-      bool any = false;
-      for (int w = 0; w < kGroupWarps; ++w)
-        any = any || sh.flag[g * kGroupWarps + w];
-      tested += any;
-      if (g == lane / kGroup) go = any;
-    }
-  }
-  if (go) {
-    float best = INFINITY;
-    int best_id = -1;
-    for (int k = 0; k < count; ++k) {
-      const float4 p = sh.rows[3 * k];
-      const float4 q = sh.rows[3 * k + 1];
-      const float4 s = sh.rows[3 * k + 2];
-      float t, u, v;
-      const bool geo = moller_trumbore(p.x, p.y, p.z, q.x, q.y, q.z, s.x,
-                                       s.y, s.z, ox, oy, oz, dx, dy, dz, t,
-                                       u, v);
-      if (geo && t < bt && hit) {
-        const int id = (int)p.w;
-        if (t < best) {
-          best = t;
-          best_id = id;
-        } else if (t == best && id > best_id) {
-          best_id = id;
-        }
+  if (lane < 3 * (code & ((1 << kLeafBits) - 1)))
+    copy16(rows + lane, tris + 3 * (long long)(code >> kLeafBits) + lane);
+}
+
+// The groups a leaf visit tests, from the flags of the packet's warps (bit
+// w: warp w hit the leaf box; a group is kGroup / 32 adjacent warps).
+template <int kPacket, int kGroup, int kLeaf>
+__device__ __forceinline__ int groups_tested(unsigned flags) {
+  if (kLeaf == kAlways) return kPacket / kGroup;
+  if (kPacket == 32) return flags != 0;
+  constexpr int kGroupWarps = kGroup / 32;
+  static_assert(kGroupWarps == 4, "groups of 128 rays: a nibble of warps");
+  flags |= flags >> 1;
+  flags |= flags >> 2;               // bit 4g: some warp of group g
+  return __popc(flags & 0x11111111u);
+}
+
+// One leaf (ref, a leaf code) against the warp's rays, from the warp's copy
+// of its rows: a ray takes the least t under its best t (hit must hold),
+// the largest id among hits at exactly that t.  In the skip variants a warp
+// without a hit on the leaf box returns at once.
+template <int kLeaf>
+__device__ __forceinline__ void leaf_test(const float4* rows, int ref,
+                                          bool hit, unsigned warp_hits,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& bt, int& bi) {
+  if (kLeaf == kSkip && warp_hits == 0) return;
+  const int count = ~ref & ((1 << kLeafBits) - 1);
+  float best = INFINITY;
+  int best_id = -1;
+  for (int k = 0; k < count; ++k) {
+    const float4 p = rows[3 * k];
+    const float4 q = rows[3 * k + 1];
+    const float4 s = rows[3 * k + 2];
+    float t, u, v;
+    const bool geo = moller_trumbore(p.x, p.y, p.z, q.x, q.y, q.z, s.x, s.y,
+                                     s.z, ox, oy, oz, dx, dy, dz, t, u, v);
+    if (geo && t < bt && hit) {
+      const int id = (int)p.w;
+      if (t < best) {
+        best = t;
+        best_id = id;
+      } else if (t == best && id > best_id) {
+        best_id = id;
       }
     }
-    if (best < bt) {
-      bt = best;
-      bi = best_id;
-    }
   }
-  return tested;
+  if (best < bt) {
+    bt = best;
+    bi = best_id;
+  }
 }
 
 template <int kPacket, int kGroup, int kLeaf, int kOrder, bool kCount>
@@ -211,17 +229,23 @@ packet_walk_kernel(const float* __restrict__ origin,
                    long long n_packets, const float4* __restrict__ nodes,
                    const float4* __restrict__ tris, float* __restrict__ out_t,
                    int* __restrict__ out_i, int* __restrict__ out_counts) {
+  static_assert(kPacket == 32 ? kGroup == 32
+                              : kPacket == 1024 && kGroup == 128,
+                "packets of 32 rays (one group) or 1,024 (groups of 128): "
+                "a 1,024-ray packet's 32 warp records are one per lane");
   constexpr int kPerBlock = kPacket == 32 ? kWarpPackets : 1;
   __shared__ PacketShared<kPacket> shared[kPerBlock];
-  const int lane = threadIdx.x % kPacket;
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x % kPacket) >> 5;
   const long long packet =
       (long long)blockIdx.x * kPerBlock + threadIdx.x / kPacket;
   if (packet >= n_packets) return;   // a whole warp (32) or block (1,024)
   PacketShared<kPacket>& sh = shared[threadIdx.x / kPacket];
+  WarpShared& ws = sh.warp[warp];
 
   // the ray, or a padding ray past the end: inactive, at the origin, along
   // +x, capped at 0, as the scripts pad
-  const long long r = packet * kPacket + lane;
+  const long long r = packet * kPacket + (threadIdx.x % kPacket);
   const bool in = r < n_rays;
   const float ox = in ? origin[3 * r + 0] : 0.0f;
   const float oy = in ? origin[3 * r + 1] : 0.0f;
@@ -237,69 +261,102 @@ packet_walk_kernel(const float* __restrict__ origin,
   int bi = -1;
 
   int pops = 0, leaves = 0, groups = 0;
-  int sp = 1;
-  if (lane == 0) sh.stack[0] = 0;
-  packet_sync<kPacket>();
-  while (sp > 0) {
-    const int node = sh.stack[--sp];
-    packet_sync<kPacket>();          // read before the pushes overwrite it
+  int sp = 0;                        // entries below the popped node
+  int parity = 0;
+  if (lane < 4) copy16(&ws.node[lane], nodes + lane);     // the root
+  copy_commit();
+  while (true) {
+    copy_wait<0>();
+    __syncwarp();                    // the popped node's record is here
+    const float4 xa = ws.node[0];
+    const float4 xb = ws.node[1];
+    const float4 z = ws.node[2];
+    const float4 c = ws.node[3];
     ++pops;
-    const float4* nd = nodes + 4 * (long long)node;
-    const float4 xa = __ldg(nd);
-    const float4 xb = __ldg(nd + 1);
-    const float4 z = __ldg(nd + 2);
-    const float4 c = __ldg(nd + 3);
     float ta, tb;
     const bool ha = packet_box(xa.x, xa.z, z.x, xa.y, xa.w, z.y, ox, oy, oz,
                                ix, iy, iz, bt, ta) && act;
     const bool hb = packet_box(xb.x, xb.z, z.z, xb.y, xb.w, z.w, ox, oy, oz,
                                ix, iy, iz, bt, tb) && act;
-    bool any_a, any_b, a_top = true;
-    if (kOrder == kAnyHit) {
-      any_a = packet_any<kPacket>(ha);
-      any_b = packet_any<kPacket>(hb);
-    } else {
-      float near_a = ha ? ta : INFINITY;
-      float near_b = hb ? tb : INFINITY;
-      packet_min<kPacket>(sh, near_a, near_b);
-      any_a = near_a < INFINITY;
-      any_b = near_b < INFINITY;
-      if (kOrder == kNear) a_top = near_a <= near_b;
-    }
     const int ca = __float_as_int(c.x);
     const int cb = __float_as_int(c.y);
+    const unsigned warp_a = __ballot_sync(kWarp, ha);
+    const unsigned warp_b = __ballot_sync(kWarp, hb);
+    // the rows of a leaf child this warp may test fly while the packet
+    // decides
+    if (kLeaf != kNoLeaf) {
+      if (ca < 0 && (kLeaf == kAlways || warp_a)) copy_rows(ws.rows[0], tris,
+                                                            ca, lane);
+      if (cb < 0 && (kLeaf == kAlways || warp_b)) copy_rows(ws.rows[1], tris,
+                                                            cb, lane);
+      copy_commit();
+    }
+    unsigned near_a = 0, near_b = 0;
+    if (kOrder != kAnyHit) {
+      near_a = __reduce_min_sync(kWarp, entry_bits(ha, ta));
+      near_b = __reduce_min_sync(kWarp, entry_bits(hb, tb));
+    }
+    unsigned flags_a = warp_a, flags_b = warp_b;
+    if (kPacket > 32) {              // the exchange (the note, step 4)
+      if (lane == 0)
+        sh.record[parity][warp] = make_int4((int)near_a, (int)near_b,
+                                            warp_a != 0, warp_b != 0);
+      __syncthreads();
+      const int4 rec = sh.record[parity][lane];
+      parity ^= 1;
+      if (kOrder != kAnyHit) {
+        near_a = __reduce_min_sync(kWarp, (unsigned)rec.x);
+        near_b = __reduce_min_sync(kWarp, (unsigned)rec.y);
+      }
+      flags_a = __ballot_sync(kWarp, rec.z);
+      flags_b = __ballot_sync(kWarp, rec.w);
+    }
+    const bool any_a = kOrder == kAnyHit ? flags_a != 0 : near_a < kNoEntry;
+    const bool any_b = kOrder == kAnyHit ? flags_b != 0 : near_b < kNoEntry;
+    const bool a_top = kOrder == kNear ? near_a <= near_b : true;
     const bool push_a = any_a && ca >= 0;
     const bool push_b = any_b && cb >= 0;
-    if (lane == 0) {
-      if (push_a && push_b) {
-        sh.stack[sp] = a_top ? cb : ca;
-        sh.stack[sp + 1] = a_top ? ca : cb;
-      } else if (push_a || push_b) {
-        sh.stack[sp] = push_a ? ca : cb;
-      }
+    int next = -1;                   // inner nodes only: -1 ends the walk
+    if (push_a && push_b) {
+      if (lane == 0) ws.stack[sp] = a_top ? cb : ca;
+      ++sp;
+      next = a_top ? ca : cb;
+    } else if (push_a || push_b) {
+      next = push_a ? ca : cb;
+    } else if (sp > 0) {
+      next = ws.stack[--sp];
     }
-    sp += (int)push_a + (int)push_b;
+    __syncwarp();                    // the push is visible, the record read
+    if (next >= 0 && lane < 4)
+      copy16(&ws.node[lane], nodes + 4 * (long long)next + lane);
+    copy_commit();
     if (kLeaf != kNoLeaf) {
-      if (any_a && ca < 0) {
-        groups += leaf_test<kPacket, kGroup, kLeaf>(sh, lane, ca, ha, tris,
-                                                    ox, oy, oz, dx, dy, dz,
-                                                    bt, bi);
-        ++leaves;
+      const bool leaf_a = any_a && ca < 0;
+      const bool leaf_b = any_b && cb < 0;
+      if (leaf_a || leaf_b) {
+        copy_wait<1>();              // the rows (the next node may fly)
+        __syncwarp();
       }
-      if (any_b && cb < 0) {
-        groups += leaf_test<kPacket, kGroup, kLeaf>(sh, lane, cb, hb, tris,
-                                                    ox, oy, oz, dx, dy, dz,
-                                                    bt, bi);
+      if (leaf_a) {
+        leaf_test<kLeaf>(ws.rows[0], ca, ha, warp_a, ox, oy, oz, dx, dy, dz,
+                         bt, bi);
         ++leaves;
+        groups += groups_tested<kPacket, kGroup, kLeaf>(flags_a);
+      }
+      if (leaf_b) {
+        leaf_test<kLeaf>(ws.rows[1], cb, hb, warp_b, ox, oy, oz, dx, dy, dz,
+                         bt, bi);
+        ++leaves;
+        groups += groups_tested<kPacket, kGroup, kLeaf>(flags_b);
       }
     }
-    packet_sync<kPacket>();          // the pushes are visible
+    if (next < 0) break;
   }
   if (in) {
     out_t[r] = bt;
     out_i[r] = bi;
   }
-  if (kCount && lane == 0) {
+  if (kCount && threadIdx.x % kPacket == 0) {
     out_counts[3 * packet + 0] = pops;
     out_counts[3 * packet + 1] = leaves;
     out_counts[3 * packet + 2] = groups;

@@ -2,7 +2,9 @@
 each appear twice, so that every hit is an exact tie in t (the traversal
 kernels' tie rule, and the packet walk's inside a leaf:
 ``leaf_tie_winner``), and rays at the edges of the brute-force test and of
-its early-reject pre-test; ``launch_counters`` and ``check_launches``,
+its early-reject pre-test; rays and a deep tree at the packet walk's
+edges (``packet_edge_rays``, ``deep_bvh2_tables``); ``launch_counters``
+and ``check_launches``,
 which tell which kernels a render ran; and ``spawn_ranks``, which runs a
 function on the ranks of a gloo process group in spawned processes, under
 a time limit (the tile mesh's tests).
@@ -254,6 +256,104 @@ def tie_soup(seed, t):
     rows = pack_gather_walk(bvh, leaf_tables(bvh, soup))
     rows["leaf_packed"], lower = swap_pair_ids(rows["leaf_packed"], t, rng)
     return rows, lower
+
+
+PACKET_EDGE_RAYS = ("faces", "far", "one_warp")
+
+
+def packet_edge_rays(nodes, kind, n, seed):
+    """Rays at the packet walk's edges (csrc/packet_walk.cu's note) on the
+    BVH2 node records ``nodes`` [I, 16] (numpy): (origin, direction [n,
+    3] f32, active [n] bool, t_max [n] f32).
+
+    * ``faces``: each origin on a face of a random node's child box, the
+      direction along a random axis, either sign, its other components
+      +0.0 or -0.0: slab entries of exactly +0.0 and -0.0;
+    * ``far``: t_max inf, origins 1e9 off the scene on some axes (a
+      third of them below it on every axis), directions along an axis, zero
+      or random: entries that overflow to +inf, and zero directions hit
+      every box with an entry of +inf;
+    * ``one_warp``: rays aimed into the scene of which only one warp of
+      each 128-ray group is active, a different warp in successive
+      groups."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    nodes = np.asarray(nodes, f32)
+    if kind == "faces":
+        side = rng.integers(0, 2, n)[:, None]
+        k = rng.integers(0, len(nodes), n)
+        lo = np.where(side, nodes[k][:, [4, 6, 10]], nodes[k][:, [0, 2, 8]])
+        hi = np.where(side, nodes[k][:, [5, 7, 11]], nodes[k][:, [1, 3, 9]])
+        o = (lo + (hi - lo) * rng.uniform(size=(n, 3))).astype(f32)
+        axis = rng.integers(0, 3, n)
+        face = np.where(rng.integers(0, 2, n) == 1, hi[np.arange(n), axis],
+                        lo[np.arange(n), axis])
+        o[np.arange(n), axis] = face
+        d = np.where(rng.integers(0, 2, (n, 3)) == 1, f32(-0.0), f32(0.0))
+        d[np.arange(n), rng.integers(0, 3, n)] = rng.choice([-1.0, 1.0], n)
+        return (o, d.astype(f32), np.ones(n, bool),
+                np.full(n, np.inf, f32))
+    if kind == "far":
+        o = rng.uniform(-8, 8, (n, 3))
+        far = rng.uniform(size=(n, 3)) < 0.4
+        o = np.where(far, o + rng.choice([-1e9, 1e9], (n, 3)), o)
+        below = rng.uniform(size=n) < 1 / 3
+        o[below] = -1e9
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        how = rng.integers(0, 3, n)
+        d[how == 1] = np.eye(3)[rng.integers(0, 3, n)][how == 1] \
+            * rng.choice([-1.0, 1.0], n)[how == 1, None]
+        d[(how == 2) | below] = 0.0
+        return (o.astype(f32), d.astype(f32), np.ones(n, bool),
+                np.full(n, np.inf, f32))
+    if kind == "one_warp":
+        o = rng.uniform(-8, 8, (n, 3))
+        d = rng.uniform(-5, 5, (n, 3)) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        i = np.arange(n)
+        t_max = np.where(rng.uniform(size=n) < 0.5, np.inf,
+                         rng.uniform(2, 14, n))
+        return (o.astype(f32), d.astype(f32),
+                (i // 32) % 4 == (i // 128) % 4, t_max.astype(f32))
+    raise ValueError(f"unknown kind {kind!r}: expected one of "
+                     f"{', '.join(PACKET_EDGE_RAYS)}")
+
+
+def deep_bvh2_tables(depth, seed):
+    """BVH2 tables (numpy ``nodes`` [2 depth - 1, 16], ``tris`` [R, 12]) of
+    a tree built by hand to fill the packet walk's stack: a spine of
+    ``depth`` inner nodes, node i's child A the next spine node and its
+    child B an inner node of two leaves (the last spine node's children
+    are two leaves), every box [-10, 10]^3, each leaf 1-8 random triangles
+    inside it.  A packet with an active ray inside the box pops every node,
+    A always on top (its entries tie B's), so its stack holds depth - 1
+    entries."""
+    from .ops.traverse_bvh2 import LEAF_BITS, node_records
+
+    rng = np.random.default_rng(seed)
+    n_leaves = 2 * depth
+    count = rng.integers(1, 9, n_leaves)
+    first = np.cumsum(count) - count
+    rows = int(count.sum())
+    v0 = rng.uniform(-8, 8, (rows, 3))
+    tris = np.zeros((rows, 12), np.float32)
+    tris[:, 0:3] = v0
+    tris[:, 3] = np.arange(rows)
+    tris[:, 4:7] = rng.uniform(-1, 1, (rows, 3))
+    tris[:, 8:11] = rng.uniform(-1, 1, (rows, 3))
+    leaf = ~((first << LEAF_BITS) | count)
+    inner = 2 * depth - 1
+    ref_a = np.empty(inner, np.int64)
+    ref_b = np.empty(inner, np.int64)
+    spine = np.arange(depth - 1)
+    ref_a[spine], ref_b[spine] = spine + 1, depth + spine
+    ref_a[depth - 1], ref_b[depth - 1] = leaf[0], leaf[1]
+    ref_a[depth:], ref_b[depth:] = leaf[2::2], leaf[3::2]
+    box = np.tile(np.array([-10, -10, -10, 10, 10, 10], np.float32),
+                  (inner, 1))
+    return dict(nodes=node_records(box, box, ref_a.astype(np.int32),
+                                   ref_b.astype(np.int32)), tris=tris)
 
 
 def brute_edge_cases():

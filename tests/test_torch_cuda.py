@@ -12,7 +12,9 @@ same state, and a small render on the card must match the same render on
 the CPU.  Camera moves put the brute and BVH2 kernels on moved sensor
 tables, and two gloo ranks on one card render a tile each of one sample.
 The packet walk of the traversal tools (every variant, both packet sizes)
-matches its plain version's counts, t and ids, and the link probe's
+matches its plain version's counts, t and ids, on random rays and on rays
+at its edges (entries of ±0.0 and +inf, one active warp a group, a deep
+stack), and the link probe's
 kernel is a * 2 + 1 bit for bit.  The layout probes' kernels match their
 plain versions at the script's shapes, the products also across several
 tiles and from the smallest K to the largest on normals, mixed magnitudes
@@ -682,29 +684,53 @@ def test_two_gloo_ranks_on_one_card(dev, tmp_path):
     assert a["launches/brute"] == b["launches/brute"] == 7
 
 
+@pytest.mark.parametrize("rays", ["random", "faces", "far", "one_warp",
+                                  "deep"])
 @pytest.mark.parametrize("packet,group", [(1024, 128), (32, 32)])
 @pytest.mark.parametrize("variant", ["full", "noleaf", "nogroupskip",
                                      "noorder", "noreduce"])
-def test_packet_walk_matches_plain(dev, variant, packet, group):
+def test_packet_walk_matches_plain(dev, variant, packet, group, rays):
     """The packet walk kernel (csrc/packet_walk.cu) against its plain
     version on a 900-triangle soup: counts on every packet, t and ids on
-    every ray, including a partial last packet and an empty cast."""
+    every ray, including a partial last packet and an empty cast.  Besides
+    random rays, the rays at the kernel's edges (``testing.
+    packet_edge_rays``): origins on box faces along the axes (entries of
+    +0.0 and -0.0), rays far off the scene under t_max = inf (entries of
+    +inf, zero directions hitting every box), one active warp a 128-ray
+    group (the warp-level skip); and ``deep``: random rays on
+    ``testing.deep_bvh2_tables``, whose walk holds 47 stack entries."""
     from clive2_tpu_torch.ops import packet_walk
+    from clive2_tpu_torch.testing import deep_bvh2_tables, packet_edge_rays
 
-    soup = _soup(21, 900)
-    bvh = build_bvh(soup)
-    rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
-    tables = {k: torch.from_numpy(v).to(dev) for k, v in
-              traverse_bvh2.pack_bvh2(rows["node_packed"],
-                                      rows["leaf_packed"]).items()}
+    if rays == "deep":
+        tables = {k: torch.from_numpy(v).to(dev)
+                  for k, v in deep_bvh2_tables(48, 31).items()}
+    else:
+        soup = _soup(21, 900)
+        bvh = build_bvh(soup)
+        rows = intersect.pack_gather_walk(bvh, leaf_tables(bvh, soup))
+        tables = {k: torch.from_numpy(v).to(dev) for k, v in
+                  traverse_bvh2.pack_bvh2(rows["node_packed"],
+                                          rows["leaf_packed"]).items()}
     gen = torch.Generator(device=dev).manual_seed(22)
-    o, d, active, t_max = _rays(gen, 5000, dev)
+    if rays in ("random", "deep"):
+        o, d, active, t_max = _rays(gen, 5000, dev)
+    else:
+        o, d, active, t_max = (torch.from_numpy(x).to(dev) for x in
+                               packet_edge_rays(tables["nodes"].cpu().numpy(),
+                                                rays, 5000, 23))
     kw = dict(packet=packet, group=group, variant=variant, count=True)
     got = packet_walk.packet_walk(o, d, tables, active, t_max, **kw)
     torch.cuda.synchronize()
     want = packet_walk.packet_walk_plain(o, d, tables, active, t_max, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    if rays == "deep":                 # every packet with an active ray
+        lit = torch.zeros(got[2].shape[0] * packet, dtype=torch.bool,
+                          device=dev)
+        lit[:len(active)] = active
+        lit = lit.view(-1, packet).any(1)
+        assert lit.any() and (got[2][lit, 0] == 2 * 48 - 1).all()
     empty = packet_walk.packet_walk(o[:0], d[:0], tables, **kw)
     assert [x.numel() for x in empty] == [0, 0, 0]
 

@@ -45,8 +45,9 @@ from clive2_tpu.ops import traverse_pallas2 as jax_tp2
 from clive2_tpu_torch.ops import intersect, packet_walk as pw
 from clive2_tpu_torch.ops import traverse_bvh2 as tb
 from clive2_tpu_torch.scripts import kernel_microbench, kernel_stats
-from clive2_tpu_torch.testing import (leaf_tie_winner, teapots_scene,
-                                      tie_soup)
+from clive2_tpu_torch.testing import (PACKET_EDGE_RAYS, deep_bvh2_tables,
+                                      leaf_tie_winner, packet_edge_rays,
+                                      teapots_scene, tie_soup)
 from test_torch_intersect import _soup, decode_bvh2
 from test_torch_stream2 import _jax_tree
 
@@ -186,6 +187,84 @@ def test_kernel_constants_and_instances_match_the_module():
         pw.VARIANTS.values())
     assert pw.SIZES == ((1024, 128), (32, 32))
     assert "instance<1024, 128>" in src and "instance<32, 32>" in src
+    # the bit minima (test_entry_bit_minima_match_amin): no entry is
+    # +inf's bits, an entry's bits have the sign cleared
+    no_entry = re.search(r"constexpr unsigned kNoEntry = (0x[0-9a-f]+)u;",
+                         src)[1]
+    assert int(no_entry, 16) == int(np.float32(INF).view(np.uint32))
+    assert "__float_as_uint(entry) & 0x7fffffffu : kNoEntry" in src
+
+
+# ---- the identities the kernel's reductions rest on -------------------------
+
+SPECIAL = np.array([-0.0, 0.0, 1e-45, 3e-42, 1.1754942e-38, 1.1754944e-38,
+                    0.5, 0.5, 1.0, 3.4e38, INF], np.float32)
+
+
+def _entries(seed):
+    """Entry distances of 16 packets of 1,024 rays for children A and B
+    [16, 2, 1,024] as packet_box gives them (>= 0, -0.0 included, ties,
+    subnormals, +inf), and which rays hit each box."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 20, (16, 2, 1024)).astype(np.float32)
+    pick = rng.uniform(size=x.shape) < 0.3
+    x[pick] = rng.choice(SPECIAL, int(pick.sum()))
+    x[0] = INF                          # no entry anywhere
+    x[1] = -0.0                         # only -0.0
+    x[2, 0], x[2, 1] = -0.0, 0.0        # -0.0 against +0.0
+    x[3] = rng.choice(SPECIAL[:4], (2, 1024))   # zeros and subnormals
+    x[4, 1] = x[4, 0]                   # A and B tie
+    x[5, :, :512] = -0.0                # ±0 in one packet
+    hit = rng.uniform(size=x.shape) < 0.8
+    hit[6] = False
+    return x, hit
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_entry_bit_minima_match_amin(seed):
+    """The kernel's minimum of the entry distances (csrc/packet_walk.cu's
+    note): on each hit ray the distance's int32 bits with the sign cleared,
+    +inf's bits where the box is not hit, the least over each warp's 32
+    lanes and then over the 32 warps' minima, is torch.amin of the plain
+    version's distances (packet_walk_plain: inf where not hit) with its
+    sign cleared, and ``a <= b`` and ``< inf`` on those bits give the
+    plain version's verdicts on its float minima."""
+    x, hit = _entries(seed)
+    dist = torch.where(torch.from_numpy(hit), torch.from_numpy(x), INF)
+    bits = torch.where(torch.from_numpy(hit),
+                       torch.from_numpy(x).view(torch.int32) & 0x7FFFFFFF,
+                       int(np.float32(INF).view(np.int32)))
+    least = bits.view(16, 2, 32, 32).amin(3).amin(2)           # [16, 2]
+    want = dist.amin(2)
+    assert torch.equal(least.view(torch.float32), want)
+    assert torch.equal(least, want.view(torch.int32) & 0x7FFFFFFF)
+    inf_bits = int(np.float32(INF).view(np.int32))
+    assert torch.equal(least < inf_bits, want < INF)
+    assert torch.equal(least[:, 0] <= least[:, 1], want[:, 0] <= want[:, 1])
+    # the cases are there: no entry, a least -0.0 (read as +0.0 by the
+    # bits), a tie of A and B
+    assert (want == INF).any() and torch.signbit(want[1]).all()
+    assert not torch.signbit(least[1].view(torch.float32)).any()
+    assert want[4, 0] == want[4, 1]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_groups_tested_are_the_ballots_nibbles(seed):
+    """The groups a leaf visit tests at 1,024-ray packets: bit w of the
+    warps' ballot (warp w hit the leaf box), OR-folded within each nibble
+    (a group of 128 rays is 4 warps) and counted, is the plain version's
+    count of groups with some hit (``gate.sum``)."""
+    rng = np.random.default_rng(seed)
+    for p in (0.0, 0.002, 0.02, 0.3, 1.0):
+        hit = torch.from_numpy(rng.uniform(size=(64, 1024)) < p)
+        want = hit.view(64, 8, 128).any(2).sum(1)
+        warp = hit.view(64, 32, 32).any(2).long()
+        ballot = (warp << torch.arange(32)).sum(1)
+        folded = ballot | (ballot >> 1)
+        folded = folded | (folded >> 2)
+        got = torch.tensor([bin(int(m) & 0x11111111).count("1")
+                            for m in folded])
+        assert torch.equal(got, want)
 
 
 # ---- against the scripts ----------------------------------------------------
@@ -303,6 +382,58 @@ def test_packet_sizes_agree(soup200, variant):
         out[packet] = t, ids
     assert torch.equal(out[32][0], out[1024][0])
     assert torch.equal(out[32][1], out[1024][1])
+
+
+@pytest.mark.parametrize("kind", [*PACKET_EDGE_RAYS, "deep"])
+def test_edge_case_rays_agree_across_packet_sizes(soup200, kind):
+    """The rays of the kernel's edge cases (``testing.packet_edge_rays``;
+    ``deep``: random rays on ``deep_bvh2_tables``, whose walk holds 47
+    stack entries), in every variant: P = 32 and P = 1,024 give the same t
+    and ids, and the edge each kind is built for occurs in the plain
+    version's own arithmetic (``_slab`` over every node): entries of +0.0
+    and -0.0 (faces), hits whose entry is +inf (far), one active warp a
+    group (one_warp), every node popped (deep)."""
+    depth = 48
+    if kind == "deep":
+        tables = {k: torch.from_numpy(v)
+                  for k, v in deep_bvh2_tables(depth, 31).items()}
+        c = _torch(_cast(32, 2048))
+        c["origin"] = c["origin"].clamp(-9, 9)
+    else:
+        tables = soup200["port"]
+        c = dict(zip(("origin", "direction", "active", "t_max"),
+                     map(torch.from_numpy, packet_edge_rays(
+                         tables["nodes"].numpy(), kind, 2048, 33))))
+    nodes = tables["nodes"]
+    lo = nodes[:, [0, 2, 8, 4, 6, 10]].view(-1, 2, 3)
+    hi = nodes[:, [1, 3, 9, 5, 7, 11]].view(-1, 2, 3)
+    every = len(nodes)
+    hit, near = pw._slab(lo, hi, c["origin"].expand(every, -1, -1),
+                         pw.safe_inverse(c["direction"]).expand(every, -1, -1),
+                         c["t_max"].expand(every, -1),
+                         c["active"].expand(every, -1))
+    zero = hit & (near == 0)
+    if kind == "faces":
+        assert (zero & torch.signbit(near)).any()
+        assert (zero & ~torch.signbit(near)).any()
+    if kind == "far":
+        assert (hit & (near == INF)).any()
+    if kind == "one_warp":
+        warps = c["active"].view(-1, 4, 32).any(2)
+        assert (warps.sum(1) == 1).all()
+    for variant in pw.VARIANTS:
+        out = {}
+        for packet, group in pw.SIZES:
+            t, ids, stats = pw.packet_walk(**c, tables=tables, packet=packet,
+                                           group=group, variant=variant,
+                                           count=True)
+            out[packet] = t, ids
+            if kind == "deep":
+                assert (stats[:, 0] == 2 * depth - 1).all()
+        assert torch.equal(out[32][0], out[1024][0]), (kind, variant)
+        assert torch.equal(out[32][1], out[1024][1]), (kind, variant)
+        if variant != "noleaf":
+            assert (out[32][1] >= 0).any()
 
 
 def test_largest_id_wins_a_tie_inside_a_leaf():
