@@ -174,13 +174,16 @@ __device__ __forceinline__ void copy_rows(float4* rows,
 // w: warp w hit the leaf box; a group is kGroup / 32 adjacent warps).
 template <int kPacket, int kGroup, int kLeaf>
 __device__ __forceinline__ int groups_tested(unsigned flags) {
-  if (kLeaf == kAlways) return kPacket / kGroup;
-  if (kPacket == 32) return flags != 0;
-  constexpr int kGroupWarps = kGroup / 32;
-  static_assert(kGroupWarps == 4, "groups of 128 rays: a nibble of warps");
-  flags |= flags >> 1;
-  flags |= flags >> 2;               // bit 4g: some warp of group g
-  return __popc(flags & 0x11111111u);
+  if constexpr (kLeaf == kAlways) {
+    return kPacket / kGroup;
+  } else if constexpr (kPacket == 32) {
+    return flags != 0;
+  } else {
+    static_assert(kGroup == 128, "groups of 128 rays: a nibble of warps");
+    flags |= flags >> 1;
+    flags |= flags >> 2;             // bit 4g: some warp of group g
+    return __popc(flags & 0x11111111u);
+  }
 }
 
 // One leaf (ref, a leaf code) against the warp's rays, from the warp's copy
@@ -297,7 +300,7 @@ packet_walk_kernel(const float* __restrict__ origin,
       near_b = __reduce_min_sync(kWarp, entry_bits(hb, tb));
     }
     unsigned flags_a = warp_a, flags_b = warp_b;
-    if (kPacket > 32) {              // the exchange (the note, step 4)
+    if constexpr (kPacket > 32) {    // the exchange (the note, step 4)
       if (lane == 0)
         sh.record[parity][warp] = make_int4((int)near_a, (int)near_b,
                                             warp_a != 0, warp_b != 0);
