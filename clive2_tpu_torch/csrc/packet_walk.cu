@@ -13,10 +13,12 @@
 // with both children's boxes and references, and 48-byte triangle rows
 // v0(3) id e1(3) 0 e2(3) 0, a leaf being ~(first << kLeafBits | count).
 //
-// Design, for Hopper.  A packet of kPacket rays is kPacket threads, one
-// ray each.  At 1,024 rays (the TPU's packet, groups of 128) a packet is a
-// block of 32 warps; at 32 (one warp, one group) a block holds
-// kWarpPackets packets, one per warp, so that the SMs fill.  Every warp
+// Design, for Hopper.  A packet of kPacket rays is a block of kPacket
+// threads, one ray each: at 1,024 rays (the TPU's packet, groups of 128)
+// 32 warps, at 32 (one warp, one group) one warp.  One packet a block lets
+// an SM start a packet as soon as one ends; blocks of eight 32-ray packets
+// held their slots until the longest of the eight had ended, and were
+// slower in every variant (PERF.md, the packet walk's findings).  Every warp
 // keeps its own copy of the packet's stack, the record of the node it pops
 // next and the rows of the leaves it tests, in its slice of shared memory,
 // so only __syncwarp orders them.  A step:
@@ -92,7 +94,6 @@ namespace {
 constexpr int kStack = 128;        // ops/packet_walk.py:STACK
 constexpr int kLeafRows = 8;       // ops/traverse_bvh2.py:LEAF_SLOTS
 constexpr int kLeafBits = 4;       // ops/traverse_bvh2.py:LEAF_BITS
-constexpr int kWarpPackets = 8;    // 32-ray packets per block
 constexpr unsigned kNoEntry = 0x7f800000u;   // +inf's bits
 
 enum LeafMode { kSkip = 0, kAlways = 1, kNoLeaf = 2 };
@@ -224,31 +225,27 @@ __device__ __forceinline__ void leaf_test(const float4* rows, int ref,
 }
 
 template <int kPacket, int kGroup, int kLeaf, int kOrder, bool kCount>
-__global__ void __launch_bounds__(kPacket == 32 ? 32 * kWarpPackets : kPacket)
+__global__ void __launch_bounds__(kPacket)
 packet_walk_kernel(const float* __restrict__ origin,
                    const float* __restrict__ direction,
                    const uint8_t* __restrict__ active,
                    const float* __restrict__ t_max, long long n_rays,
-                   long long n_packets, const float4* __restrict__ nodes,
+                   const float4* __restrict__ nodes,
                    const float4* __restrict__ tris, float* __restrict__ out_t,
                    int* __restrict__ out_i, int* __restrict__ out_counts) {
   static_assert(kPacket == 32 ? kGroup == 32
                               : kPacket == 1024 && kGroup == 128,
                 "packets of 32 rays (one group) or 1,024 (groups of 128): "
                 "a 1,024-ray packet's 32 warp records are one per lane");
-  constexpr int kPerBlock = kPacket == 32 ? kWarpPackets : 1;
-  __shared__ PacketShared<kPacket> shared[kPerBlock];
+  __shared__ PacketShared<kPacket> sh;
   const int lane = threadIdx.x & 31;
-  const int warp = (threadIdx.x % kPacket) >> 5;
-  const long long packet =
-      (long long)blockIdx.x * kPerBlock + threadIdx.x / kPacket;
-  if (packet >= n_packets) return;   // a whole warp (32) or block (1,024)
-  PacketShared<kPacket>& sh = shared[threadIdx.x / kPacket];
+  const int warp = threadIdx.x >> 5;
+  const long long packet = blockIdx.x;
   WarpShared& ws = sh.warp[warp];
 
   // the ray, or a padding ray past the end: inactive, at the origin, along
   // +x, capped at 0, as the scripts pad
-  const long long r = packet * kPacket + (threadIdx.x % kPacket);
+  const long long r = packet * kPacket + threadIdx.x;
   const bool in = r < n_rays;
   const float ox = in ? origin[3 * r + 0] : 0.0f;
   const float oy = in ? origin[3 * r + 1] : 0.0f;
@@ -359,7 +356,7 @@ packet_walk_kernel(const float* __restrict__ origin,
     out_t[r] = bt;
     out_i[r] = bi;
   }
-  if (kCount && threadIdx.x % kPacket == 0) {
+  if (kCount && threadIdx.x == 0) {
     out_counts[3 * packet + 0] = pops;
     out_counts[3 * packet + 1] = leaves;
     out_counts[3 * packet + 2] = groups;
@@ -372,13 +369,11 @@ cudaError_t launch(const float* origin, const float* direction,
                    long long n_rays, const float4* nodes, const float4* tris,
                    float* out_t, int* out_i, int* out_counts,
                    cudaStream_t s) {
-  constexpr int kPerBlock = kPacket == 32 ? kWarpPackets : 1;
   const long long n_packets = (n_rays + kPacket - 1) / kPacket;
-  const long long blocks = (n_packets + kPerBlock - 1) / kPerBlock;
   packet_walk_kernel<kPacket, kGroup, kLeaf, kOrder, kCount>
-      <<<(unsigned)blocks, kPacket * kPerBlock, 0, s>>>(
-          origin, direction, active, t_max, n_rays, n_packets, nodes, tris,
-          out_t, out_i, out_counts);
+      <<<(unsigned)n_packets, kPacket, 0, s>>>(origin, direction, active,
+                                               t_max, n_rays, nodes, tris,
+                                               out_t, out_i, out_counts);
   return cudaGetLastError();
 }
 
