@@ -433,7 +433,8 @@ def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
                                       "stream_kernel", "wide_kernel",
                                       "packet_walk_kernel")):
     """SASS instruction counts of the named kernels in a built library
-    (``cuobjdump -sass``): per kernel instance, its instructions, and for
+    (``cuobjdump -sass``): per kernel instance, its instructions, those of
+    its largest loop (a walk's step, with any loop nested in it), and for
     the innermost loop that holds a MUFU.RCP (the triangle test's
     1 / a), its instructions, its MUFU.RCPs and their ratio, the
     instructions per triangle test that reaches the division (the loop
@@ -467,11 +468,15 @@ def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
             if rcp and (best is None or len(body) > best["instructions"]):
                 best = dict(instructions=len(body), mufu_rcp=rcp,
                             per_test=len(body) / rcp)
+        outer = max(loops, key=lambda lh: lh[1] - lh[0], default=None)
         tag = packet_tag(name) if short == "packet_walk_kernel" else (
             "any_hit" if "ILb1E" in name else (
                 "closest" if "ILb0E" in name else ""))
-        out[f"{short} {tag}".strip()] = dict(instructions=len(addr),
-                                             triangle_loop=best)
+        out[f"{short} {tag}".strip()] = dict(
+            instructions=len(addr),
+            outer_loop=None if outer is None else sum(
+                outer[0] <= a <= outer[1] for a in addr),
+            triangle_loop=best)
     return out
 
 
@@ -940,7 +945,7 @@ def main() -> int:
             for tag, f in instances.items():
                 f["resident_blocks"] = resident_blocks(
                     f["registers"], f["static_smem_bytes"],
-                    1024 if "[1024]" in tag else 256)
+                    1024 if "[1024]" in tag else 32)
         emit(phase=f"{name}_resources",
              ptxas=[ln.strip() for ln in ptxas.splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln],
@@ -2147,8 +2152,7 @@ def main() -> int:
         graph) against one call of the plain version, counts, t and ids
         equal on every packet and ray; the figures, with the bound from the
         plain call's work and the pops per packet, mean and most (the
-        launch is at most two waves, so the longest packets may set its
-        time)."""
+        longest packets may set the launch's time)."""
         kw = dict(tables=tables, packet=packet, group=group,
                   variant=variant, count=count)
         ms, got = kernel_microbench.timed(

@@ -75,9 +75,20 @@
 // t changes only inside its own leaf tests, and the box test culls at that
 // t itself (not common.cuh:cull_bound), as the TPU kernels do.
 //
-// What bounds it on the H100: the latency of the packet's serial steps, not
-// operations or bytes.  Rays that left the packet's union keep their lanes
-// busy (the packet walk's inherent cost, which the TPU paid as well).
+// What bounds it on the H100: issuing the steps, not operations or bytes
+// (PERF.md, the packet walk's findings).  A step of noleaf's 1,024-ray
+// instance is about 130 SASS instructions a warp (chip_smoke.py's sass
+// phase, outer_loop), about 50 of them the two slab tests (chip_smoke.py's
+// OPS counts 25 a box); at 1,024 rays all 32 warps repeat the packet's
+// bookkeeping (the exchange, the verdicts, the stack, the copies).  ptxas
+// gives the leaf-testing instances 54-62 registers, so an SM holds one
+// 1,024-ray packet and waits out each step's serial chain (the node's
+// copy, the barrier) with nothing else to issue; noleaf's 32 registers fit
+// two.  Copying all three candidate records (child A, child B, the
+// stack's top) at the top of each step, to take the node's latency off
+// the chain, cost more instructions than it saved and was slower in every
+// variant.  Rays that left the packet's union keep their lanes busy (the
+// packet walk's inherent cost, which the TPU paid as well).
 //
 // Rounding: compiled with --fmad=false; the slab test and Möller-Trumbore
 // follow the plain version's expression order, so every box verdict, t and
