@@ -506,32 +506,6 @@ def tiles_on_one_device(scene, seed: int, ranks: int):
     return {k: v.cpu().numpy() for k, v in state.items()}
 
 
-def write_assets(resource_dir):
-    """Write the large meshes the presets read when they are missing:
-    procedural stand-ins at the reference's triangle counts, with the
-    transform of scripts/make_assets.py.  Returns {file: seconds or None
-    when the file was there}."""
-    import numpy as np
-
-    from clive2_tpu_torch.load import write_ply
-    from clive2_tpu_torch.models import displaced_blob_exact
-
-    out = {}
-    for name, count in (("dragon_vrip_res3.ply", 47_794),
-                        ("dragon_vrip_res2.ply", 202_520),
-                        ("sponza_scale.ply", 1_310_720)):
-        path = os.path.join(resource_dir, name)
-        out[name] = None
-        if not os.path.exists(path):
-            t0 = time.perf_counter()
-            os.makedirs(resource_dir, exist_ok=True)
-            v, f = displaced_blob_exact(count)
-            write_ply(path, v * 0.06 + np.array([0.0, 0.085, 0.0]), f,
-                      binary=True)
-            out[name] = time.perf_counter() - t0
-    return out
-
-
 def build_timed(preset, w, h, device):
     """create_scene_from_preset with its host BVH build timed apart:
     returns (scene, total seconds, BVH build seconds)."""
@@ -1011,15 +985,10 @@ def main() -> int:
          edge_rays=eo.shape[0], max_abs_err_t=err["brute"], ids_equal=True)
 
     # ---- 4. BVH2 kernel vs the plain gather walk --------------------------
-    from clive2_tpu_torch.load import write_obj
-    from clive2_tpu_torch.models import utah_teapot
     from clive2_tpu_torch.scene import RESOURCE_DIR
+    from clive2_tpu_torch.testing import write_assets
 
-    teapot = os.path.join(RESOURCE_DIR, "teapot.obj")
-    if not os.path.exists(teapot):
-        os.makedirs(RESOURCE_DIR, exist_ok=True)
-        v, f = utah_teapot(n=10)
-        write_obj(teapot, v, f)
+    assets = write_assets(RESOURCE_DIR)
     t0 = time.perf_counter()
     teapots = ct.create_scene_from_preset("teapots", 512, 512, device=dev)
     build_s = time.perf_counter() - t0
@@ -1117,7 +1086,6 @@ def main() -> int:
     # package's selectors set for the wide and stream1 scenes.
     from clive2_tpu_torch.bvh import native
 
-    assets = write_assets(RESOURCE_DIR)
     dragon, build_s, bvh_s = build_timed("medium-dragon", 512, 512, dev)
     s2_tables = dragon.data["stream2"]
     emit(phase="assets", written_s=assets,
@@ -2139,7 +2107,8 @@ def main() -> int:
     from clive2_tpu_torch.ops import link_probe as probe_kernel
     from clive2_tpu_torch.ops import mosaic_probes
     from clive2_tpu_torch.scripts import (kernel_microbench, kernel_stats,
-                                          link_probe, probe_mosaic_layouts)
+                                          launch_cost, link_probe,
+                                          probe_mosaic_layouts)
     from clive2_tpu_torch.scripts.kernel_microbench import graph_ms
 
     def quiet(line):
@@ -2276,13 +2245,24 @@ def main() -> int:
         raise AssertionError("link probe kernel: not a * 2 + 1 bit for bit")
     b_ms, b_by = bound(2 * a.numel() * 4, 2 * a.numel())
     # ms: the mean of 20 wrapper calls, their host path included; graph_ms:
-    # the card's time alone, per call of 20 replayed from a CUDA graph
+    # the card's time alone, per call of 20 replayed from a CUDA graph;
+    # host_us: host µs per launch over 2,000 back-to-back calls, the median
+    # of 3 rounds in turns (scripts/launch_cost.py times it in full)
+    calls = {"torch.addcmul": lambda: torch.addcmul(one, a, two),
+             "link_probe wrapper": lambda: probe_kernel.scale_shift(a)}
+    host = {k: [] for k in calls}
+    for r in range(3):
+        for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            torch.cuda.synchronize()
+            host[k].append(launch_cost.per_call_us(calls[k], 2000))
+    torch.cuda.synchronize()
     probe_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by, bit_equal=True,
                      graph_ms=graph_ms(
                          lambda: probe_kernel.scale_shift(a)),
                      library_graph_ms=graph_ms(
-                         lambda: torch.addcmul(one, a, two)))
+                         lambda: torch.addcmul(one, a, two)),
+                     host_us={k: sorted(v)[1] for k, v in host.items()})
     emit(phase="link_probe", rows=probe_rows,
          verdict=link_probe.verdict(probe_rows),
          launches=ran, kernel=probe_row, seconds=time.perf_counter() - t1,
@@ -2323,6 +2303,7 @@ def main() -> int:
                    plain_graph_ms=graph_ms(lambda: plain(*args)))
         if kernel == "slab_copy":
             x, = args
+            row["bands"] = mosaic_probes.bands(*x.shape[1:])
             lib_ms, lib = timed(lambda: x[2, :8, :128].float())
             # bound_ms: the function's own bytes, its window read as bf16
             # and written as f32; slab_bound_ms: the whole slab read, which
@@ -2567,7 +2548,8 @@ def main() -> int:
              launches=tools["link_probe"], max_abs_err=0.0,
              **{k: probe_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "graph_ms", "library_graph_ms")},
+                                          "graph_ms", "library_graph_ms",
+                                          "host_us")},
              library_call="torch.addcmul(1, a, 2): a * 2 + 1 in one call",
              cast="f32 [256, 128]")]
     # the layout probes (phase mosaic_probes): the copy's row is dma128's

@@ -5,6 +5,8 @@
 // (clive2_tpu_torch/ops/intersect.py: safe_inverse, box_entry, _mt).
 // bulk_load, the one bulk asynchronous copy into shared memory, serves the
 // queued leaf test (stream2_queue.cu) and the slab copy (mosaic_probes.cu).
+// The launch helpers at the end (programmatic dependent launch, the shared
+// memory opt-in once per device) serve the link probe and the layout probes.
 
 #pragma once
 
@@ -12,6 +14,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -253,11 +257,11 @@ __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copies bytes (a multiple of 16) from global src into shared dst with one
-// bulk asynchronous copy and waits for it on the mbarrier bar.  Every
-// thread of the block calls it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+// Starts one bulk asynchronous copy of bytes (a multiple of 16) from global
+// src into shared dst, completing on the mbarrier bar, which it initialises.
+// Every thread of the block calls it; bulk_wait then waits for the copy.
+__device__ __forceinline__ void bulk_start(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t* bar) {
   const uint32_t b = shared_addr(bar);
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b)
@@ -277,6 +281,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
           "l"(src), "r"(bytes), "r"(b)
           : "memory");
   }
+}
+
+__device__ __forceinline__ void bulk_wait(uint64_t* bar) {
+  const uint32_t b = shared_addr(bar);
   uint32_t done = 0;
   while (!done) {
     asm volatile(
@@ -288,5 +296,71 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
         : "memory");
   }
 }
+
+// Copies bytes (a multiple of 16) from global src into shared dst with one
+// bulk asynchronous copy and waits for it on the mbarrier bar.  Every
+// thread of the block calls it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  bulk_start(dst, src, bytes, bar);
+  bulk_wait(bar);
+}
+
+// ---- launches ----
+// Programmatic dependent launch (Hopper): a kernel that launch_dependent
+// puts on a stream may be scheduled while the kernel before it drains.
+// Such a kernel calls grid_dependency_wait before its first global read or
+// write (it returns once the kernel before has completed and its writes are
+// visible; at once when there is none) and allow_dependents once its own
+// loads are issued, so that the next such kernel may be scheduled early.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// kernel<<<blocks, threads, smem, stream>>>(args...) as a programmatic
+// dependent launch; returns the launch's error, else cudaGetLastError().
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), unsigned blocks,
+                                    unsigned threads, size_t smem,
+                                    void* stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
+}
+
+// Raises a kernel's dynamic shared memory limit to bytes on the current
+// device once per device and process (the runtime keeps the attribute, and
+// setting it on every launch costs host time): one static instance per
+// kernel.
+struct SmemOptIn {
+  std::atomic<unsigned long long> devices{0};   // bit d: done on device d
+
+  cudaError_t operator()(const void* kernel, int bytes) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+    if (bit & devices.load(std::memory_order_relaxed)) return cudaSuccess;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e == cudaSuccess) devices.fetch_or(bit);
+    return e;
+  }
+};
 
 }  // namespace

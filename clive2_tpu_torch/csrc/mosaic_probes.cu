@@ -25,9 +25,17 @@
 // What bounds them on the H100: at the script's sizes, latency.  A copy
 // moves at most 164 KB (0.05 us at 3.35 TB/s), a product at most 0.5 MB
 // (0.16 us) for 21 MFLOP (0.02 us at 989 TFLOP/s of bf16), against a
-// launch of about 2 us.  The copy is one block and one bulk copy (a
-// 640 x 128 slab is 160 KB, past the default 48 KB of dynamic shared
-// memory, so the entry opts in up to 227 KB).
+// launch of about 2 us.  The slab still lands whole in shared memory, but
+// split across several SMs: the copy's grid has a block per band of whole
+// rows (ops/mosaic_probes.py:band_rows, about BAND_BYTES each, a multiple
+// of 16 bytes), each block bulk-copies its band into its own shared memory
+// on its own mbarrier, and block 0, whose band holds rows 0-7, writes the
+// window.  One block moving the whole slab (160 KB at [640, 128]) set the
+// copy's time by one SM's copy rate.  A band can pass the default 48 KB
+// of dynamic shared memory, so the entry opts in up to 227 KB, once per
+// device.  The copy is a programmatic dependent launch
+// (common.cuh:launch_dependent): it waits for the kernel ahead of it before
+// it issues its copy, and lets the next one be scheduled once it has.
 //
 // A product's time is the chain of one block: its launch, its loads, its
 // multiplies, its stores.  mma.sync staged K 32 deep through registers, a
@@ -66,18 +74,27 @@ constexpr int kCopyThreads = 256;
 // static mbarrier; below expect_tx's 2^20 - 1 bytes
 constexpr long long kMaxSlabBytes = 227 * 1024 - 128;
 
+// Block b copies rows [b band_rows, min((b + 1) band_rows, rows)) of the
+// bf16 slab [rows, cols] at src into its shared memory; block 0 then
+// writes the window [out_rows, out_cols] (out_rows <= band_rows) as f32.
 __global__ void __launch_bounds__(kCopyThreads)
-    slab_copy_kernel(const __nv_bfloat16* __restrict__ src, int cols,
-                     uint32_t bytes, float* __restrict__ out, int out_rows,
-                     int out_cols) {
-  extern __shared__ __align__(128) unsigned char slab_bytes[];
+    slab_copy_kernel(const __nv_bfloat16* __restrict__ src, int rows,
+                     int cols, int band_rows, float* __restrict__ out,
+                     int out_rows, int out_cols) {
+  extern __shared__ __align__(128) unsigned char band_bytes[];
   __shared__ __align__(8) uint64_t bar;
-  bulk_load(slab_bytes, src, bytes, &bar);
-  const __nv_bfloat16* slab =
-      reinterpret_cast<const __nv_bfloat16*>(slab_bytes);
+  const int r0 = blockIdx.x * band_rows;
+  const int n = min(band_rows, rows - r0);
+  grid_dependency_wait();
+  bulk_start(band_bytes, src + (size_t)r0 * cols, 2u * n * cols, &bar);
+  allow_dependents();
+  bulk_wait(&bar);
+  if (blockIdx.x != 0) return;
+  const __nv_bfloat16* band =
+      reinterpret_cast<const __nv_bfloat16*>(band_bytes);
   for (int i = threadIdx.x; i < out_rows * out_cols; i += kCopyThreads) {
     const int r = i / out_cols;
-    out[i] = __bfloat162float(slab[r * cols + (i - r * out_cols)]);
+    out[i] = __bfloat162float(band[r * cols + (i - r * out_cols)]);
   }
 }
 
@@ -251,21 +268,33 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 }  // namespace
 
 // out [min(rows, 8), min(cols, 128)] f32 from the bf16 slab [rows, cols] at
-// src, copied whole into shared memory first.  The slab's bytes must be a
-// multiple of 16 and at most kMaxSlabBytes, src 16-byte aligned.
+// src, copied whole into shared memory first, band_rows rows a block.  The
+// slab's bytes must be a multiple of 16 and at most kMaxSlabBytes, src
+// 16-byte aligned; band_rows at least the window's rows and at most the
+// slab's, and its bytes a multiple of 16 unless it is the whole slab.
 extern "C" int clive2_slab_copy(const void* src, int rows, int cols,
-                                float* out, void* stream) {
+                                int band_rows, float* out, int pdl,
+                                void* stream) {
   const long long bytes = 2LL * rows * cols;
+  const int out_rows = rows < 8 ? rows : 8;
   if (rows <= 0 || cols <= 0 || bytes % 16 || bytes > kMaxSlabBytes ||
-      (uintptr_t)src % 16)
+      (uintptr_t)src % 16 || band_rows < out_rows || band_rows > rows ||
+      (band_rows < rows && 2LL * band_rows * cols % 16))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      slab_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  static SmemOptIn smem_opt_in;
+  const cudaError_t e =
+      smem_opt_in((const void*)slab_copy_kernel, (int)kMaxSlabBytes);
   if (e != cudaSuccess) return (int)e;
-  slab_copy_kernel<<<1, kCopyThreads, (size_t)bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)src, cols, (uint32_t)bytes, out,
-      rows < 8 ? rows : 8, cols < 128 ? cols : 128);
+  const unsigned blocks = (rows + band_rows - 1) / band_rows;
+  const size_t smem = 2 * (size_t)band_rows * cols;
+  const __nv_bfloat16* slab = (const __nv_bfloat16*)src;
+  const int out_cols = cols < 128 ? cols : 128;
+  if (pdl)
+    return (int)launch_dependent(slab_copy_kernel, blocks, kCopyThreads,
+                                 smem, stream, slab, rows, cols, band_rows,
+                                 out, out_rows, out_cols);
+  slab_copy_kernel<<<blocks, kCopyThreads, smem, (cudaStream_t)stream>>>(
+      slab, rows, cols, band_rows, out, out_rows, out_cols);
   return (int)cudaGetLastError();
 }
 
@@ -332,11 +361,10 @@ extern "C" int clive2_mma_bf16(const void* a, const void* b, float* c, int m,
   const int smem = mma_smem_bytes(k);
   void (*kernel)(const CUtensorMap, const CUtensorMap, float*, int, int) =
       trans_a ? mma_kernel<true> : mma_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static SmemOptIn smem_opt_in[2];
+  const cudaError_t e = smem_opt_in[trans_a ? 1 : 0](
+      (const void*)kernel, mma_smem_bytes(kMaxK));
+  if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(n / kBN, m / kBM), kMmaThreads, smem,
            (cudaStream_t)stream>>>(map_a, map_b, c, n, k);
   return (int)cudaGetLastError();

@@ -5,10 +5,17 @@ the device helpers of ``common.cuh``) into an object, one ``nvcc`` per
 source, all started together, and links the objects into one
 shared library with a plain C interface, in ``clive2_tpu_torch/build/``
 (ignored by git), named by a hash of the sources and flags so an edit
-rebuilds it.  ``ctypes`` loads it.  Pointers are ``tensor.data_ptr()`` and
-the stream is PyTorch's current stream, both passed as ``c_void_p``.  Each C
-entry point launches one kernel, does not synchronise, and returns
-``cudaGetLastError()``; ``call`` raises when that is not 0.
+rebuilds it.  ``ctypes`` loads it.  Each C entry point launches one kernel,
+does not synchronise, and returns ``cudaGetLastError()``; ``call`` raises
+when that is not 0.
+
+The launch path (``call``) costs about what one PyTorch op costs on the
+host (PERF.md): ``load`` binds each entry once with its ``argtypes``
+(``_SIGNATURES``), so pointers (``tensor.data_ptr()``) and integers go in as
+plain Python ints; the stream is read at every call as a raw handle
+(``current_stream``), never cached, so a launch lands on whatever stream is
+current, a CUDA graph's capture stream or a side stream alike; and a device
+guard is entered only for a tensor on another card than the current one.
 
 Flags: ``sm_90a`` (Hopper) and ``--fmad=false``, so that a kernel rounds
 exactly as its plain PyTorch version (separate multiplies and adds) and
@@ -63,15 +70,16 @@ _SIGNATURES = {
     # nodes, tris, packet, variant, count | t, id, counts
     "clive2_packet_walk": _RAYS + [_P, _P] + [ctypes.c_int] * 3 + [_P] * 3
     + [_P],
-    # a, o, n (csrc/link_probe.cu)
-    "clive2_link_probe": [_P, _P, ctypes.c_int64, _P],
-    # the layout probes (csrc/mosaic_probes.cu): src, rows, cols, out |
-    # a, b, c, m, n, k, trans_a
-    "clive2_slab_copy": [_P, ctypes.c_int, ctypes.c_int, _P, _P],
+    # a, o, n, pdl (csrc/link_probe.cu)
+    "clive2_link_probe": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    # the layout probes (csrc/mosaic_probes.cu): src, rows, cols, band
+    # rows, out, pdl | a, b, c, m, n, k, trans_a
+    "clive2_slab_copy": [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P],
     "clive2_mma_bf16": [_P] * 3 + [ctypes.c_int] * 4 + [_P],
 }
 
 _lib = None
+_entries = {}      # entry name: its ctypes function, bound by load()
 
 
 def sources():
@@ -155,7 +163,8 @@ def ptxas_report(source: str) -> str:
 
 
 def load():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), each entry of
+    ``_SIGNATURES`` bound into ``_entries``."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
@@ -163,26 +172,48 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+            _entries[name] = fn
         lib.clive2_error_string.argtypes = [ctypes.c_int]
         lib.clive2_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def current_device() -> int:
+    """The current CUDA device's index."""
+    return torch._C._cuda_getDevice()
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream: what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a ``Stream`` object (a card test pins the two equal)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def call(name: str, device, *args):
-    """Launch kernel entry ``name`` on ``device``'s current stream."""
-    lib = load()
-    with torch.cuda.device(device):
-        stream = _P(torch.cuda.current_stream(device).cuda_stream)
-        rc = getattr(lib, name)(*args, stream)
+    """Launch kernel entry ``name`` on ``device``'s current stream, read at
+    this call; ``args`` are the entry's arguments before the stream, as
+    ints (pointers from ``ptr``) or None for a null pointer."""
+    fn = _entries.get(name)
+    if fn is None:
+        load()
+        fn = _entries[name]
+    here = current_device()
+    index = here if device.index is None else device.index
+    if index == here:
+        rc = fn(*args, current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, current_stream(index))
     if rc != 0:
-        msg = lib.clive2_error_string(rc).decode()
+        msg = _lib.clive2_error_string(rc).decode()
         raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
                            f"({msg})")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return _P(t.data_ptr())
+def ptr(t) -> int:
+    return t.data_ptr()
 
 
 @dataclasses.dataclass
@@ -200,8 +231,8 @@ class RayArgs:
         return self.origin.shape[0]
 
     def pointers(self):
-        return (ptr(self.origin), ptr(self.direction), ptr(self.active),
-                ptr(self.t_max), ctypes.c_int64(self.n))
+        return (self.origin.data_ptr(), self.direction.data_ptr(),
+                self.active.data_ptr(), self.t_max.data_ptr(), self.n)
 
 
 def ray_args(origin, direction, active=None, t_max=None) -> RayArgs:

@@ -12,8 +12,6 @@ best t starts at the ray's ``t_max``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .intersect import WORK, _finish, _init_best, _mt
@@ -126,7 +124,7 @@ def intersect_brute(origin, direction, tris, active=None, t_max=None):
     out = kernels.hit_outputs(origin)
     if rays.n:
         kernels.call("clive2_brute", origin.device, *rays.pointers(),
-                     kernels.ptr(tris), ctypes.c_int(tris.shape[0]),
+                     kernels.ptr(tris), tris.shape[0],
                      *map(kernels.ptr, out))
         intersect_brute.launches += 1
     return out

@@ -8,8 +8,6 @@ csrc/link_probe.cu; ``scale_shift_plain`` is its plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 
@@ -35,8 +33,8 @@ def scale_shift(a):
     a = a.contiguous()
     o = torch.empty_like(a)
     if a.numel():
-        kernels.call("clive2_link_probe", a.device, kernels.ptr(a),
-                     kernels.ptr(o), ctypes.c_int64(a.numel()))
+        kernels.call("clive2_link_probe", a.device, a.data_ptr(),
+                     o.data_ptr(), a.numel(), 1)
         scale_shift.launches += 1
     return o
 

@@ -4,8 +4,9 @@ two bf16 products with f32 sums.
 Replace the TPU kernels of ``scripts/probe_mosaic_layouts.py``:
 ``dma_probe.kern`` (``pallas_call`` at :47) by ``slab_copy``, ``dotT_kern``
 (:77) by ``matmul_t`` and ``dot128_kern`` (:90) by ``matmul``.  The kernels
-are csrc/mosaic_probes.cu (a bulk asynchronous copy; ``wgmma`` on
-operands that TMA loads into shared memory, all of K at once); the
+are csrc/mosaic_probes.cu (bulk asynchronous copies, a band of rows a
+block; ``wgmma`` on operands that TMA loads into shared memory, all of K
+at once); the
 ``*_plain`` functions are their plain versions.  A wrapper takes the plain
 version for a CPU tensor and launches the kernel for a CUDA tensor; it
 raises on anything the kernel does not take.
@@ -17,13 +18,14 @@ order of the sums differs from the kernel's, and no TF32 flag reaches it.
 
 from __future__ import annotations
 
-import ctypes
+import math
 
 import torch
 
 SLAB = 2                      # the script's src.at[2]
 WINDOW = (8, 128)             # the script's out[...] = slot[:8, :128]
 MAX_SLAB_BYTES = 227 * 1024 - 128    # csrc/mosaic_probes.cu:kMaxSlabBytes
+BAND_BYTES = 16 * 1024    # about what each block of the slab copy moves
 # the product kernel's steps (csrc/mosaic_probes.cu: kBM, kBN, kKStep): M
 # and N multiples of a block's tile, K of one wgmma's depth, up to MAX_K
 # (kMaxK: all of K resident in shared memory)
@@ -38,6 +40,27 @@ def smem_bytes(k):
     (csrc/mosaic_probes.cu:mma_smem_bytes): A's and B's 64-deep TMA boxes
     and 1 KB to align them to the swizzle's repeat."""
     return 1024 + -(-k // 64) * 64 * 2 * (TILE["m"] + TILE["n"])
+
+
+def band_rows(rows, cols, band_bytes=BAND_BYTES):
+    """Rows of a bf16 slab [rows, cols] that each block of the slab copy
+    moves: the most whole rows within ``band_bytes`` whose bytes are a
+    multiple of 16 (a bulk copy's unit, so every band starts 16-byte
+    aligned), at least the window's rows (block 0 writes the window), at
+    most the slab's (one band: the whole slab, a multiple of 16 bytes by
+    the slab's contract)."""
+    row = 2 * cols
+    step = 16 // math.gcd(row, 16)
+    want = max(band_bytes // row // step, 1) * step
+    window = -(-min(rows, WINDOW[0]) // step) * step
+    return min(rows, max(want, window))
+
+
+def bands(rows, cols, band_rows_=None):
+    """(first row, rows) of each block's band, block 0 first: the grid of
+    the slab copy (csrc/mosaic_probes.cu:slab_copy_kernel)."""
+    b = band_rows_ or band_rows(rows, cols)
+    return [(r, min(b, rows - r)) for r in range(0, rows, b)]
 
 
 def slab_copy_plain(x):
@@ -97,9 +120,10 @@ def _aligned(t, what, step=16):
 
 
 def slab_copy(x):
-    """``slab_copy_plain`` on a CPU tensor; on a CUDA one the kernel: one
-    bulk asynchronous copy of ``x[SLAB]`` (bf16 [N, R, C]) into shared
-    memory, then its window as f32."""
+    """``slab_copy_plain`` on a CPU tensor; on a CUDA one the kernel: bulk
+    asynchronous copies of ``x[SLAB]`` (bf16 [N, R, C]) into shared memory,
+    a band of ``band_rows`` rows a block (``bands``), then its window as
+    f32."""
     if x.device.type == "cpu":
         return slab_copy_plain(x)
     from .. import kernels
@@ -117,8 +141,8 @@ def slab_copy(x):
     slab = _aligned(x.contiguous()[SLAB], "the slab")
     out = torch.empty(min(rows, WINDOW[0]), min(cols, WINDOW[1]),
                       device=x.device)
-    kernels.call("clive2_slab_copy", x.device, kernels.ptr(slab),
-                 ctypes.c_int(rows), ctypes.c_int(cols), kernels.ptr(out))
+    kernels.call("clive2_slab_copy", x.device, slab.data_ptr(), rows, cols,
+                 band_rows(rows, cols), out.data_ptr(), 1)
     slab_copy.launches += 1
     return out
 
@@ -148,9 +172,8 @@ def _mma(name, a, b, m, k, transposed):
     a = _tma_operand(a, f"{name}: a")
     b = _tma_operand(b, f"{name}: b")
     c = torch.empty(m, n, device=a.device)
-    kernels.call("clive2_mma_bf16", a.device, kernels.ptr(a), kernels.ptr(b),
-                 kernels.ptr(c), ctypes.c_int(m), ctypes.c_int(n),
-                 ctypes.c_int(k), ctypes.c_int(int(transposed)))
+    kernels.call("clive2_mma_bf16", a.device, a.data_ptr(), b.data_ptr(),
+                 c.data_ptr(), m, n, k, int(transposed))
     return c
 
 

@@ -41,8 +41,6 @@ any packet a multiple of its group.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .intersect import WORK, _mt, safe_inverse
@@ -276,9 +274,8 @@ def packet_walk(origin, direction, tables, active=None, t_max=None, *,
     if n:
         kernels.call("clive2_packet_walk", dev, *rays.pointers(),
                      kernels.ptr(nodes), kernels.ptr(tris),
-                     ctypes.c_int(packet), ctypes.c_int(list(VARIANTS)
-                                                        .index(variant)),
-                     ctypes.c_int(int(count)), kernels.ptr(t),
+                     packet, list(VARIANTS).index(variant), int(count),
+                     kernels.ptr(t),
                      kernels.ptr(ids), kernels.ptr(stats))
         packet_walk.launches += 1
     return (t, ids, stats) if count else (t, ids)

@@ -12,8 +12,6 @@ also serve the streaming kernel's top tree (ops/traverse_stream.py).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -160,7 +158,7 @@ def intersect_bvh2(origin, direction, scene, active=None, t_max=None,
     counter = torch.empty(1, dtype=torch.int64, device=origin.device)
     kernels.call("clive2_bvh2", origin.device, *rays.pointers(),
                  *map(kernels.ptr, tables), kernels.ptr(counter),
-                 ctypes.c_int(int(any_hit)), *map(kernels.ptr, out))
+                 int(any_hit), *map(kernels.ptr, out))
     intersect_bvh2.launches += 1
     return out
 

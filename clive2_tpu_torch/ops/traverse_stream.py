@@ -48,8 +48,6 @@ stops after the first fat leaf that holds a hit under the cap.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -376,7 +374,7 @@ def intersect_stream(origin, direction, scene, active=None, t_max=None,
         counter = torch.empty(1, dtype=torch.int64, device=origin.device)
         kernels.call("clive2_stream", origin.device, *rays.pointers(),
                      *map(kernels.ptr, args), kernels.ptr(counter),
-                     ctypes.c_int(int(any_hit)), *map(kernels.ptr, out))
+                     int(any_hit), *map(kernels.ptr, out))
         intersect_stream.launches += 1
     return out
 

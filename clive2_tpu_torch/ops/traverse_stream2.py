@@ -63,7 +63,6 @@ stops after the first fat leaf that holds a hit under the cap.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import weakref
 
@@ -619,7 +618,7 @@ def stream2_thread(rays, tables, any_hit, out):
 
     kernels.call("clive2_stream2", rays.origin.device, *rays.pointers(),
                  *_p(*(tables[k] for k, _, _ in _KERNEL_TABLES)),
-                 ctypes.c_int(int(any_hit)), *_p(*out))
+                 int(any_hit), *_p(*out))
     stream2_thread.launches += 1
 
 
@@ -632,10 +631,10 @@ def walk_to_leaf(st, tables, any_hit, rays=None):
     first = rays is not None
     o, d, act, cap = rays if first else (st.ray,) * 4
     kernels.call("clive2_s2q_walk", st.ray.device, *_p(o, d, act, cap),
-                 ctypes.c_int64(st.n), ctypes.c_int(int(first)),
+                 st.n, int(first),
                  *_p(tables["nodebox"], tables["childs"], tables["ctr"],
                      st.ray, st.bt, st.bc, st.ref, st.sp, st.stack_ref,
-                     st.stack_t, st.leaf), ctypes.c_int(int(any_hit)))
+                     st.stack_t, st.leaf), int(any_hit))
     walk_to_leaf.launches += 1
 
 
@@ -645,7 +644,7 @@ def count_by_leaf(st):
 
     st.hist.zero_()
     kernels.call("clive2_s2q_count", st.ray.device, *_p(st.leaf),
-                 ctypes.c_int64(st.n), *_p(st.hist))
+                 st.n, *_p(st.hist))
     count_by_leaf.launches += 1
 
 
@@ -655,7 +654,7 @@ def scatter_by_leaf(st):
     from .. import kernels
 
     kernels.call("clive2_s2q_scatter", st.ray.device, *_p(st.leaf),
-                 ctypes.c_int64(st.n), *_p(st.cursor, st.queue))
+                 st.n, *_p(st.cursor, st.queue))
     scatter_by_leaf.launches += 1
 
 
@@ -664,7 +663,7 @@ def plan_tiles(st):
     from .. import kernels
 
     kernels.call("clive2_s2q_plan", st.ray.device, *_p(st.hist),
-                 ctypes.c_int(st.hist.numel()),
+                 st.hist.numel(),
                  *_p(st.offs, st.cursor, st.info))
     plan_tiles.launches += 1
 
@@ -686,10 +685,10 @@ def leaf_test(st, tables, instance=LEAF_TEST, keep=None):
 
     kernels.call(_LEAF_ENTRIES[instance], st.ray.device,
                  *_p(st.queue, st.info, st.hist, st.offs),
-                 ctypes.c_int64(st.max_tiles),
+                 st.max_tiles,
                  *_p(st.leaf, st.ray, st.bt, st.bc, tables["feat"],
                      tables["fat_start"]),
-                 ctypes.c_void_p(None if keep is None else keep.data_ptr()))
+                 None if keep is None else keep.data_ptr())
     leaf_test.launches += 1
 
 
@@ -698,11 +697,11 @@ def stream2_tail(st, tables, any_hit, out):
     outputs (PlainSteps.tail's contract)."""
     from .. import kernels
 
-    kernels.call("clive2_stream2_tail", st.ray.device, ctypes.c_int64(st.n),
+    kernels.call("clive2_stream2_tail", st.ray.device, st.n,
                  *_p(st.ray, st.bt, st.bc, st.ref, st.sp, st.stack_ref,
                      st.stack_t, tables["nodebox"], tables["childs"],
                      tables["feat"], tables["fat_start"], tables["slot_tri"],
-                     tables["slot_mt"]), ctypes.c_int(int(any_hit)),
+                     tables["slot_mt"]), int(any_hit),
                  *_p(*out))
     stream2_tail.launches += 1
 

@@ -45,7 +45,6 @@ wide node whose leaf children leave a hit under the cap.
 
 from __future__ import annotations
 
-import ctypes
 import itertools
 
 import numpy as np
@@ -322,7 +321,7 @@ def intersect_wide(origin, direction, scene, active=None, t_max=None,
         counter = torch.empty(1, dtype=torch.int64, device=origin.device)
         kernels.call("clive2_wide", origin.device, *rays.pointers(),
                      *map(kernels.ptr, args), kernels.ptr(counter),
-                     ctypes.c_int(int(any_hit)), *map(kernels.ptr, out))
+                     int(any_hit), *map(kernels.ptr, out))
         intersect_wide.launches += 1
     return out
 

@@ -15,8 +15,12 @@ The packet walk of the traversal tools (every variant, both packet sizes)
 matches its plain version's counts, t and ids, on random rays and on rays
 at its edges (entries of ±0.0 and +inf, one active warp a group, a deep
 stack), and the link probe's
-kernel is a * 2 + 1 bit for bit.  The layout probes' kernels match their
-plain versions at the script's shapes, the products also across several
+kernel is a * 2 + 1 bit for bit, on its tails and on unaligned arrays.
+Rows 8 and 9 replay from a CUDA graph, a launch under a side stream lands
+on it, and the launch path's raw stream and device reads are pinned to
+PyTorch's public ones.  The layout probes' kernels match their
+plain versions at the script's shapes, the slab copy also at the edges of
+its bands, the products also across several
 tiles and from the smallest K to the largest on normals, mixed magnitudes
 and cancelling sums, and raise off their tiles and past MAX_K:
 
@@ -747,6 +751,122 @@ def test_link_probe_kernel_is_two_a_plus_one(dev):
         assert torch.equal(got, a * 2.0 + 1.0)
 
 
+@pytest.mark.parametrize("n, offset", [(1, 0), (3, 0), (5, 0), (32768, 0),
+                                       (32771, 0), (1001, 1), (4096, 3)])
+def test_link_probe_kernel_tails_and_unaligned_arrays(dev, n, offset):
+    """Every element past the last whole float4, and arrays that start off
+    a 16-byte boundary (all scalar), equal a * 2 + 1 bit for bit."""
+    from clive2_tpu_torch.ops.link_probe import scale_shift
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    a = (torch.randn(n + offset, generator=gen, device=dev) * 1e3)[offset:]
+    got = scale_shift(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, a * 2.0 + 1.0)
+
+
+def _probe_calls(dev):
+    """(name, wrapper call, plain call) of the link probe at its shape and
+    of each slab copy at the script's shapes."""
+    from clive2_tpu_torch.ops import link_probe as lp
+    from clive2_tpu_torch.ops import mosaic_probes as mp
+    from clive2_tpu_torch.scripts import probe_mosaic_layouts as tool
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn(256, 128, generator=gen, device=dev) * 1e3
+    calls = [("link_probe", lambda: lp.scale_shift(a),
+              lambda: lp.scale_shift_plain(a))]
+    for tag, kernel, shapes in tool.PROBES:
+        if kernel == "slab_copy":
+            x, = tool.inputs(shapes, dev)
+            calls.append((tag, lambda x=x: mp.slab_copy(x),
+                          lambda x=x: mp.slab_copy_plain(x)))
+    return calls
+
+
+def test_probe_kernels_replay_from_a_cuda_graph(dev):
+    """Rows 8 and 9 captured into one CUDA graph, three calls each, and
+    replayed twice: every output equal to the plain version bit for bit
+    (a launch onto another stream than the capture's fails the capture)."""
+    calls = _probe_calls(dev)
+    for _, fn, _ in calls:
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [[fn() for _ in range(3)] for _, fn, _ in calls]
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for (name, _, plain), got in zip(calls, outs):
+            want = plain()
+            assert all(torch.equal(o, want) for o in got), name
+
+
+def test_a_launch_under_a_side_stream_lands_on_it(dev):
+    """Under ``torch.cuda.stream(side)`` the probe kernel runs on ``side``:
+    held behind a long sleep there, its output is not written when the
+    default stream has drained, and is once ``side`` has."""
+    from clive2_tpu_torch import kernels
+
+    a = torch.randn(4096, device=dev)
+    o = torch.zeros_like(a)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 30)                 # about half a second
+        kernels.call("clive2_link_probe", dev, a.data_ptr(), o.data_ptr(),
+                     a.numel(), 1)
+    torch.cuda.default_stream().synchronize()
+    assert not side.query()
+    assert torch.equal(o.cpu(), torch.zeros(4096))
+    side.synchronize()
+    assert torch.equal(o, a * 2.0 + 1.0)
+
+
+def test_raw_stream_handle_is_the_current_streams(dev):
+    """kernels.current_stream (torch._C._cuda_getCurrentRawStream) and
+    kernels.current_device (torch._C._cuda_getDevice) read what the public
+    calls give, on the default stream and under a side stream: a PyTorch
+    that changes either fails here."""
+    from clive2_tpu_torch import kernels
+
+    index = torch.cuda.current_device()
+    assert kernels.current_device() == index
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            assert type(kernels.current_stream(index)) is int
+            assert (kernels.current_stream(index)
+                    == torch.cuda.current_stream().cuda_stream
+                    == stream.cuda_stream)
+    assert side.cuda_stream != torch.cuda.default_stream().cuda_stream
+
+
+# slabs at the bands' edges (ops/mosaic_probes.py:bands): whole bands, a
+# shorter last band, one band, rows under the window, the largest slab,
+# single-row bands' neighbours: (rows, cols)
+BAND_EDGE_SLABS = [(300, 64), (113, 200), (9, 1000), (33, 2040), (453, 256),
+                   (640, 4), (100, 8), (7, 16), (5, 24), (1, 8), (128, 64),
+                   (129, 64)]
+
+
+@pytest.mark.parametrize("rows, cols", BAND_EDGE_SLABS)
+def test_slab_copy_at_band_edges(dev, rows, cols):
+    """The banded slab copy equals its plain version bit for bit, one launch
+    a call, however the slab's rows split into bands."""
+    from clive2_tpu_torch.ops import mosaic_probes as mp
+
+    rng = np.random.default_rng(rows * cols)
+    x = torch.from_numpy(rng.standard_normal((3, rows, cols)).astype(
+        np.float32)).to(torch.bfloat16).to(dev)
+    launches = mp.slab_copy.launches
+    got = mp.slab_copy(x)
+    torch.cuda.synchronize()
+    assert mp.slab_copy.launches == launches + 1
+    assert torch.equal(got, mp.slab_copy_plain(x))
+
+
 @pytest.mark.parametrize("tag", ["dma64", "dma128", "dmaT", "dotT",
                                  "dot128"])
 def test_mosaic_probe_kernel_matches_plain(dev, tag):
@@ -862,7 +982,7 @@ def test_mosaic_probe_kernels_raise_off_their_tiles(dev, kernel):
     ptr = kernels.ptr
     if kernel == "slab_copy":
         entry = ("clive2_slab_copy", ptr(args[0]), ctypes.c_int(5),
-                 ctypes.c_int(3), ptr(out))
+                 ctypes.c_int(3), ctypes.c_int(5), ptr(out), ctypes.c_int(1))
     else:
         entry = ("clive2_mma_bf16", ptr(args[0]), ptr(args[1]), ptr(out),
                  ctypes.c_int(600), ctypes.c_int(128), ctypes.c_int(40),

@@ -203,15 +203,21 @@ def _source():
 
 
 def test_kernel_source_is_a_bulk_copy_and_mma_products():
-    """csrc/mosaic_probes.cu: the copy is one cp.async.bulk on an mbarrier
-    (common.cuh:bulk_load); the products are wgmma on shared memory that
-    TMA tensor loads filled, issued as one committed group and waited for;
-    no mma.sync, ldmatrix or library product inside."""
+    """csrc/mosaic_probes.cu: the copy is one cp.async.bulk a block, of its
+    band of rows, on the block's mbarrier (common.cuh:bulk_start,
+    bulk_wait), launched as a programmatic dependent launch; the products
+    are wgmma on shared memory that TMA tensor loads filled, issued as one
+    committed group and waited for; no mma.sync, ldmatrix or library
+    product inside."""
     src, common = _source()
-    assert "bulk_load(slab_bytes" in src
-    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert "bulk_start(band_bytes" in src and "bulk_wait(&bar)" in src
+    assert "launch_dependent(slab_copy_kernel" in src
+    assert "SmemOptIn" in src
     for ptx in ("cp.async.bulk.shared::cluster.global.mbarrier",
-                "mbarrier.arrive.expect_tx", "mbarrier.try_wait.parity"):
+                "mbarrier.arrive.expect_tx", "mbarrier.try_wait.parity",
+                "griddepcontrol.wait", "griddepcontrol.launch_dependents",
+                "cudaLaunchAttributeProgrammaticStreamSerialization",
+                "cudaFuncAttributeMaxDynamicSharedMemorySize"):
         assert ptx in common
     for ptx in ("wgmma.mma_async.sync.aligned.m64n",
                 "k16.f32.bf16.bf16",
@@ -255,3 +261,49 @@ def test_smem_bytes_is_the_sources(k):
     expr = re.sub(r"\b(k\w*)\b", lambda m: str(names[m.group(1)]), body)
     # C's int division on positive operands is Python's //
     assert mp.smem_bytes(k) == eval(expr.replace("/", "//"))
+
+
+# slabs whose rows split into whole bands, into bands and a shorter last
+# one, into one band (smaller than a band, or rows of too few bytes), and
+# slabs under the window's 8 rows: (rows, cols)
+SLABS = [(640, 64), (640, 128), (64, 640), (300, 64), (113, 200),
+         (9, 1000), (33, 2040), (453, 256), (640, 4), (100, 8), (7, 16),
+         (5, 24), (1, 8)]
+
+
+@pytest.mark.parametrize("rows, cols", SLABS)
+def test_slab_bands_cover_every_row_once(rows, cols):
+    """ops/mosaic_probes.py:bands, the slab copy's grid: every row in
+    exactly one band, block 0's band holding the window's rows, every band
+    starting on and moving a multiple of 16 bytes, each within BAND_BYTES
+    unless the window's rows or the whole slab need more; and band_rows
+    meets what the C entry asks of it."""
+    assert 2 * rows * cols % 16 == 0 and 2 * rows * cols <= mp.MAX_SLAB_BYTES
+    b = mp.band_rows(rows, cols)
+    split = mp.bands(rows, cols)
+    covered = [r for r0, n in split for r in range(r0, r0 + n)]
+    assert covered == list(range(rows))
+    assert len(split) == -(-rows // b)
+    assert all(n == b for _, n in split[:-1]) and 0 < split[-1][1] <= b
+    window = min(rows, mp.WINDOW[0])
+    assert split[0][1] >= window
+    row = 2 * cols
+    for r0, n in split:
+        assert r0 * row % 16 == 0 and n * row % 16 == 0
+    step = 16 // int(np.gcd(row, 16))    # rows that make 16 bytes
+    forced = -(-window // step) * step    # the window's rows, whole steps
+    assert b * row <= mp.BAND_BYTES or b in (forced, rows)
+    # the C entry's checks (csrc/mosaic_probes.cu:clive2_slab_copy)
+    assert window <= b <= rows and (b == rows or 2 * b * cols % 16 == 0)
+
+
+def test_script_slabs_split_across_several_blocks():
+    """The script's three slabs (80-160 KB) each take several blocks of at
+    most BAND_BYTES, as many as the bytes ask for."""
+    for tag, kernel, shapes in tool.PROBES:
+        if kernel != "slab_copy":
+            continue
+        rows, cols = shapes[0][1:]
+        split = mp.bands(rows, cols)
+        assert len(split) >= -(-2 * rows * cols // mp.BAND_BYTES) > 1, tag
+        assert max(n for _, n in split) * 2 * cols <= mp.BAND_BYTES, tag
