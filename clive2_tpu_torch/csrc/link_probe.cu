@@ -54,16 +54,12 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 extern "C" int clive2_link_probe(const float* a, float* o, long long n,
-                                 int pdl, void* stream) {
+                                 void* stream) {
   const long long vectors =
       ((uintptr_t)a | (uintptr_t)o) % 16 ? 0 : n / 4;
   const long long blocks =
       (vectors + (n - 4 * vectors) + kThreads - 1) / kThreads;
   if (blocks <= 0) return (int)cudaSuccess;
-  if (pdl)
-    return (int)launch_dependent(link_probe_kernel, (unsigned)blocks,
-                                 kThreads, 0, stream, a, o, n, vectors);
-  link_probe_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      a, o, n, vectors);
-  return (int)cudaGetLastError();
+  return (int)launch_dependent(link_probe_kernel, (unsigned)blocks, kThreads,
+                               0, stream, a, o, n, vectors);
 }

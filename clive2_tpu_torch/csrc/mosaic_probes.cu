@@ -273,8 +273,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 // 16-byte aligned; band_rows at least the window's rows and at most the
 // slab's, and its bytes a multiple of 16 unless it is the whole slab.
 extern "C" int clive2_slab_copy(const void* src, int rows, int cols,
-                                int band_rows, float* out, int pdl,
-                                void* stream) {
+                                int band_rows, float* out, void* stream) {
   const long long bytes = 2LL * rows * cols;
   const int out_rows = rows < 8 ? rows : 8;
   if (rows <= 0 || cols <= 0 || bytes % 16 || bytes > kMaxSlabBytes ||
@@ -289,13 +288,9 @@ extern "C" int clive2_slab_copy(const void* src, int rows, int cols,
   const size_t smem = 2 * (size_t)band_rows * cols;
   const __nv_bfloat16* slab = (const __nv_bfloat16*)src;
   const int out_cols = cols < 128 ? cols : 128;
-  if (pdl)
-    return (int)launch_dependent(slab_copy_kernel, blocks, kCopyThreads,
-                                 smem, stream, slab, rows, cols, band_rows,
-                                 out, out_rows, out_cols);
-  slab_copy_kernel<<<blocks, kCopyThreads, smem, (cudaStream_t)stream>>>(
-      slab, rows, cols, band_rows, out, out_rows, out_cols);
-  return (int)cudaGetLastError();
+  return (int)launch_dependent(slab_copy_kernel, blocks, kCopyThreads, smem,
+                               stream, slab, rows, cols, band_rows, out,
+                               out_rows, out_cols);
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime, so the

@@ -70,11 +70,11 @@ _SIGNATURES = {
     # nodes, tris, packet, variant, count | t, id, counts
     "clive2_packet_walk": _RAYS + [_P, _P] + [ctypes.c_int] * 3 + [_P] * 3
     + [_P],
-    # a, o, n, pdl (csrc/link_probe.cu)
-    "clive2_link_probe": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    # a, o, n (csrc/link_probe.cu)
+    "clive2_link_probe": [_P, _P, ctypes.c_int64, _P],
     # the layout probes (csrc/mosaic_probes.cu): src, rows, cols, band
-    # rows, out, pdl | a, b, c, m, n, k, trans_a
-    "clive2_slab_copy": [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int, _P],
+    # rows, out | a, b, c, m, n, k, trans_a
+    "clive2_slab_copy": [_P] + [ctypes.c_int] * 3 + [_P, _P],
     "clive2_mma_bf16": [_P] * 3 + [ctypes.c_int] * 4 + [_P],
 }
 

@@ -34,7 +34,7 @@ def scale_shift(a):
     o = torch.empty_like(a)
     if a.numel():
         kernels.call("clive2_link_probe", a.device, a.data_ptr(),
-                     o.data_ptr(), a.numel(), 1)
+                     o.data_ptr(), a.numel())
         scale_shift.launches += 1
     return o
 

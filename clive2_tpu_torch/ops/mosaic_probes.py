@@ -25,7 +25,9 @@ import torch
 SLAB = 2                      # the script's src.at[2]
 WINDOW = (8, 128)             # the script's out[...] = slot[:8, :128]
 MAX_SLAB_BYTES = 227 * 1024 - 128    # csrc/mosaic_probes.cu:kMaxSlabBytes
-BAND_BYTES = 16 * 1024    # about what each block of the slab copy moves
+# about what each block of the slab copy moves: chosen on the card against
+# 8 KB, 32 KB and one block for the whole slab (PERF.md, PR 17)
+BAND_BYTES = 16 * 1024
 # the product kernel's steps (csrc/mosaic_probes.cu: kBM, kBN, kKStep): M
 # and N multiples of a block's tile, K of one wgmma's depth, up to MAX_K
 # (kMaxK: all of K resident in shared memory)
@@ -42,24 +44,24 @@ def smem_bytes(k):
     return 1024 + -(-k // 64) * 64 * 2 * (TILE["m"] + TILE["n"])
 
 
-def band_rows(rows, cols, band_bytes=BAND_BYTES):
+def band_rows(rows, cols):
     """Rows of a bf16 slab [rows, cols] that each block of the slab copy
-    moves: the most whole rows within ``band_bytes`` whose bytes are a
+    moves: the most whole rows within ``BAND_BYTES`` whose bytes are a
     multiple of 16 (a bulk copy's unit, so every band starts 16-byte
     aligned), at least the window's rows (block 0 writes the window), at
     most the slab's (one band: the whole slab, a multiple of 16 bytes by
     the slab's contract)."""
     row = 2 * cols
     step = 16 // math.gcd(row, 16)
-    want = max(band_bytes // row // step, 1) * step
+    want = max(BAND_BYTES // row // step, 1) * step
     window = -(-min(rows, WINDOW[0]) // step) * step
     return min(rows, max(want, window))
 
 
-def bands(rows, cols, band_rows_=None):
+def bands(rows, cols):
     """(first row, rows) of each block's band, block 0 first: the grid of
     the slab copy (csrc/mosaic_probes.cu:slab_copy_kernel)."""
-    b = band_rows_ or band_rows(rows, cols)
+    b = band_rows(rows, cols)
     return [(r, min(b, rows - r)) for r in range(0, rows, b)]
 
 
@@ -142,7 +144,7 @@ def slab_copy(x):
     out = torch.empty(min(rows, WINDOW[0]), min(cols, WINDOW[1]),
                       device=x.device)
     kernels.call("clive2_slab_copy", x.device, slab.data_ptr(), rows, cols,
-                 band_rows(rows, cols), out.data_ptr(), 1)
+                 band_rows(rows, cols), out.data_ptr())
     slab_copy.launches += 1
     return out
 

@@ -77,7 +77,7 @@ def measure(root):
     if not torch.cuda.is_available():
         raise RuntimeError("launch_cost measures on the card: CUDA is not "
                            "available")
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -88,7 +88,7 @@ def measure(root):
     def sync():
         torch.cuda.synchronize(dev)
 
-    index = torch.cuda.current_device()
+    index = dev.index
     reads = {
         "torch.cuda.current_stream(device).cuda_stream":
             lambda: torch.cuda.current_stream(dev).cuda_stream,

@@ -816,7 +816,7 @@ def test_a_launch_under_a_side_stream_lands_on_it(dev):
     with torch.cuda.stream(side):
         torch.cuda._sleep(1 << 30)                 # about half a second
         kernels.call("clive2_link_probe", dev, a.data_ptr(), o.data_ptr(),
-                     a.numel(), 1)
+                     a.numel())
     torch.cuda.default_stream().synchronize()
     assert not side.query()
     assert torch.equal(o.cpu(), torch.zeros(4096))
@@ -982,7 +982,7 @@ def test_mosaic_probe_kernels_raise_off_their_tiles(dev, kernel):
     ptr = kernels.ptr
     if kernel == "slab_copy":
         entry = ("clive2_slab_copy", ptr(args[0]), ctypes.c_int(5),
-                 ctypes.c_int(3), ctypes.c_int(5), ptr(out), ctypes.c_int(1))
+                 ctypes.c_int(3), ctypes.c_int(5), ptr(out))
     else:
         entry = ("clive2_mma_bf16", ptr(args[0]), ptr(args[1]), ptr(out),
                  ctypes.c_int(600), ctypes.c_int(128), ctypes.c_int(40),
