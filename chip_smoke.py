@@ -62,16 +62,17 @@ kernel_microbench's five variants on teapots 512's connection casts beside
 the BVH2 kernel on the same cast, and that kernel's mean over 5
 back-to-back calls beside the host's time to issue them and the
 allocator's cudaMalloc calls among them; ``link_probe``: the probe's phases and
-verdict, its kernel bit for bit against a * 2 + 1; ``mosaic_probes``:
+verdict, its kernel bit for bit against a * 2 + 1, and the host µs per
+launch of its wrapper beside ``torch.addcmul``'s; ``mosaic_probes``:
 probe_mosaic_layouts's five probes, each OK only when its kernel equalled
 its plain version (the bulk slab copy bit for bit, the two bf16 ``wgmma``
 products within 2^-14 |A|ᵀ|B|), each kernel timed beside its plain
 version and one PyTorch call (single launches and from a CUDA graph, as
-the link probe's kernel too), a K-major A against a row-major one on the
-same product, and the product kernel's registers, shared memory, spills,
-tile and grid beside the tile widths tried in PR 15; the packet walk also
-on the tie soup in phase 4).  Then it compares a small render on the card
-with the same render on the CPU.  The
+the link probe's kernel too; the slab copy's bands), a K-major A against
+a row-major one on the same product, and the product kernel's registers,
+shared memory, spills, tile and grid beside the tile widths tried in PR
+15; the packet walk also on the tie soup in phase 4).  Then it compares a
+small render on the card with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, as scripts/make_assets.py makes them).  Each
 phase prints one JSON line; any failure exits non-zero without the final
@@ -2247,7 +2248,8 @@ def main() -> int:
     # ms: the mean of 20 wrapper calls, their host path included; graph_ms:
     # the card's time alone, per call of 20 replayed from a CUDA graph;
     # host_us: host µs per launch over 2,000 back-to-back calls, the median
-    # of 3 rounds in turns (scripts/launch_cost.py times it in full)
+    # of 3 rounds in turns (clive2_tpu_torch/scripts/launch_cost.py times
+    # it in full)
     calls = {"torch.addcmul": lambda: torch.addcmul(one, a, two),
              "link_probe wrapper": lambda: probe_kernel.scale_shift(a)}
     host = {k: [] for k in calls}

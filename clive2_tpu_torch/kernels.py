@@ -12,10 +12,10 @@ when that is not 0.
 The launch path (``call``) costs about what one PyTorch op costs on the
 host (PERF.md): ``load`` binds each entry once with its ``argtypes``
 (``_SIGNATURES``), so pointers (``tensor.data_ptr()``) and integers go in as
-plain Python ints; the stream is read at every call as a raw handle
-(``current_stream``), never cached, so a launch lands on whatever stream is
-current, a CUDA graph's capture stream or a side stream alike; and a device
-guard is entered only for a tensor on another card than the current one.
+plain Python ints; the stream is read at every call as a raw handle, never
+cached, so a launch lands on whatever stream is current, a CUDA graph's
+capture stream or a side stream alike; and a device guard is entered only
+for a tensor on another card than the current one.
 
 Flags: ``sm_90a`` (Hopper) and ``--fmad=false``, so that a kernel rounds
 exactly as its plain PyTorch version (separate multiplies and adds) and
@@ -179,37 +179,35 @@ def load():
     return _lib
 
 
-def current_device() -> int:
-    """The current CUDA device's index."""
-    return torch._C._cuda_getDevice()
-
-
-def current_stream(index: int) -> int:
-    """The raw handle of device ``index``'s current stream: what
-    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
-    building a ``Stream`` object (a card test pins the two equal)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
 def call(name: str, device, *args):
     """Launch kernel entry ``name`` on ``device``'s current stream, read at
     this call; ``args`` are the entry's arguments before the stream, as
-    ints (pointers from ``ptr``) or None for a null pointer."""
-    fn = _entries.get(name)
-    if fn is None:
-        load()
-        fn = _entries[name]
-    here = current_device()
-    index = here if device.index is None else device.index
-    if index == here:
-        rc = fn(*args, current_stream(index))
+    ints (pointers from ``ptr``) or None for a null pointer.
+
+    The current device and stream are read through PyTorch's private
+    ``torch._C._cuda_getDevice`` and ``torch._C._cuda_getCurrentRawStream``
+    (a raw handle, without the ``Stream`` object that
+    ``torch.cuda.current_stream`` builds); a card test pins both to the
+    public calls."""
+    fn = _entries.get(name) or _bind(name)
+    here = torch._C._cuda_getDevice()
+    index = device.index
+    if index is None or index == here:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(here))
     else:
         with torch.cuda.device(index):
-            rc = fn(*args, current_stream(index))
-    if rc != 0:
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
         msg = _lib.clive2_error_string(rc).decode()
         raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
                            f"({msg})")
+
+
+def _bind(name: str):
+    """Entry ``name``, loading the library first (KeyError: no such
+    entry)."""
+    load()
+    return _entries[name]
 
 
 def ptr(t) -> int:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
+
 
 def scale_shift_plain(a):
     """The probe kernel's plain version: a * 2 + 1."""
@@ -22,19 +24,20 @@ scale_shift_plain.calls = 0
 
 def scale_shift(a):
     """a * 2 + 1 on an f32 tensor: the kernel (csrc/link_probe.cu) on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    if a.device.type == "cpu":
-        return scale_shift_plain(a)
-    from .. import kernels
-
-    if a.device.type != "cuda" or a.dtype != torch.float32:
+    CUDA tensor, the plain version on a CPU tensor.  Its host path is a
+    launch's whole cost at the probe's size, so it checks the device once
+    and reads each figure once."""
+    if not a.is_cuda or a.dtype != torch.float32:
+        if a.device.type == "cpu":
+            return scale_shift_plain(a)
         raise ValueError(f"the probe kernel takes f32 CUDA tensors, got "
                          f"{a.dtype} on {a.device}")
     a = a.contiguous()
     o = torch.empty_like(a)
-    if a.numel():
+    n = a.numel()
+    if n:
         kernels.call("clive2_link_probe", a.device, a.data_ptr(),
-                     o.data_ptr(), a.numel())
+                     o.data_ptr(), n)
         scale_shift.launches += 1
     return o
 

@@ -6,10 +6,9 @@ Replace the TPU kernels of ``scripts/probe_mosaic_layouts.py``:
 (:77) by ``matmul_t`` and ``dot128_kern`` (:90) by ``matmul``.  The kernels
 are csrc/mosaic_probes.cu (bulk asynchronous copies, a band of rows a
 block; ``wgmma`` on operands that TMA loads into shared memory, all of K
-at once); the
-``*_plain`` functions are their plain versions.  A wrapper takes the plain
-version for a CPU tensor and launches the kernel for a CUDA tensor; it
-raises on anything the kernel does not take.
+at once); the ``*_plain`` functions are their plain versions.  A wrapper
+takes the plain version for a CPU tensor and launches the kernel for a
+CUDA tensor; it raises on anything the kernel does not take.
 
 The plain products multiply by broadcast in f32 and sum over K, not
 ``torch.matmul``: a product of two bf16 values is exact in f32, so only the
@@ -26,7 +25,7 @@ SLAB = 2                      # the script's src.at[2]
 WINDOW = (8, 128)             # the script's out[...] = slot[:8, :128]
 MAX_SLAB_BYTES = 227 * 1024 - 128    # csrc/mosaic_probes.cu:kMaxSlabBytes
 # about what each block of the slab copy moves: chosen on the card against
-# 8 KB, 32 KB and one block for the whole slab (PERF.md, PR 17)
+# 8 KB, 32 KB and one block for the whole slab (PERF.md §6, row 9)
 BAND_BYTES = 16 * 1024
 # the product kernel's steps (csrc/mosaic_probes.cu: kBM, kBN, kKStep): M
 # and N multiples of a block's tile, K of one wgmma's depth, up to MAX_K

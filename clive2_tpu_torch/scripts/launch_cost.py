@@ -14,9 +14,11 @@ it measures that tree's package in this process and prints one JSON line:
               (time.perf_counter_ns, a synchronise before and after and
               outside the time; the card keeps up with them), the median of
               ROUNDS rounds taken in turns: ``torch.addcmul`` on f32
-              [256, 128]; the link probe's wrapper on the same array;
-              ``kernels.call("clive2_bvh2")`` on one ray, its arguments made
-              once; ``intersect_bvh2`` on one ray
+              [256, 128]; the link probe's wrapper on the same array, and
+              its parts: ``torch.empty_like``, its C entry called through
+              ctypes with the stream read once, ``kernels.call`` with its
+              arguments made once; ``kernels.call("clive2_bvh2")`` on one
+              ray, its arguments made once; ``intersect_bvh2`` on one ray
   link_probe  the probe kernel's ms (mean of 20 back-to-back wrapper
               calls between CUDA events, as chip_smoke.py times it) and
               graph_ms (per call of 20 replayed from a CUDA graph), beside
@@ -88,6 +90,8 @@ def measure(root):
     def sync():
         torch.cuda.synchronize(dev)
 
+    torch.zeros(1, device=dev)           # CUDA's context, before any time
+    sync()
     index = dev.index
     reads = {
         "torch.cuda.current_stream(device).cuda_stream":
@@ -97,6 +101,8 @@ def measure(root):
         "torch.cuda.current_device()": torch.cuda.current_device,
         "torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
     }
+    for fn in reads.values():
+        fn()
     out["reads_us"] = {k: per_call_us(fn, READS) for k, fn in reads.items()}
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -115,9 +121,18 @@ def measure(root):
     bvh2_args = ([t.data_ptr() for t in ts] + [1]
                  + [t.data_ptr() for t in (*tables, counter)] + [0]
                  + [t.data_ptr() for t in hits])
+    o = torch.empty_like(a)
+    probe_args = (a.data_ptr(), o.data_ptr(), a.numel())
+    entry = kernels.load().clive2_link_probe
+    stream = torch.cuda.current_stream(dev).cuda_stream
     launch = {
         "torch.addcmul": lambda: torch.addcmul(one, a, two),
         "link_probe wrapper": lambda: link_probe.scale_shift(a),
+        "torch.empty_like": lambda: torch.empty_like(a),
+        "clive2_link_probe entry, stream read once":
+            lambda: entry(*probe_args, stream),
+        "kernels.call clive2_link_probe":
+            lambda: kernels.call("clive2_link_probe", dev, *probe_args),
         "kernels.call clive2_bvh2, 1 ray":
             lambda: kernels.call("clive2_bvh2", dev, *bvh2_args),
         "intersect_bvh2, 1 ray":

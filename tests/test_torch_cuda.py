@@ -825,20 +825,18 @@ def test_a_launch_under_a_side_stream_lands_on_it(dev):
 
 
 def test_raw_stream_handle_is_the_current_streams(dev):
-    """kernels.current_stream (torch._C._cuda_getCurrentRawStream) and
-    kernels.current_device (torch._C._cuda_getDevice) read what the public
-    calls give, on the default stream and under a side stream: a PyTorch
-    that changes either fails here."""
-    from clive2_tpu_torch import kernels
-
+    """The private reads of the launch path (kernels.call):
+    torch._C._cuda_getCurrentRawStream and torch._C._cuda_getDevice give
+    what the public calls give, on the default stream and under a side
+    stream: a PyTorch that changes either fails here."""
     index = torch.cuda.current_device()
-    assert kernels.current_device() == index
+    assert torch._C._cuda_getDevice() == index
     side = torch.cuda.Stream()
     for stream in (torch.cuda.current_stream(), side):
         with torch.cuda.stream(stream):
-            assert type(kernels.current_stream(index)) is int
-            assert (kernels.current_stream(index)
-                    == torch.cuda.current_stream().cuda_stream
+            raw = torch._C._cuda_getCurrentRawStream(index)
+            assert type(raw) is int
+            assert (raw == torch.cuda.current_stream().cuda_stream
                     == stream.cuda_stream)
     assert side.cuda_stream != torch.cuda.default_stream().cuda_stream
 

@@ -33,9 +33,10 @@ class FakeLibrary:
 
 @pytest.fixture
 def fake(monkeypatch):
-    """Entries that record their arguments and return ``rc[name]``, the
-    current device 0, and a stream read that gives the next handle of
-    ``streams`` and records the device it was read for."""
+    """Entries that record their arguments and return ``rc[name]``; in
+    place of PyTorch's private reads, the current device 0 and a stream
+    read that gives the next handle of ``streams`` and records the device
+    it was read for; a device guard that records the device."""
     state = dict(calls=[], rc={}, streams=[], reads=[], guards=[])
 
     def entry(name):
@@ -56,8 +57,10 @@ def fake(monkeypatch):
     monkeypatch.setattr(kernels, "_lib", FakeLibrary())
     monkeypatch.setattr(kernels, "_entries", {
         name: entry(name) for name in ("clive2_a", "clive2_b")})
-    monkeypatch.setattr(kernels, "current_device", lambda: 0)
-    monkeypatch.setattr(kernels, "current_stream", stream)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", stream,
+                        raising=False)
     monkeypatch.setattr(torch.cuda, "device", guard)
     return state
 
