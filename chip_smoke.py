@@ -25,7 +25,13 @@ kernel), each followed by the same render on BVH2 tables as an A/B; and the
 JAX package's two A/B
 traversal paths: ``dragon`` at 512x512 under ``CLIVE2_TRAVERSAL=wide``
 (BVH8 kernel), ``medium-dragon`` at 512x512 under ``CLIVE2_STREAM_IMPL=1``
-and ``sponza`` at 1920x1080 on the same tables (streaming kernel).  Then
+and ``sponza`` at 1920x1080 on the same tables (streaming kernel).
+``big-dragon`` (871,422 mesh triangles) at bench.py's 512x512 and 4 spp
+on its default route (``big_dragon_512``: the queued fat-leaf traversal)
+and on BVH2 tables under ``CLIVE2_TRAVERSAL=pallas2``
+(``big_dragon_512_bvh2_ab``), each with s/sample, Mrays/s, peak memory,
+scene build and launches by kernel, its casts held to the plain walks on a
+stride, and the two routes' images against each other.  Then
 the integrator's other paths, each with its own launch counts: the
 reference estimator (``CLIVE2_REFERENCE_MIS``) on Cornell 1080p and teapots
 512, 2 samples each, its closest-hit connection casts held to their plain
@@ -71,10 +77,14 @@ version and one PyTorch call (single launches and from a CUDA graph, as
 the link probe's kernel too; the slab copy's bands), a K-major A against
 a row-major one on the same product, and the product kernel's registers,
 shared memory, spills, tile and grid beside the tile widths tried in PR
-15; the packet walk also on the tie soup in phase 4).  Then it compares a
+15; the packet walk also on the tie soup in phase 4).  Then the port's tools
+that drive the renderer, each as a subprocess on the card (``tools``:
+make_assets, smoke_render, profile_stages on teapots and big-dragon,
+parity_render under both estimators and its report, movie_launcher with
+two workers), each failing the run on a nonzero exit.  Then it compares a
 small render on the card with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
-the reference's triangle counts, as scripts/make_assets.py makes them).  Each
+the reference's triangle counts, by clive2_tpu_torch/scripts/make_assets.py).  Each
 phase prints one JSON line; any failure exits non-zero without the final
 line.  Before the last line it prints the ``kernels`` line (each kernel's
 launches on the main path, error, time, plain time, the time of the one
@@ -803,12 +813,14 @@ def stream2_breakdown(c, data):
     step (walk; the binning's count, plan and scatter kernels; leaf test;
     tail, which runs on a side stream beside the next chunk's rounds),
     summed by step and by round over the chunks, beside the host clock
-    around the whole cast."""
+    around the whole cast.  Then the count kernel's library call,
+    ``torch.bincount``, on each round's own input (kept during the cast,
+    timed after it), held to the kernel's histogram."""
     import torch
 
     from clive2_tpu_torch.ops import traverse_stream2 as s2
 
-    events, rounds = [], [0]
+    events, rounds, count_inputs = [], [0], []
 
     def timed(name, fn, *args):
         a = torch.cuda.Event(enable_timing=True)
@@ -826,6 +838,7 @@ def stream2_breakdown(c, data):
 
         def bin(self, st):
             timed("count", s2.count_by_leaf, st)
+            count_inputs.append((st.leaf.clone(), st.hist.clone()))
             timed("plan", s2.plan_tiles, st)
             timed("scatter", s2.scatter_by_leaf, st)
             return self.read_info(st)
@@ -856,9 +869,26 @@ def stream2_breakdown(c, data):
         calls[name] = calls.get(name, 0) + 1
         if name != "tail_on_side_stream":
             by_round[r] = by_round.get(r, 0.0) + t
+    # bincount of the fat-leaf ids shifted by one, so that -1 (no fat leaf)
+    # falls into bin 0 (the shift made before the timing); one warm-up
+    n_fat = data["stream2"]["fat_start"].numel() - 1
+    bincount_ms = []
+    for leaf, hist in count_inputs:
+        shifted = leaf + 1
+        lib_ms, lib = cuda_time(
+            lambda: torch.bincount(shifted, minlength=n_fat + 1), 1)
+        if not torch.equal(lib[1:].int(), hist):
+            raise AssertionError("stream2_breakdown: bincount differs from "
+                                 "the count kernel")
+        bincount_ms.append(lib_ms)
+    del count_inputs
     return dict(wall_ms=wall, steps_ms=ms, calls=calls,
                 main_stream_ms_by_round=by_round,
                 main_stream_idle_ms=wall - sum(by_round.values()),
+                count_library=dict(
+                    call="torch.bincount", ms=sum(bincount_ms),
+                    count_kernel_ms=ms["count"], rounds=len(bincount_ms),
+                    ms_by_round=bincount_ms),
                 **stats)
 
 
@@ -1528,6 +1558,121 @@ def main() -> int:
                     weight_max_abs=float(np.abs(wts[0] - wts[1]).max()))
 
     extra_casts = {}
+
+    # ---- 7a. big-dragon (871,422 mesh triangles) at bench.py's size -------
+    # 512x512, 4 spp, seed 0 (bench.py:381-383).  First its default route,
+    # the queued fat-leaf traversal (its 524,288-ray extension casts, under
+    # QUEUE_MIN, on the per-thread kernel), then BVH2 tables under
+    # CLIVE2_TRAVERSAL=pallas2, each driven with the launch counts from 0:
+    # s/sample, Mrays/s, peak memory, scene build, table bytes and launches
+    # by kernel.  Then one extension cast and the connection cast of a
+    # sample held to the plain walk on every k-th ray (k the least stride
+    # that leaves at most 2^20 rays), and the queued connection cast's
+    # breakdown with its count's library call.  The two routes' raw images
+    # must agree on at least 99% of the pixels within rtol 1e-3.
+    big_imgs = {}
+    for name, env, kernel, table in (
+            ("big_dragon_512", {}, queued + ("stream2_thread",), "stream2"),
+            ("big_dragon_512_bvh2_ab", dict(CLIVE2_TRAVERSAL="pallas2"),
+             ("bvh2",), "bvh2")):
+        with environment(**env):
+            big, build_s, bvh_s = build_timed("big-dragon", 512, 512, dev)
+        got = sorted(set(big.data) & set(PACKERS))
+        if got != [table]:
+            raise AssertionError(f"{name}: expected the {table} tables, "
+                                 f"got {got}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = ct.Renderer(big, seed=0, device=dev)
+        times, rays = [], []
+
+        def four_samples():
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.run_sample()
+                r.block()
+                times.append(time.perf_counter() - t0)
+                rays.append(int(r.last_n_rays))
+
+        ran = drive(name, kernel, four_samples)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        big_imgs[name] = r.raw_image
+        image_ok(name, big_imgs[name])
+        if not env:
+            for k, v in ran.items():
+                launches[k] += v
+        del r
+        figures = dict(
+            width=512, height=512, spp=4, order=wave_order(big.data),
+            scene_tris=big.n_triangles, scene_build_s=build_s,
+            bvh_build_s=bvh_s, table=table,
+            table_bytes=table_bytes(big.data[table]), s_per_sample=times,
+            mrays_s=sum(rays) / sum(times) / 1e6, rays=sum(rays),
+            peak_gib=peak_gib, counts=ran,
+            image_mean=float(big_imgs[name].mean()))
+        if env:
+            a, b = big_imgs["big_dragon_512"], big_imgs[name]
+            close = np.isclose(a, b, rtol=1e-3, atol=1e-6).all(-1)
+            figures["routes_agree"] = dict(
+                pixels_close=float(close.mean()), rtol=1e-3, atol=1e-6,
+                mean_rel_diff=float(abs(a.mean() - b.mean()) / a.mean()))
+
+        n = 512 * 512
+        module = traverse_stream2 if table == "stream2" else traverse_bvh2
+        casts = record_casts(module, f"intersect_{table}",
+                             ct.Renderer(big, seed=1, device=dev))
+        if sorted(casts) != [2 * n, 36 * n]:
+            raise AssertionError(f"{name}: casts of {sorted(casts)} rays")
+        if table == "stream2":
+            tables = big.data["stream2"]
+            plain = plains["stream2"]
+        else:
+            tables = {k: big.data["bvh2"][k] for k in ("nodes", "tris")}
+
+            def plain(c, data):
+                return intersect.intersect_bvh_packed(
+                    c["origin"], c["direction"], data["bvh"],
+                    active=c["active"], t_max=c["t_max"])
+        held = {}
+        for rays_n, c in sorted(casts.items()):
+            cast = "extension" if rays_n == 2 * n else "connection"
+            key = err_key(table, c)
+            held[cast] = held_cast(
+                f"{key} {name} {cast}", c,
+                lambda c: launch(table, c, big.data),
+                lambda c: plain(c, big.data), tables,
+                stride=-(-rays_n // (1 << 20)))
+            held[cast]["kernel"] = key
+            err[key] = max(err[key], held[cast]["max_abs_err_t"])
+            emit(phase="bvh2_ab_cast" if env else "main_path_cast",
+                 scene="big_dragon", cast=cast, **held[cast])
+        if table == "stream2":
+            emit(phase="stream2_breakdown", scene="big_dragon",
+                 cast="connection", rays=36 * n,
+                 **stream2_breakdown(casts[36 * n], big.data))
+            # per sample: the per-thread kernel's casts, and the casts that
+            # took the queue
+            held["extension"]["launches"] = ran["stream2_thread"] // 4
+            held["connection"]["launches"] = (
+                ran["stream2"] - ran["stream2_thread"]) // 4
+            extra_casts["stream2_thread", "big_dragon_extension"] = dict(
+                held["extension"], cast="big_dragon_512 extension")
+            extra_casts["stream2", "big_dragon_connection"] = dict(
+                held["connection"], cast="big_dragon_512 connection")
+        else:
+            held["connection"]["launches"] = ran["bvh2"] // 4
+            extra_casts["bvh2", "big_dragon_bvh2_ab_connection"] = dict(
+                held["connection"], cast="big_dragon_512 connection on "
+                "BVH2 tables (CLIVE2_TRAVERSAL=pallas2)")
+        emit(phase=name, casts=held, **figures)
+        del big, casts, c
+        torch.cuda.empty_cache()
+        if env and figures["routes_agree"]["pixels_close"] < 0.99:
+            raise AssertionError(f"big-dragon: the two routes' images "
+                                 f"disagree: {figures['routes_agree']}")
+    del big_imgs
+
     constants.REFERENCE_MIS = True
     try:
         for name, scene, w, h, kernel, module, wrapper, kernel_fn, \
@@ -2404,6 +2549,114 @@ def main() -> int:
          probes=mosaic, k_major_ab=k_major, product_kernel=design,
          tiles_tried=MMA_TILES_TRIED, seconds=time.perf_counter() - t1,
          tools_seconds=time.perf_counter() - t0)
+
+    # ---- 7g. the tools that drive the renderer ------------------------------
+    # Each of clive2_tpu_torch/scripts/ as a subprocess, as a user runs it,
+    # on the card: make_assets into a temporary directory (its bytes
+    # against resources/, which phase 4 wrote with the same generator),
+    # smoke_render at 128x128 and 4 spp (the verify skill's Cornell band at
+    # 1:1), profile_stages on teapots 512 and big-dragon 512 (2 reps),
+    # parity_render under both estimators (one process each, as the
+    # estimator flag is read at import) and its --report, and
+    # movie_launcher with 2 workers, 4 frames at 160x90 and 1 spp.  A
+    # nonzero exit fails the run.
+    import signal
+    import tempfile
+
+    work = os.path.join(ROOT, "output", "chip_smoke", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def tool(name, *args, timeout=600, **env):
+        """``python -m clive2_tpu_torch.scripts.<name> args`` in ``work``;
+        returns (stdout, seconds).  Raises on a nonzero exit, and kills the
+        tool and its workers past ``timeout``."""
+        t0 = time.perf_counter()
+        env = dict(os.environ, **env)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        p = subprocess.Popen(
+            [sys.executable, "-m", f"clive2_tpu_torch.scripts.{name}",
+             *args], cwd=work, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            out, errs = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+            raise AssertionError(f"{name} {args}: over {timeout} s")
+        if p.returncode:
+            raise AssertionError(f"{name} {args} exited {p.returncode}:\n"
+                                 f"{out[-3000:]}\n{errs[-3000:]}")
+        return out, time.perf_counter() - t0
+
+    def last_json(out):
+        return json.loads(out.strip().splitlines()[-1])
+
+    tools_run = {}
+    res = tempfile.mkdtemp(dir=work)
+    out, sec = tool("make_assets", CLIVE2_RESOURCES=res)
+    same = {}
+    for name in sorted(os.listdir(res)):
+        with open(os.path.join(res, name), "rb") as a, \
+                open(os.path.join(RESOURCE_DIR, name), "rb") as b:
+            same[name] = a.read() == b.read()
+    tools_run["make_assets"] = dict(rc=0, seconds=sec,
+                                    lines=out.strip().splitlines(),
+                                    bytes_equal_resources=same)
+    if len(same) != 5 or not all(same.values()):
+        raise AssertionError(f"make_assets: {same}")
+    shutil.rmtree(res)
+
+    out, sec = tool("smoke_render", "--size=128", "--spp=4")
+    stats = re.search(r"raw image stats: min (\S+) mean (\S+) max (\S+)",
+                      out)
+    raw_mean = float(stats.group(2))
+    pngs = sorted(os.listdir(os.path.join(work, "output")))
+    tools_run["smoke_render"] = dict(rc=0, seconds=sec,
+                                     lines=out.strip().splitlines(),
+                                     raw_mean=raw_mean, pngs=pngs)
+    if pngs != ["smoke_bdpt.png", "smoke_uni.png"]:
+        raise AssertionError(f"smoke_render wrote {pngs}")
+    # the verify skill's health band for the Cornell preset at 1:1
+    if not 0.0055 <= raw_mean <= 0.0065:
+        raise AssertionError(f"smoke_render: Cornell raw mean {raw_mean} "
+                             "outside the 1:1 band 0.0055-0.0065")
+
+    profiles = {}
+    for preset in ("teapots", "big-dragon"):
+        out, sec = tool("profile_stages", preset, "512", "2")
+        profiles[preset] = dict(last_json(out), rc=0, seconds=sec)
+    tools_run["profile_stages"] = profiles
+
+    parity = {}
+    for tag, flag in (("production", "0"), ("refmis", "1")):
+        out, sec = tool("parity_render", CLIVE2_REFERENCE_MIS=flag)
+        parity[tag] = dict(json.loads(out.strip().splitlines()[-1]), rc=0,
+                           seconds=sec)
+    out, sec = tool("parity_render", "--report")
+    parity["report"], end = json.JSONDecoder().raw_decode(out)
+    parity["vs_tpu"] = json.loads(out[end:])
+    parity["report_seconds"] = sec
+    tools_run["parity_render"] = parity
+    for tag in ("production", "refmis"):
+        if parity[tag]["nan"] or not parity[tag]["raw_mean"] > 0:
+            raise AssertionError(f"parity_render {tag}: {parity[tag]}")
+
+    movies = os.path.join(work, "movies")
+    out, sec = tool("movie_launcher", "--workers", "2", "--",
+                    "--width", "160", "--height", "90", "--samples", "1",
+                    "--movie-frames", "4", "--output-dir", movies)
+    frames = sorted(os.listdir(os.path.join(movies, "test-movie")))
+    tools_run["movie_launcher"] = dict(
+        rc=0, seconds=sec, frames=frames,
+        launches=[ln for ln in out.splitlines() if ln.startswith("launch:")])
+    if frames != [f"frame_{i:04d}.png" for i in range(4)]:
+        raise AssertionError(f"movie_launcher wrote {frames}")
+    emit(phase="tools", **tools_run)
+    shutil.rmtree(os.path.join(ROOT, "output", "chip_smoke"),
+                  ignore_errors=True)
 
     # ---- 8. the same small render on the CPU and on the card --------------
     imgs = {}

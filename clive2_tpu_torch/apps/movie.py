@@ -8,9 +8,12 @@ renders; later frames only move the camera (``Scene.with_camera`` with
 ``orbit_camera``).  Frame f renders with seed ``--seed + f`` into
 ``<output-dir>/<movie-name>/frame_ffff.png``.  Frames split across
 processes with ``--frame-stride``/``--frame-offset`` (process k of n:
-``--frame-stride n --frame-offset k``); the movie's folder is emptied only
-by a run that starts at frame 0 with offset 0.  Renders on the card unless
-``--device cpu``; ``--aot-cache`` is accepted and has no effect.
+``--frame-stride n --frame-offset k``; ``scripts/movie_launcher.py``
+starts them).  The movie's folder is emptied only by an unsharded run
+(stride 1) that starts at frame 0; a sharded run leaves that to its
+launcher, which empties it before any of its processes starts, so that no
+process deletes the frames another has written.  Renders on the card
+unless ``--device cpu``; ``--aot-cache`` is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import time
 from .render import add_device_flags, make_display, save_png
 
 
-def main(argv=None):
+def make_parser():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--samples", type=int, default=15)
     parser.add_argument("--width", type=int, default=1280)
@@ -43,16 +46,29 @@ def main(argv=None):
                         help="cv2 live window per frame; auto = on when cv2 "
                         "+ a display exist")
     add_device_flags(parser)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def movie_dir(args) -> str:
+    return os.path.join(args.output_dir, args.movie_name)
+
+
+def empty_movie_dir(args):
+    """Remove the movie's folder, frames of earlier runs included."""
+    if os.path.exists(movie_dir(args)):
+        shutil.rmtree(movie_dir(args))
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
 
     from ..renderer import Renderer
     from ..scene import create_scene_from_preset_with_params, orbit_camera
 
-    movie_dir = os.path.join(args.output_dir, args.movie_name)
-    if args.start_frame == 0 and args.frame_offset == 0:
-        if os.path.exists(movie_dir):
-            shutil.rmtree(movie_dir)
-    os.makedirs(movie_dir, exist_ok=True)
+    if args.start_frame == 0 and args.frame_offset == 0 and \
+            args.frame_stride == 1:
+        empty_movie_dir(args)
+    os.makedirs(movie_dir(args), exist_ok=True)
 
     frames = range(args.start_frame + args.frame_offset, args.movie_frames,
                    args.frame_stride)
@@ -77,7 +93,7 @@ def main(argv=None):
         renderer.block()
         if show is not None:
             show(renderer.image)
-        save_png(os.path.join(movie_dir, f"frame_{f:04d}.png"),
+        save_png(os.path.join(movie_dir(args), f"frame_{f:04d}.png"),
                  renderer.image)
         print(f"Frame {f} time: {time.time() - frame_start:.2f}")
 

@@ -120,51 +120,27 @@ def _compacted_cast(origin, direction, active, t_max, scene, k: int,
     return cast_tri, cast_t
 
 
-def connect_paths(cam_path, light_path, scene, width: int, height: int,
-                  max_bounces: int = MAX_BOUNCES,
-                  debug_per_strategy: bool = False, sort=None):
-    """All-strategies BDPT connection for a wavefront of path pairs.
-
-    Returns dict:
-      contribution [N, 3]        (t != 1 strategies, per camera pixel)
-      contrib_weight_sum [N]
-      light_image [H, W, 3]      (t == 1 splats, scatter-added)
-      light_weight_image [H, W]
-      n_rays                     connection rays cast
-
-    ``debug_per_strategy`` adds ``per_strategy``: (t, s) -> dict(weighted
-    [H, W, 3], unweighted [H, W, 3], weight [H, W]) full-frame images of that
-    one strategy (t=1 splats scattered by their pixel).  The wavefront must
-    be whole frames: lane i is pixel i mod W*H, and the frames' images are
-    summed, so that one call can carry many samples.  A diagnostic for the
-    convergence oracles, built only when asked for.
-
-    ``sort`` is the cast's Morton-sort policy (``intersect_scene``); None
-    reads ``CLIVE2_CONNECT_SORT``.
-    """
-    reference = constants.REFERENCE_MIS
-    any_hit = not reference and any_hit_casts()
-    cast_sort = sort_knob("CLIVE2_CONNECT_SORT") if sort is None else sort
+def connection_rays(cam_path, light_path, scene, pairs, l_spec, c_spec,
+                    any_hit: bool):
+    """Stage A's rays, [P, N, ...] for the (t, s) strategies of ``pairs``:
+    from light vertex s-1 towards camera vertex t-1 (t=1: towards the
+    focal point), active where the strategy needs its cast, capped at the
+    target (camera vertex or sensor plane): below it for any-hit casts,
+    just beyond it for closest-hit ones.  ``l_spec``/``c_spec``: [D, N]
+    specular flags of the light and camera subpaths' vertices.  Returns
+    (origin, direction, active, t_max)."""
     CV, cam_len = cam_path["vertices"], cam_path["length"]
     LV, light_len = light_path["vertices"], light_path["length"]
-    mat = scene["mat"]
     cam = scene["camera"]
-    dev = cam_len.device
-
-    n = cam_len.shape[0]
-    pairs = connection_pairs(max_bounces)
-    pair_arr = torch.tensor(pairs, dtype=torch.int32, device=dev)
-
-    # ---- stage A: all (t, s) ray casts as ONE batched cast ----------------
-    pre = precompute_mis(CV, LV, mat)
+    pair_arr = torch.tensor(pairs, dtype=torch.int32, device=cam_len.device)
     t_i = (pair_arr[:, 0] - 1).long()             # [P]
     s_i = (pair_arr[:, 1] - 1).long()
     lv_o = LV["origin"][s_i]                      # [P, N, 3]
     lv_n = LV["normal"][s_i]
     cv_o = CV["origin"][t_i]
     cv_n = CV["normal"][t_i]
-    l_spec = pre["L"]["spec"][s_i]                # [P, N]
-    c_spec = pre["C"]["spec"][t_i]
+    l_spec = l_spec[s_i]                          # [P, N]
+    c_spec = c_spec[t_i]
 
     t_col = pair_arr[:, 0][:, None]               # [P, 1]
     s_col = pair_arr[:, 1][:, None]
@@ -204,20 +180,66 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
         t_max = torch.where(is_t1, d_t1, d_gen) * (1.0 - 1e-3)
     del cv_o, proj_dir, delta_pc, d_gen, den, num, d_t1
 
-    p_cnt = len(pairs)
+    return lv_o, direction, active, t_max
+
+
+def cast_connections(origin, direction, active, t_max, scene, any_hit: bool,
+                     sort):
+    """Stage A's cast of ``connection_rays`` as one batch (or compacted
+    under ``CLIVE2_CONNECT_K``).  Returns (tri [P, N], t [P, N])."""
+    p_cnt, n = active.shape
     k = connect_k()
     if 0 < k < p_cnt:
-        cast_tri, cast_t = _compacted_cast(lv_o, direction, active, t_max,
-                                           scene, k, cast_sort, any_hit)
-    else:
-        hit_i, hit_t, _, _ = intersect_scene(
-            lv_o.reshape(p_cnt * n, 3), direction.reshape(p_cnt * n, 3),
-            scene, active=active.reshape(-1), t_max=t_max.reshape(-1),
-            any_hit=any_hit, sort=cast_sort)
-        cast_tri = hit_i.reshape(p_cnt, n)
-        cast_t = hit_t.reshape(p_cnt, n)
-    del lv_o, direction, t_max
-    cast_active = active
+        return _compacted_cast(origin, direction, active, t_max, scene, k,
+                               sort, any_hit)
+    hit_i, hit_t, _, _ = intersect_scene(
+        origin.reshape(p_cnt * n, 3), direction.reshape(p_cnt * n, 3),
+        scene, active=active.reshape(-1), t_max=t_max.reshape(-1),
+        any_hit=any_hit, sort=sort)
+    return hit_i.reshape(p_cnt, n), hit_t.reshape(p_cnt, n)
+
+
+def connect_paths(cam_path, light_path, scene, width: int, height: int,
+                  max_bounces: int = MAX_BOUNCES,
+                  debug_per_strategy: bool = False, sort=None):
+    """All-strategies BDPT connection for a wavefront of path pairs.
+
+    Returns dict:
+      contribution [N, 3]        (t != 1 strategies, per camera pixel)
+      contrib_weight_sum [N]
+      light_image [H, W, 3]      (t == 1 splats, scatter-added)
+      light_weight_image [H, W]
+      n_rays                     connection rays cast
+
+    ``debug_per_strategy`` adds ``per_strategy``: (t, s) -> dict(weighted
+    [H, W, 3], unweighted [H, W, 3], weight [H, W]) full-frame images of that
+    one strategy (t=1 splats scattered by their pixel).  The wavefront must
+    be whole frames: lane i is pixel i mod W*H, and the frames' images are
+    summed, so that one call can carry many samples.  A diagnostic for the
+    convergence oracles, built only when asked for.
+
+    ``sort`` is the cast's Morton-sort policy (``intersect_scene``); None
+    reads ``CLIVE2_CONNECT_SORT``.
+    """
+    reference = constants.REFERENCE_MIS
+    any_hit = not reference and any_hit_casts()
+    cast_sort = sort_knob("CLIVE2_CONNECT_SORT") if sort is None else sort
+    CV, cam_len = cam_path["vertices"], cam_path["length"]
+    LV = light_path["vertices"]
+    mat = scene["mat"]
+    dev = cam_len.device
+
+    n = cam_len.shape[0]
+    pairs = connection_pairs(max_bounces)
+
+    # ---- stage A: all (t, s) ray casts as ONE batched cast ----------------
+    pre = precompute_mis(CV, LV, mat)
+    origin, direction, cast_active, t_max = connection_rays(
+        cam_path, light_path, scene, pairs, pre["L"]["spec"],
+        pre["C"]["spec"], any_hit)
+    cast_tri, cast_t = cast_connections(origin, direction, cast_active,
+                                        t_max, scene, any_hit, cast_sort)
+    del origin, direction, t_max
     pair_index = {ts: i for i, ts in enumerate(pairs)}
 
     # ---- stage B: per-strategy MIS + contributions (static unroll) --------
@@ -483,15 +505,19 @@ def _strategy_t1(t, s, CV, LV, scene, width, height, hit_i, hit_t, active,
             torch.where(valid, w, 0.0), dbg)
 
 
+def specular(V, mat):
+    """[D, N] bool: the subpath vertices ``V`` lie on specular materials."""
+    matv = V["material"]
+    return gather_rows(mat["type"], matv.reshape(-1)).reshape(matv.shape) > 0
+
+
 def precompute_mis(CV, LV, mat):
     """Shared MIS-chain terms, computed once per sample: per-vertex cosine
     weights, stored dual importances, specular flags and per-edge squared
     distances, identical across strategies except at the junction."""
     def per_path(V):
         w = (V["direction"] * V["normal"]).sum(-1).abs()          # [D, N]
-        matv = V["material"]
-        d, n = matv.shape
-        spec = gather_rows(mat["type"], matv.reshape(-1)).reshape(d, n) > 0
+        spec = specular(V, mat)
         delta = V["origin"][1:] - V["origin"][:-1]
         dist2 = torch.clamp((delta * delta).sum(-1), min=1e-30)
         # cosine of vertex d's normal against its INCOMING edge (in_cos[0]

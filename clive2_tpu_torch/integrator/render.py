@@ -140,23 +140,16 @@ def pair_lights(lorder, light_path):
         length=back(light_path["length"], dim=0))
 
 
-def trace_and_connect(key, scene, width, height,
-                      max_bounces: int = MAX_BOUNCES,
-                      debug_per_strategy: bool = False, tile=None,
-                      order: str = "raster", light_bounds=None, **select):
+def trace_wavefront(key, scene, width, height,
+                    max_bounces: int = MAX_BOUNCES,
+                    debug_per_strategy: bool = False, tile=None,
+                    order: str = "raster", light_bounds=None, **select):
     """Camera rays for the pixels ``select`` names (a stripe's row0/rows or
-    a pixel_sel subset; every pixel when empty), as many light rays, one
-    merged trace and the connection.  ``tile=(t0, t_rows)`` traces only
-    image rows [t0, t0 + t_rows) of the frame or stripe, each lane drawing
-    the random numbers of its own lane in the frame's (stripe's) draws.
-
-    ``order="morton"`` (whole frames, stripes and tiles) traces the camera
-    rays in Morton order over the frame's (stripe's) grid, a tile's in
-    place, and the light rays sorted by ``light_gen_key`` over the
-    wavefront's bounds, or over ``light_bounds(lo, hi)`` of the tile's own
-    (a mesh's bounds over every rank); lanes keep their draws.  Returns
-    (pixel_idx, filter weights, camera path, connection outputs, n_rays):
-    lane i of each is pixel ``pixel_idx[i]``."""
+    a pixel_sel subset; every pixel when empty), as many light rays and one
+    merged trace: the first stage of ``trace_and_connect``, with its
+    arguments.  Returns dict(pixel_idx, sensor_pos, cam_path, light_path,
+    n_rays: the extension rays cast, connect_sort: the connection cast's
+    sort policy); lane i of each is pixel ``pixel_idx[i]``."""
     if order not in ("raster", "morton"):
         raise ValueError(f"order={order!r}: expected raster or morton")
     if order == "morton" and (debug_per_strategy or "pixel_sel" in select):
@@ -225,13 +218,39 @@ def trace_and_connect(key, scene, width, height,
     )
     if order == "morton":
         light_path = pair_lights(lorder, light_path)
+    return dict(pixel_idx=pixel_idx, sensor_pos=sensor_pos,
+                cam_path=cam_path, light_path=light_path,
+                n_rays=path["n_rays"], connect_sort=connect_sort)
 
-    conn = connect_paths(cam_path, light_path, scene, width, height,
-                         max_bounces=max_bounces,
+
+def trace_and_connect(key, scene, width, height,
+                      max_bounces: int = MAX_BOUNCES,
+                      debug_per_strategy: bool = False, tile=None,
+                      order: str = "raster", light_bounds=None, **select):
+    """Camera rays for the pixels ``select`` names (a stripe's row0/rows or
+    a pixel_sel subset; every pixel when empty), as many light rays, one
+    merged trace and the connection.  ``tile=(t0, t_rows)`` traces only
+    image rows [t0, t0 + t_rows) of the frame or stripe, each lane drawing
+    the random numbers of its own lane in the frame's (stripe's) draws.
+
+    ``order="morton"`` (whole frames, stripes and tiles) traces the camera
+    rays in Morton order over the frame's (stripe's) grid, a tile's in
+    place, and the light rays sorted by ``light_gen_key`` over the
+    wavefront's bounds, or over ``light_bounds(lo, hi)`` of the tile's own
+    (a mesh's bounds over every rank); lanes keep their draws.  Returns
+    (pixel_idx, filter weights, camera path, connection outputs, n_rays):
+    lane i of each is pixel ``pixel_idx[i]``."""
+    w = trace_wavefront(key, scene, width, height, max_bounces,
+                        debug_per_strategy, tile, order, light_bounds,
+                        **select)
+    conn = connect_paths(w["cam_path"], w["light_path"], scene, width,
+                         height, max_bounces=max_bounces,
                          debug_per_strategy=debug_per_strategy,
-                         sort=connect_sort)
-    weights = filter_weights(sensor_pos, pixel_idx, cam, width, height)
-    return pixel_idx, weights, cam_path, conn, path["n_rays"] + conn["n_rays"]
+                         sort=w["connect_sort"])
+    weights = filter_weights(w["sensor_pos"], w["pixel_idx"],
+                             scene["camera"], width, height)
+    return (w["pixel_idx"], weights, w["cam_path"], conn,
+            w["n_rays"] + conn["n_rays"])
 
 
 def _finish(image, wimage, uni, conn, n_rays, **extra):

@@ -1,6 +1,6 @@
 """Development A/B of the BVH8 traversal kernel's design on one NVIDIA GPU.
 
-    python3 scripts/wide_variants.py
+    python3 clive2_tpu_torch/scripts/wide_variants.py
 
 Builds clive2_tpu_torch/csrc/traverse_wide.cu as it is and variants of it
 (text patches of the source, PATCHES, combined in VARIANTS) into separate
@@ -31,7 +31,8 @@ import re
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
 # the kernel's leaf phase: one loop of one row per step over a lane's leaf

@@ -171,31 +171,19 @@ ULP_TIE_RAY = dict(o=[-1056270224, 1084563974, -1054867456],
 
 
 def write_assets(resource_dir):
-    """Write the meshes the presets read when they are missing: teapot.obj
-    (``models.utah_teapot(n=10)``) and procedural stand-ins for the large
-    meshes at the reference's triangle counts, with the transform of
-    scripts/make_assets.py.  Returns {file: seconds, or None when the file
-    was there}."""
-    from .load import write_obj, write_ply
-    from .models import displaced_blob_exact, utah_teapot
+    """Write the meshes the presets read that are missing from
+    ``resource_dir``, with the port's generator
+    (``scripts/make_assets.py``).  Returns {file: seconds, or None when the
+    file was there}."""
+    from .scripts.make_assets import MESHES, write_mesh
 
     out = {}
-    for name, count in (("teapot.obj", None),
-                        ("dragon_vrip_res3.ply", 47_794),
-                        ("dragon_vrip_res2.ply", 202_520),
-                        ("sponza_scale.ply", 1_310_720)):
-        path = os.path.join(resource_dir, name)
+    for name, _ in MESHES:
         out[name] = None
-        if os.path.exists(path):
+        if os.path.exists(os.path.join(resource_dir, name)):
             continue
         t0 = time.perf_counter()
-        os.makedirs(resource_dir, exist_ok=True)
-        if count is None:
-            write_obj(path, *utah_teapot(n=10))
-        else:
-            v, f = displaced_blob_exact(count)
-            write_ply(path, v * 0.06 + np.array([0.0, 0.085, 0.0]), f,
-                      binary=True)
+        write_mesh(resource_dir, name)
         out[name] = time.perf_counter() - t0
     return out
 
