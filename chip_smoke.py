@@ -1568,9 +1568,18 @@ def main() -> int:
     # by kernel.  Then one extension cast and the connection cast of a
     # sample held to the plain walk on every k-th ray (k the least stride
     # that leaves at most 2^20 rays), and the queued connection cast's
-    # breakdown with its count's library call.  The two routes' raw images
-    # must agree on at least 99% of the pixels within rtol 1e-3.
-    big_imgs = {}
+    # breakdown with its count's library call.  The two routes' images:
+    # the 4-sample raw images compared pixel by pixel (a figure: the
+    # fat-leaf test rounds Möller-Trumbore otherwise than BVH2, so near
+    # ties and the paths after them differ), and sample 0 of each rendered
+    # again with its casts logged (testing.CastLog), which must agree within
+    # rtol 1e-3 on at least 99% of the pixels that no differing cast
+    # reaches, those pixels at most 6.5% of the image (about 3x the 2.1% of
+    # the card's first runs, NVIDIA H100 80GB HBM3, 700 W: 767 differing
+    # rays, every other pixel within rtol 1e-3).
+    from clive2_tpu_torch.testing import CastLog
+
+    big_imgs, logs = {}, {}
     for name, env, kernel, table in (
             ("big_dragon_512", {}, queued + ("stream2_thread",), "stream2"),
             ("big_dragon_512_bvh2_ab", dict(CLIVE2_TRAVERSAL="pallas2"),
@@ -1582,6 +1591,7 @@ def main() -> int:
             raise AssertionError(f"{name}: expected the {table} tables, "
                                  f"got {got}")
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         r = ct.Renderer(big, seed=0, device=dev)
         times, rays = [], []
@@ -1596,12 +1606,17 @@ def main() -> int:
                 rays.append(int(r.last_n_rays))
 
         ran = drive(name, kernel, four_samples)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        big_peak = torch.cuda.max_memory_allocated()
         big_imgs[name] = r.raw_image
         image_ok(name, big_imgs[name])
         if not env:
             for k, v in ran.items():
                 launches[k] += v
+        r = ct.Renderer(big, seed=0, device=dev)
+        with CastLog() as log:
+            r.run_sample()
+            r.block()
+        logs[name] = (log, r.raw_image)
         del r
         figures = dict(
             width=512, height=512, spp=4, order=wave_order(big.data),
@@ -1609,14 +1624,25 @@ def main() -> int:
             bvh_build_s=bvh_s, table=table,
             table_bytes=table_bytes(big.data[table]), s_per_sample=times,
             mrays_s=sum(rays) / sum(times) / 1e6, rays=sum(rays),
-            peak_gib=peak_gib, counts=ran,
-            image_mean=float(big_imgs[name].mean()))
+            peak_gib=big_peak / 2**30,
+            peak_over_base_gib=(big_peak - base) / 2**30,
+            counts=ran, image_mean=float(big_imgs[name].mean()))
         if env:
             a, b = big_imgs["big_dragon_512"], big_imgs[name]
             close = np.isclose(a, b, rtol=1e-3, atol=1e-6).all(-1)
+            (log_a, one_a), (log_b, one_b) = logs["big_dragon_512"], logs[name]
+            near, differing = log_a.near(log_b, 0, 512, 512)
+            one = np.isclose(one_a, one_b, rtol=1e-3, atol=1e-6).all(-1)
             figures["routes_agree"] = dict(
-                pixels_close=float(close.mean()), rtol=1e-3, atol=1e-6,
-                mean_rel_diff=float(abs(a.mean() - b.mean()) / a.mean()))
+                rtol=1e-3, atol=1e-6, four_samples=dict(
+                    pixels_close=float(close.mean()),
+                    mean_rel_diff=float(abs(a.mean() - b.mean()) / a.mean())),
+                sample_0=dict(
+                    differing_rays=differing,
+                    near_tie_share=float(near.mean()),
+                    pixels_close=float(one.mean()),
+                    pixels_close_outside_near_ties=float(one[~near].mean())))
+            del logs
 
         n = 512 * 512
         module = traverse_stream2 if table == "stream2" else traverse_bvh2
@@ -1668,7 +1694,9 @@ def main() -> int:
         emit(phase=name, casts=held, **figures)
         del big, casts, c
         torch.cuda.empty_cache()
-        if env and figures["routes_agree"]["pixels_close"] < 0.99:
+        agree_0 = env and figures["routes_agree"]["sample_0"]
+        if agree_0 and (agree_0["pixels_close_outside_near_ties"] < 0.99
+                        or agree_0["near_tie_share"] > 0.065):
             raise AssertionError(f"big-dragon: the two routes' images "
                                  f"disagree: {figures['routes_agree']}")
     del big_imgs
@@ -2640,9 +2668,14 @@ def main() -> int:
     parity["vs_tpu"] = json.loads(out[end:])
     parity["report_seconds"] = sec
     tools_run["parity_render"] = parity
-    for tag in ("production", "refmis"):
-        if parity[tag]["nan"] or not parity[tag]["raw_mean"] > 0:
-            raise AssertionError(f"parity_render {tag}: {parity[tag]}")
+    # bands of the raw mean, about 3% around the card's first run
+    # (NVIDIA H100 80GB HBM3, 700 W: 0.012349 and 0.013299; the JAX
+    # package's TPU renders in docs/images read 0.012541 and 0.013420)
+    for tag, lo, hi in (("production", 0.0120, 0.0127),
+                        ("refmis", 0.0129, 0.0137)):
+        if parity[tag]["nan"] or not lo <= parity[tag]["raw_mean"] <= hi:
+            raise AssertionError(f"parity_render {tag}: raw mean outside "
+                                 f"{lo}-{hi}, or NaN: {parity[tag]}")
 
     movies = os.path.join(work, "movies")
     out, sec = tool("movie_launcher", "--workers", "2", "--",

@@ -5,14 +5,16 @@ same arguments and prints).
     python -m clive2_tpu_torch.scripts.profile_stages [preset] [size] [reps]
         [--device cuda|cpu]
 
-Times four nested prefixes of one sample: the merged subpath trace
-(``subpaths``), + the connection casts (``casts_only``), + the whole
+Times four nested prefixes of one sample (``stages``): the merged subpath
+trace, + the connection casts (``casts_only``), + the whole
 connection (``connect_paths``), the whole ``render_sample``; each after a
 warm-up call, ``reps`` calls between two synchronisations of the card.
 Prints each prefix's ms, the deltas between them, the rays each stage
 casts and the Mrays/s they reach, then one JSON line of the same figures.
 Every prefix runs in the sample's own wave order (``_wave_order``: Morton
-on the card's BVH scenes), so the deltas add up to the sample.  Runs on the
+on the card's BVH scenes), so each is a prefix of the very sample the
+renderer runs.  On the card a 512x512 sample is host-bound, and at a few
+reps the prefixes' times vary by more than the casts take.  Runs on the
 card unless ``--device cpu`` (without a card the default raises).
 """
 
@@ -30,12 +32,6 @@ from ..integrator.connect import (any_hit_casts, cast_connections,
                                   connect_paths, connection_pairs,
                                   connection_rays, specular)
 from ..integrator.render import _wave_order, render_sample, trace_wavefront
-
-
-def subpaths(key, scene_data, width, height, order="raster"):
-    """The merged camera + light trace of one sample (``trace_wavefront``):
-    dict(cam_path, light_path, n_rays: the extension rays, connect_sort)."""
-    return trace_wavefront(key, scene_data, width, height, order=order)
 
 
 def casts_only(traced, scene_data):
@@ -57,9 +53,12 @@ def casts_only(traced, scene_data):
 
 
 def stages(scene_data, width, height, order):
-    """The four nested prefixes, each a function of the sample's key."""
+    """The four nested prefixes, each a function of the sample's key: the
+    merged camera + light trace (``trace_wavefront``: dict(cam_path,
+    light_path, n_rays, connect_sort)), + ``casts_only``, + the whole
+    ``connect_paths``, the whole ``render_sample``."""
     def trace(key):
-        return subpaths(key, scene_data, width, height, order)
+        return trace_wavefront(key, scene_data, width, height, order=order)
 
     def casts(key):
         return casts_only(trace(key), scene_data)

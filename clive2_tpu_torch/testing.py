@@ -5,9 +5,11 @@ kernels' tie rule, and the packet walk's inside a leaf:
 its early-reject pre-test; rays and a deep tree at the packet walk's
 edges (``packet_edge_rays``, ``deep_bvh2_tables``); ``launch_counters``
 and ``check_launches``,
-which tell which kernels a render ran; and ``spawn_ranks``, which runs a
-function on the ranks of a gloo process group in spawned processes, under
-a time limit (the tile mesh's tests).
+which tell which kernels a render ran; ``CastLog``, ``differing_slots``
+and ``reached_pixels``, which find the pixels two renders of one sample
+may differ on because some cast answered differently (near ties); and
+``spawn_ranks``, which runs a function on the ranks of a gloo process
+group in spawned processes, under a time limit (the tile mesh's tests).
 
 Used by the CPU tests (with the JAX package's tree) and by chip_smoke.py
 and the card tests (with the port's tree).
@@ -85,6 +87,136 @@ def check_launches(label, kernel, ran, compared=()):
     if any(v for k, v in ran.items()
            if k not in PLAIN_VERSIONS and k not in allowed):
         raise AssertionError(f"{label}: another kernel ran: {ran}")
+
+
+def differing_slots(casts_a, casts_b, lorder=None):
+    """[M] bool: the camera lanes of one sample any of whose casts (its
+    camera ray's, its paired light ray's, its connections') answered
+    differently in two renders.  ``casts_a``/``casts_b``: the sample's
+    casts in order, as numpy arrays, the merged trace's [2M] (camera lanes,
+    then light lanes) and the connection's [P * M]; ``lorder``: the light
+    order of a Morton wavefront (traced light lane j holds the light ray
+    generated at ``lorder[j]``), None in raster order."""
+    m = np.asarray(casts_a[0]).size // 2
+    slot = np.zeros(m, bool)
+    for a, b in zip(casts_a, casts_b):
+        diff = np.asarray(a) != np.asarray(b)
+        if diff.size == 2 * m:            # merged camera+light trace
+            light = diff[m:]
+            if lorder is not None:
+                light = light[np.argsort(lorder)]
+            slot |= diff[:m] | light
+        else:                             # [P, M] connection cast
+            slot |= diff.reshape(-1, m).any(0)
+    return slot
+
+
+def reached_pixels(slot, lanes, splats, width, height):
+    """[H, W] bool: the pixels lanes ``slot`` reach: the 3x3 filter
+    footprint of each one's pixel (``lanes``: lane -> flat pixel) and the
+    pixels its t=1 strategies splat onto (``splats``: the sample's splat
+    pixel arrays, [M] each, W*H for a dropped splat)."""
+    n = width * height
+    seed = np.zeros(n, bool)
+    seed[np.asarray(lanes)[slot]] = True
+    img = np.pad(seed.reshape(height, width), 1)
+    near = np.zeros((height, width), bool)
+    for dy in range(3):
+        for dx in range(3):
+            near |= img[dy:dy + height, dx:dx + width]
+    for pix in splats:
+        pix = np.asarray(pix)[slot]
+        near.ravel()[pix[pix < n]] = True
+    return near
+
+
+class CastLog:
+    """Records one render's casts through the integrator, to compare two
+    renders of the same sample cast for cast (two traversal routes, say):
+    per cast the triangle ids it returns, or for an any-hit cast its
+    verdicts (two traversals may stop at different occluders); per t=1
+    strategy its splat pixels; per sample the lane -> pixel map and the
+    light order.  A context manager around the render; ``near(other,
+    sample)`` gives the pixels the two may differ on and the lanes whose
+    casts differ."""
+
+    def __init__(self):
+        self.casts, self.splats = [], []
+        self.pixels, self.light_orders = [], []
+        self._lorder = None
+
+    def __enter__(self):
+        import contextlib
+
+        from .integrator import connect, render, trace
+
+        def cast(fn):
+            def wrapped(*a, **k):
+                res = fn(*a, **k)
+                ids = res[0] >= 0 if k.get("any_hit") else res[0]
+                self.casts.append(ids.cpu().numpy())
+                return res
+            return wrapped
+
+        def splat(fn):
+            def wrapped(*a, **k):
+                res = fn(*a, **k)
+                self.splats.append(res[0].cpu().numpy())
+                return res
+            return wrapped
+
+        def pairing(fn):
+            def wrapped(lorder, *a, **k):
+                self._lorder = lorder.cpu().numpy()
+                return fn(lorder, *a, **k)
+            return wrapped
+
+        def weights(fn):
+            def wrapped(sensor_pos, pixel_idx, *a, **k):
+                self.pixels.append(pixel_idx.cpu().numpy())
+                self.light_orders.append(self._lorder)
+                self._lorder = None
+                return fn(sensor_pos, pixel_idx, *a, **k)
+            return wrapped
+
+        self._stack = contextlib.ExitStack()
+        for mod, name, wrap in ((trace, "intersect_scene", cast),
+                                (connect, "intersect_scene", cast),
+                                (connect, "_strategy_t1", splat),
+                                (render, "pair_lights", pairing),
+                                (render, "filter_weights", weights)):
+            orig = getattr(mod, name)
+            setattr(mod, name, wrap(orig))
+            self._stack.callback(setattr, mod, name, orig)
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+        return False
+
+    def near(self, other, sample, width, height, max_bounces=6):
+        """([H, W] bool near-tie pixels, differing rays) of recorded
+        sample ``sample`` between this render and ``other``."""
+        per = max_bounces + 1
+        a = self.casts[sample * per:(sample + 1) * per]
+        b = other.casts[sample * per:(sample + 1) * per]
+        if len(a) != per or len(b) != per:
+            raise ValueError(f"sample {sample}: {len(a)} and {len(b)} "
+                             f"casts recorded, expected {per}")
+        slot = differing_slots(a, b, self.light_orders[sample])
+        if other.light_orders[sample] is not None and not np.array_equal(
+                other.light_orders[sample], self.light_orders[sample]):
+            raise ValueError("the two renders traced the lights in "
+                             "different orders")
+        if not np.array_equal(self.pixels[sample], other.pixels[sample]):
+            raise ValueError("the two renders' lanes hold other pixels")
+        splats = [x for log in (self, other) for x in
+                  log.splats[sample * max_bounces:(sample + 1)
+                             * max_bounces]]
+        rays = sum(int((np.asarray(x) != np.asarray(y)).sum())
+                   for x, y in zip(a, b))
+        return reached_pixels(slot, self.pixels[sample], splats, width,
+                              height), rays
 
 
 def mesh_render(rank, size, workdir, device, jobs):

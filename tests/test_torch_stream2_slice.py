@@ -12,6 +12,8 @@ sample's 7 casts (12,288 rays), reaching 11% of the pixels, where the
 gather-walk port measures 0 on this scene; the bound is about 3x that.
 """
 
+import copy
+
 import jax
 import numpy as np
 import pytest
@@ -96,3 +98,48 @@ def test_dispatch_threshold(monkeypatch, threshold, want):
         other = {"stream2": "bvh2", "bvh2": "stream2"}[want]
         assert other not in data
         assert (want in data) == (cuda or want == "stream2")
+
+
+def test_cast_log_finds_where_two_routes_differ(monkeypatch):
+    """``testing.CastLog`` (chip_smoke's gate between big-dragon's two
+    routes) on the CPU: the icosphere scene rendered on the gather walk and
+    on stream2 tables, both in Morton order, one sample each.  Each log
+    holds the sample's 7 casts, 6 splat arrays and one lane map; outside
+    the pixels the differing casts reach the two images match at the
+    golden tolerance, and a log against itself differs nowhere."""
+    from clive2_tpu_torch.testing import CastLog
+
+    monkeypatch.setenv("CLIVE2_WAVE_ORDER", "morton")
+    walk = _bvh_scene(ct, TorchSoup, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_scene, "STREAM2_MIN_TRIS", 300)
+        fat = _bvh_scene(ct, TorchSoup, device="cpu")
+    assert "stream2" in fat.data and "stream2" not in walk.data
+    logs, states = [], []
+    for scene in (walk, fat):
+        r = ct.Renderer(scene, seed=SEED)
+        with CastLog() as log:
+            r.run_sample()
+        logs.append(log)
+        states.append({k: r.state[k].numpy() for k in FIELDS})
+    for log in logs:
+        assert (len(log.casts), len(log.splats), len(log.pixels)) == (7, 6, 1)
+        assert log.light_orders[0] is not None
+    near, rays = logs[0].near(logs[1], 0, W, H)
+    assert rays <= MAX_DIFFERING_RAYS and near.mean() < 0.5, (rays, near)
+    for k in FIELDS:
+        assert_match(states[1][k], states[0][k], near, k)
+    same, none = logs[0].near(logs[0], 0, W, H)
+    assert none == 0 and not same.any()
+    # one connection verdict flipped (measured: the routes differ on no
+    # ray here): its lane's pixel and 3x3 footprint are marked
+    flipped = copy.copy(logs[0])
+    flipped.casts = list(logs[0].casts)
+    lane = 37
+    flipped.casts[6] = flipped.casts[6].copy()
+    flipped.casts[6][5 * W * H + lane] ^= True
+    near, rays = logs[0].near(flipped, 0, W, H)
+    y, x = divmod(int(logs[0].pixels[0][lane]), W)
+    assert rays == 1 and near[y, x]
+    assert near[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2].all()
+    assert near.sum() <= 9 + 6              # the footprint, its splats

@@ -35,6 +35,7 @@ import clive2_tpu.integrator.trace as jax_trace
 import clive2_tpu_torch.integrator.connect as torch_connect
 import clive2_tpu_torch.integrator.render as torch_render
 import clive2_tpu_torch.integrator.trace as torch_trace
+from clive2_tpu_torch.testing import differing_slots, reached_pixels
 
 RTOL, ATOL = 2e-4, 1e-5      # tests/test_golden.py's tolerance
 # Bounds on how far the near ties may reach, about 3x what was measured on
@@ -165,43 +166,24 @@ class NearTies:
         connections') differ between the renderers."""
         per = max_bounces + 1
         s0 = self._sample_starts([sample], per)[0]
-        lanes, lorder = self._lanes(sample, n)
-        m = lanes.size
-        slot = np.zeros(m, bool)
-        for a, b in zip(self.jax_casts[s0:s0 + per],
-                        self.torch_casts[s0:s0 + per]):
-            diff = a != b
-            if diff.size == 2 * m:        # merged camera+light trace
-                light = diff[m:]
-                if lorder is not None:    # traced lane j holds lorder[j]
-                    light = light[np.argsort(lorder)]
-                slot |= diff[:m] | light
-            else:                         # [P, M] connection cast
-                slot |= diff.reshape(-1, m).any(0)
-        return slot
+        _, lorder = self._lanes(sample, n)
+        return differing_slots(self.jax_casts[s0:s0 + per],
+                               self.torch_casts[s0:s0 + per], lorder)
 
     def pixels(self, width: int, height: int, samples=None,
                max_bounces: int = 6):
         """[H, W] bool: pixels a near-tie slot of the recorded samples
         (all, or the indices in ``samples``) can reach."""
         n = width * height
-        casts_per_sample = max_bounces + 1
         near = np.zeros((height, width), bool)
-        for s0 in self._sample_starts(samples, casts_per_sample):
-            sample = s0 // casts_per_sample
+        for s0 in self._sample_starts(samples, max_bounces + 1):
+            sample = s0 // (max_bounces + 1)
             lanes, _ = self._lanes(sample, n)
-            slot = self.slots(sample, n, max_bounces)
-            seed = np.zeros(n, bool)
-            seed[lanes[slot]] = True
-            img = np.pad(seed.reshape(height, width), 1)
-            for dy in range(3):
-                for dx in range(3):
-                    near |= img[dy:dy + height, dx:dx + width]
             k = sample * max_bounces
-            for splats in (self.jax_splats, self.torch_splats):
-                for pix in splats[k:k + max_bounces]:
-                    pix = pix[slot]
-                    near.ravel()[pix[pix < n]] = True
+            splats = (self.jax_splats[k:k + max_bounces]
+                      + self.torch_splats[k:k + max_bounces])
+            near |= reached_pixels(self.slots(sample, n, max_bounces),
+                                   lanes, splats, width, height)
         return near
 
 
