@@ -390,9 +390,11 @@ scene_presets: Dict[str, dict] = {
 
 
 def create_scene_from_preset(preset_name: str, pixel_width=1280,
-                             pixel_height=720, device="cuda") -> Scene:
+                             pixel_height=720, device="cuda",
+                             soup_transform=None) -> Scene:
     """``create_scene`` with a preset's camera and meshes, on ``device``
-    (the card unless the caller asks for the CPU)."""
+    (the card unless the caller asks for the CPU); ``soup_transform`` as
+    in ``create_scene``."""
     preset = scene_presets.get(preset_name)
     if not preset:
         raise ValueError(f"Preset '{preset_name}' not found.")
@@ -402,6 +404,7 @@ def create_scene_from_preset(preset_name: str, pixel_width=1280,
         cam_center=preset["cam_center"],
         cam_direction=preset["cam_direction"],
         file_specs=preset.get("file_specs"),
+        soup_transform=soup_transform,
         device=device,
     )
 

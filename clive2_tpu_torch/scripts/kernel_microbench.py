@@ -42,8 +42,8 @@ CAST = "connection casts (t=2,s=2)"
 ITERS = 5
 
 
-def timed(fn, device):
-    """(milliseconds, output) of ``fn``: on the card the median of ``ITERS``
+def timed(fn, device, iters: int = ITERS):
+    """(milliseconds, output) of ``fn``: on the card the median of ``iters``
     single calls after one warm-up, each between its own CUDA events after
     a synchronise, so that a call the host is slow to issue delays only
     itself (a mean of back-to-back calls puts the card's wait on the host
@@ -55,7 +55,7 @@ def timed(fn, device):
         return 1e3 * (time.perf_counter() - t0), out
     out = fn()
     times = []
-    for _ in range(ITERS):
+    for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize(device)
@@ -64,7 +64,7 @@ def timed(fn, device):
         end.record()
         torch.cuda.synchronize(device)
         times.append(start.elapsed_time(end))
-    return sorted(times)[ITERS // 2], out
+    return sorted(times)[iters // 2], out
 
 
 GRAPH_CALLS = 20

@@ -48,6 +48,7 @@ from clive2_tpu_torch.integrator import connect as TC
 from clive2_tpu_torch.integrator import trace as TT
 from clive2_tpu_torch.ops import bsdf as tb
 from clive2_tpu_torch.ops.sampling import dot
+from clive2_tpu_torch.scripts import diag_mis
 from test_torch_ops import _both, _close, inputs  # noqa: F401
 from torch_parity import REFMIS_BOUNDS, NearTies, assert_match, check_ties
 
@@ -194,18 +195,19 @@ SIZE16, SEED16 = 16, 31
 
 def _merged_paths(pkg, key, data, size):
     """Camera and light rays of every pixel, traced as one wavefront:
-    (cam_path, light_path) as render_sample splits them."""
-    T, split = (JT, jax.random.split) if pkg == "jax" else (TT, rng.split)
-    cat = jnp.concatenate if pkg == "jax" else torch.cat
-    k_cam, k_light, k_trace = split(key, 3)
+    (cam_path, light_path) as render_sample splits them.  The port's are
+    those of its MIS diagnostic (``scripts/diag_mis.py:merged_paths``)."""
+    if pkg == "torch":
+        return diag_mis.merged_paths(key, data, size, size)
+    k_cam, k_light, k_trace = jax.random.split(key, 3)
     n = size * size
-    cam_rays, _ = T.generate_camera_rays(k_cam, data["camera"], size, size)
-    light_rays = T.generate_light_rays(k_light, data["lights"], data["mat"],
-                                       n)
-    merged = {k: cat([cam_rays[k], light_rays[k]]) for k in cam_rays}
-    fc = np.concatenate([np.ones(n, bool), np.zeros(n, bool)])
-    fc = jnp.asarray(fc) if pkg == "jax" else torch.from_numpy(fc)
-    path = T.trace_subpaths(k_trace, merged, data, from_camera=fc)
+    cam_rays, _ = JT.generate_camera_rays(k_cam, data["camera"], size, size)
+    light_rays = JT.generate_light_rays(k_light, data["lights"], data["mat"],
+                                        n)
+    merged = {k: jnp.concatenate([cam_rays[k], light_rays[k]])
+              for k in cam_rays}
+    fc = jnp.asarray(np.concatenate([np.ones(n, bool), np.zeros(n, bool)]))
+    path = JT.trace_subpaths(k_trace, merged, data, from_camera=fc)
     half = lambda sl: dict(
         vertices={k: v[:, sl] for k, v in path["vertices"].items()},
         valid=path["valid"][:, sl], length=path["length"][sl])
