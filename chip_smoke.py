@@ -81,7 +81,10 @@ shared memory, spills, tile and grid beside the tile widths tried in PR
 that drive the renderer, each as a subprocess on the card (``tools``:
 make_assets, smoke_render, profile_stages on teapots and big-dragon,
 parity_render under both estimators and its report, movie_launcher with
-two workers), each failing the run on a nonzero exit.  Then it compares a
+two workers; the diagnostics diag_mis under both estimators, its default
+run held to the JAX script's figures, shade_ab at two sizes, its lobes on
+the card held to the CPU, and shadow_cache_study on dragon 512 and sponza
+1080p), each failing the run on a nonzero exit.  Then it compares a
 small render on the card with the same render on the CPU.  The
 meshes are written into resources/ when missing (procedural stand-ins at
 the reference's triangle counts, by clive2_tpu_torch/scripts/make_assets.py).  Each
@@ -147,6 +150,126 @@ MMA_TILES_TRIED = dict(
             "64 tma_store": 0.0029967999085783958,
             "128 tma_store": 0.003691200166940689,
             "torch.mm": 0.0030735999345779417})
+
+
+# the MIS diagnostic's figures as the JAX package's scripts/diag_mis.py
+# prints them on the CPU for Cornell 32x32, key 7, 128 spp (jax 0.9.0;
+# six significant digits): each class's unidirectional mean, and each
+# strategy's unweighted and weighted means.  The port draws the same keys,
+# so the card's run must read these up to near ties (DIAG_MIS_RTOL; the
+# port on the CPU read them within 8.3e-5, the card at 1,024 spp within
+# 1.1e-4 of the script's 1,024-spp figures)
+DIAG_MIS_SPP, DIAG_MIS_REF_SPP, DIAG_MIS_RTOL = 128, 64, 1e-3
+DIAG_MIS_JAX_UNI = {2: 0.0411148, 3: 0.0150609, 4: 0.00590736,
+                    5: 0.00401618, 6: 0.00251507}
+DIAG_MIS_JAX = {
+    "1,1": (0.0413312, 0.0357351), "2,0": (0.0411148, 0.00556404),
+    "1,2": (0.0149499, 0.00173365), "2,1": (0.0150915, 0.0128115),
+    "3,0": (0.0150609, 0.000539232), "1,3": (0.00574054, 0.00060658),
+    "2,2": (0.0057406, 0.00226566), "3,1": (0.0057713, 0.00282488),
+    "4,0": (0.00590736, 7.93867e-05), "1,4": (0.00409918, 0.000271728),
+    "2,3": (0.00400814, 0.00111812), "3,2": (0.00403361, 0.00113615),
+    "4,1": (0.0040403, 0.00145452), "5,0": (0.00401618, 3.91813e-05),
+    "1,5": (0.0024916, 0.000136326), "2,4": (0.00244807, 0.000544113),
+    "3,3": (0.00246643, 0.000529627), "4,2": (0.00240736, 0.000548016),
+    "5,1": (0.00247601, 0.000688438), "6,0": (0.00251507, 1.79132e-05),
+    "1,6": (0.00170313, 7.46561e-05), "2,5": (0.00162389, 0.000301855),
+    "3,4": (0.00160113, 0.000291494), "4,3": (0.00161066, 0.000287912),
+    "5,2": (0.00162661, 0.000302613), "6,1": (0.00164169, 0.000374199),
+    "2,6": (0.00106441, 0.000169006), "3,5": (0.00107872, 0.000163495),
+    "4,4": (0.0010351, 0.000160432), "5,3": (0.00103179, 0.000162033),
+    "6,2": (0.00106361, 0.00016941), "3,6": (0.000719966, 9.5951e-05),
+    "4,5": (0.000700421, 9.40932e-05), "5,4": (0.000709732, 9.36396e-05),
+    "6,3": (0.000750703, 9.49162e-05), "4,6": (0.0004868, 5.53802e-05),
+    "5,5": (0.000471356, 5.52831e-05), "6,4": (0.000504829, 5.5432e-05),
+    "5,6": (0.00031867, 3.36106e-05), "6,5": (0.000316817, 3.36141e-05),
+    "6,6": (0.000222725, 2.04808e-05)}
+
+
+def mis_gate(fig):
+    """The MIS diagnostic's run (its JSON line) against the estimator's
+    identities and the JAX script's figures: every one of the 41
+    strategies present with finite figures; each (t, 0) strategy of
+    classes 2-6 the class's unidirectional image (rtol 1e-6); every
+    unidirectional, unweighted and weighted mean within DIAG_MIS_RTOL of
+    the script's; and the bands of tests/test_convergence.py (each
+    unweighted strategy within 1.5% of its class's unidirectional mean,
+    the class's weighted sum within 1%) on every figure the script's own
+    run keeps inside them at this spp (at 128 spp it misses many: noise,
+    not the port).  Returns (failures, the bands not held by the
+    script)."""
+    import math
+
+    bad, exempt = [], []
+    classes = fig["classes"]
+    got = {ts: v for c in classes.values()
+           for ts, v in c["strategies"].items()}
+    if fig["n_strategies"] != 41 or sorted(got) != sorted(DIAG_MIS_JAX):
+        bad.append(f"strategies {sorted(got)}")
+        return bad, exempt
+    for ts, v in got.items():
+        if not all(math.isfinite(v[x])
+                   for x in ("unweighted", "weighted", "wmean")):
+            bad.append(f"{ts}: not finite {v}")
+        for x, want in zip(("unweighted", "weighted"), DIAG_MIS_JAX[ts]):
+            if abs(v[x] - want) > DIAG_MIS_RTOL * abs(want):
+                bad.append(f"{ts} {x} {v[x]} against the script's {want}")
+    for k, want_uni in DIAG_MIS_JAX_UNI.items():
+        c = classes[str(k)]
+        uni = c["uni"]
+        if abs(uni - want_uni) > DIAG_MIS_RTOL * want_uni:
+            bad.append(f"class {k} uni {uni} against {want_uni}")
+        t0 = c["strategies"][f"{k},0"]["unweighted"]
+        if abs(t0 - uni) > 1e-6 * uni:
+            bad.append(f"({k},0) {t0} is not uni {uni}")
+        want_sum = sum(DIAG_MIS_JAX[ts][1] for ts in c["strategies"])
+        for name, ratio, want_ratio, band in (
+                ("SUM weighted", c["sum_ratio"], want_sum / want_uni, 0.01),
+                *((ts, v["ratio"], DIAG_MIS_JAX[ts][0] / want_uni, 0.015)
+                  for ts, v in c["strategies"].items())):
+            if abs(want_ratio - 1) > band:
+                exempt.append(f"class {k} {name}: script {want_ratio:.4f}")
+            elif abs(ratio - 1) > band:
+                bad.append(f"class {k} {name} {ratio:.4f}x uni, outside "
+                           f"{band:.1%}")
+    return bad, exempt
+
+
+def shade_gate(x, shade_ab):
+    """The shading A/B's all_lobes on the card against the same function
+    on the CPU on the card's inputs ``x``, and both against its float64
+    evaluation on the CPU.  Per output (wo, f, c_p, l_p): the share of
+    lanes equal at rtol 1e-5 / atol 1e-6, the largest relative
+    difference, and each one's lanes outside that tolerance of float64.
+    Fails unless at least 99% of lanes are equal at that tolerance and
+    the card misses float64 on no more lanes than 1.1x the CPU's float32
+    result does, plus 16: GGX's D and Jacobians and the Fresnel select
+    amplify the two libraries' ulps on ill-conditioned lanes, where float32
+    itself cannot meet the tolerance.  Returns (figures, failures)."""
+    import numpy as np
+
+    card = [t.cpu().numpy() for t in shade_ab.all_lobes(x)]
+    host = {k: v.cpu() for k, v in x.items()}
+    cpu = [t.numpy() for t in shade_ab.all_lobes(host)]
+    f64 = [t.numpy() for t in shade_ab.all_lobes(
+        {k: v.double() if v.is_floating_point() else v
+         for k, v in host.items()})]
+    figures, bad = {}, []
+    for name, a, b, r in zip(("wo", "f", "c_p", "l_p"), card, cpu, f64):
+        close = np.isclose(a, b, rtol=1e-5, atol=1e-6)
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        fig = dict(equal_share=float(close.mean()),
+                   lanes_not_equal=int((~close).sum()),
+                   max_rel=float(rel.max()), finite=bool(np.isfinite(a).all()),
+                   card_off_f64=int((~np.isclose(a, r, rtol=1e-5,
+                                                 atol=1e-6)).sum()),
+                   cpu_off_f64=int((~np.isclose(b, r, rtol=1e-5,
+                                                atol=1e-6)).sum()))
+        figures[name] = fig
+        if not fig["finite"] or fig["equal_share"] < 0.99 or \
+                fig["card_off_f64"] > 1.1 * fig["cpu_off_f64"] + 16:
+            bad.append(f"{name}: {fig}")
+    return figures, bad
 
 
 def emit(**kv):
@@ -2687,6 +2810,59 @@ def main() -> int:
         launches=[ln for ln in out.splitlines() if ln.startswith("launch:")])
     if frames != [f"frame_{i:04d}.png" for i in range(4)]:
         raise AssertionError(f"movie_launcher wrote {frames}")
+
+    # the diagnostics: diag_mis on Cornell 32x32, key 7, DIAG_MIS_SPP
+    # samples under the default estimator (mis_gate), then
+    # DIAG_MIS_REF_SPP under CLIVE2_REFERENCE_MIS=1 in a process of its
+    # own (recorded: which classes the reference's estimator misses);
+    # shade_ab at 2x512x512 and 2x1920x1080 rays, 20 reps each, and its
+    # all_lobes on the card held to the CPU on the card's inputs
+    # (shade_gate); shadow_cache_study on dragon 512 (BVH2) and sponza
+    # 1080p (the queued fat-leaf traversal), 3 samples each: exactly one
+    # connection cast a sample, finite counts, cache hits within the
+    # occluded casts and the disagreements
+    from clive2_tpu_torch.scripts import shade_ab
+
+    out, sec = tool("diag_mis", str(DIAG_MIS_SPP), "32")
+    mis = dict(last_json(out), seconds=sec)
+    mis["failures"], mis["bands_the_script_misses"] = mis_gate(mis)
+    out, sec = tool("diag_mis", str(DIAG_MIS_REF_SPP), "32",
+                    CLIVE2_REFERENCE_MIS="1")
+    mis_ref = dict(last_json(out), seconds=sec)
+    mis_ref["sum_ratios"] = {k: c["sum_ratio"] for k, c in
+                             mis_ref["classes"].items()}
+    tools_run["diag_mis"] = dict(production=mis, refmis=mis_ref)
+    if mis["failures"] or not mis_ref["reference_mis"] or \
+            mis_ref["n_strategies"] != 41:
+        emit(phase="tools", **tools_run)
+        raise AssertionError(f"diag_mis: {mis['failures']}")
+
+    shade = {}
+    for n in (2 * 512 * 512, 2 * 1920 * 1080):
+        out, sec = tool("shade_ab", str(n), "20")
+        shade[str(n)] = dict(last_json(out), seconds=sec,
+                             lines=out.strip().splitlines()[:-1])
+    shade["card_vs_cpu"], bad = shade_gate(
+        shade_ab.make_inputs(2 * 512 * 512, 0, dev), shade_ab)
+    tools_run["shade_ab"] = shade
+    if bad:
+        emit(phase="tools", **tools_run)
+        raise AssertionError(f"shade_ab: the card against the CPU: {bad}")
+
+    study = {}
+    for preset, w, h in (("dragon", 512, 512), ("sponza", 1920, 1080)):
+        out, sec = tool("shadow_cache_study", preset, str(w), str(h), "3")
+        fig = dict(last_json(out), seconds=sec)
+        study[f"{preset}_{w}x{h}"] = fig
+        rows = fig["transitions"]
+        if fig["casts_recorded"] != [1, 1, 1] or len(rows) != 2 or any(
+                not 0 <= r["cache_hit"] <= r["occluded"] + r["disagreements"]
+                or not 0 < r["occluded"] <= r["active"]
+                <= fig["casts_per_sample"] or not r["cast_ms"] > 0
+                for r in rows):
+            emit(phase="tools", **tools_run, shadow_cache_study=study)
+            raise AssertionError(f"shadow_cache_study {preset}: {fig}")
+    tools_run["shadow_cache_study"] = study
     emit(phase="tools", **tools_run)
     shutil.rmtree(os.path.join(ROOT, "output", "chip_smoke"),
                   ignore_errors=True)
