@@ -157,8 +157,9 @@ MMA_TILES_TRIED = dict(
 # six significant digits): each class's unidirectional mean, and each
 # strategy's unweighted and weighted means.  The port draws the same keys,
 # so the card's run must read these up to near ties (DIAG_MIS_RTOL; the
-# port on the CPU read them within 8.3e-5, the card at 1,024 spp within
-# 1.1e-4 of the script's 1,024-spp figures)
+# port on the CPU read them within 8.3e-5, an NVIDIA H100 80GB HBM3 at
+# 700 W within 8.9e-5, and within 1.1e-4 of the script's 1,024-spp
+# figures at 1,024 spp)
 DIAG_MIS_SPP, DIAG_MIS_REF_SPP, DIAG_MIS_RTOL = 128, 64, 1e-3
 DIAG_MIS_JAX_UNI = {2: 0.0411148, 3: 0.0150609, 4: 0.00590736,
                     5: 0.00401618, 6: 0.00251507}

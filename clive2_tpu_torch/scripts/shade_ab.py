@@ -20,14 +20,14 @@ The port's bounces are in camera convention (the JAX script passes
 The inputs have the JAX script's distributions (normals and incoming
 directions from normals, the incoming direction flipped into the normal's
 hemisphere, uniform rolls, a material type uniform in {0, 1, 2}, alpha 0.2,
-indices 1 and 1.5), drawn from a ``torch.Generator`` seeded with ``--seed``
-on the device.  Each variant's time on the card is the median of ``reps``
-single calls after a warm-up, each between its own CUDA events
-(``kernel_microbench.timed``); with ``--device cpu`` one call on the host
-clock.
+indices 1 and 1.5), drawn on the device from a ``torch.Generator`` seeded
+with 0 (the JAX script draws from key 0).  Each variant's time on the
+card is the median of ``reps`` single calls after a warm-up, each between
+its own CUDA events (``kernel_microbench.timed``); with ``--device cpu``
+one call on the host clock.
 
     python -m clive2_tpu_torch.scripts.shade_ab [n_rays] [reps]
-        [--seed S] [--device cuda|cpu]
+        [--device cuda|cpu]
 
 Prints the JAX script's line per variant, then one JSON line of the same
 figures with the headroom 6 x (all_lobes - the cheaper floor) in ms per
@@ -96,11 +96,11 @@ VARIANTS = dict(all_lobes=all_lobes, diffuse=diffuse_only,
                 reflect=reflect_only)
 
 
-def run(n=2 * 512 * 512, reps=20, seed=0, device="cuda"):
+def run(n=2 * 512 * 512, reps=20, device="cuda"):
     """Time the three variants on ``n`` rays; prints the lines and the JSON
     line and returns the figures."""
     device = resolve_device(device)
-    x = make_inputs(n, seed, device)
+    x = make_inputs(n, 0, device)
     ms = {}
     for name, fn in VARIANTS.items():
         ms[name] = timed(lambda: fn(x), device, reps)[0]
@@ -108,7 +108,7 @@ def run(n=2 * 512 * 512, reps=20, seed=0, device="cuda"):
               f"(x6 depths = {DEPTHS * ms[name]:.2f} ms/sample)")
     floor = min(ms["diffuse"], ms["reflect"])
     figures = dict(
-        n_rays=n, reps=reps, seed=seed,
+        n_rays=n, reps=reps,
         device=torch.cuda.get_device_name(device) if device.type == "cuda"
         else "cpu",
         ms=ms, ms_per_sample={k: DEPTHS * v for k, v in ms.items()},
@@ -121,10 +121,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("n_rays", nargs="?", type=int, default=2 * 512 * 512)
     p.add_argument("reps", nargs="?", type=int, default=20)
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
-    return run(args.n_rays, args.reps, args.seed, args.device)
+    return run(args.n_rays, args.reps, args.device)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,7 @@ are global soup ids).  The cast's ms are its time on the card between
 CUDA events (host clock on the CPU).
 
     python -m clive2_tpu_torch.scripts.shadow_cache_study [preset] [width]
-        [height] [samples] [--seed S] [--device cuda|cpu]
+        [height] [samples] [--device cuda|cpu]
 
 Prints the JAX script's lines, a line of disagreements and cast time per
 transition, then one JSON line of the figures.  Runs on the card unless
@@ -147,10 +147,10 @@ def by_slot(tri, pixel, n_pixels):
     return out
 
 
-def run(preset="dragon", width=64, height=48, samples=3, seed=SEED,
-        device="cuda"):
-    """Render ``samples`` samples of ``preset`` with the connection cast
-    recorded and print the study; returns its figures."""
+def run(preset="dragon", width=64, height=48, samples=3, device="cuda"):
+    """Render ``samples`` samples of ``preset`` (seed 11, the JAX
+    script's) with the connection cast recorded and print the study;
+    returns its figures."""
     import clive2_tpu_torch as ct
 
     device = resolve_device(device)
@@ -164,7 +164,7 @@ def run(preset="dragon", width=64, height=48, samples=3, seed=SEED,
                                         soup_transform=keep)
     verts = torch.as_tensor(soup.pop("vertices"), dtype=torch.float64,
                             device=device)
-    r = ct.Renderer(scene, seed=seed)
+    r = ct.Renderer(scene, seed=SEED)
     rows, per_sample, cast_ms, prev = [], [], [], None
     for k in range(samples):
         casts, pixels = [], []
@@ -195,10 +195,10 @@ def run(preset="dragon", width=64, height=48, samples=3, seed=SEED,
             print(f"  disagreements {c['disagreements']} (confirmed, cast "
                   f"unoccluded); connection cast {cur['ms']:.3f} ms")
         prev = by_slot(cur["tri"], pixel, width * height)
-        del casts, cur
+        del casts, cur         # this sample's rays go before the next sample
     figures = dict(
         preset=preset, width=width, height=height, samples=samples,
-        seed=seed, order=render._wave_order(scene.data),
+        seed=SEED, order=render._wave_order(scene.data),
         device=torch.cuda.get_device_name(device) if device.type == "cuda"
         else "cpu",
         casts_per_sample=int(prev.numel()), casts_recorded=per_sample,
@@ -213,10 +213,9 @@ def main(argv=None):
     p.add_argument("width", nargs="?", type=int, default=64)
     p.add_argument("height", nargs="?", type=int, default=48)
     p.add_argument("samples", nargs="?", type=int, default=3)
-    p.add_argument("--seed", type=int, default=SEED)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
-    return run(args.preset, args.width, args.height, args.samples, args.seed,
+    return run(args.preset, args.width, args.height, args.samples,
                args.device)
 
 
