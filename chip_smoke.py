@@ -189,25 +189,23 @@ DIAG_MIS_JAX = {
 
 def mis_gate(fig):
     """The MIS diagnostic's run (its JSON line) against the estimator's
-    identities and the JAX script's figures: every one of the 41
-    strategies present with finite figures; each (t, 0) strategy of
-    classes 2-6 the class's unidirectional image (rtol 1e-6); every
-    unidirectional, unweighted and weighted mean within DIAG_MIS_RTOL of
-    the script's; and the bands of tests/test_convergence.py (each
-    unweighted strategy within 1.5% of its class's unidirectional mean,
-    the class's weighted sum within 1%) on every figure the script's own
-    run keeps inside them at this spp (at 128 spp it misses many: noise,
-    not the port).  Returns (failures, the bands not held by the
-    script)."""
+    identity and the JAX script's figures: every one of the 41 strategies
+    present with finite figures; each (t, 0) strategy of classes 2-6 the
+    class's unidirectional image (rtol 1e-6); every unidirectional,
+    unweighted and weighted mean within DIAG_MIS_RTOL of the script's.
+    The ratios to uni that tests/test_convergence.py bands (1.5% per
+    strategy, 1% for the weighted sum) are in the figures; at this spp the
+    script's own run misses those bands on many of them (noise, not the
+    port), and where it keeps them the comparison above keeps the port's.
+    Returns the failures."""
     import math
 
-    bad, exempt = [], []
+    bad = []
     classes = fig["classes"]
     got = {ts: v for c in classes.values()
            for ts, v in c["strategies"].items()}
     if fig["n_strategies"] != 41 or sorted(got) != sorted(DIAG_MIS_JAX):
-        bad.append(f"strategies {sorted(got)}")
-        return bad, exempt
+        return [f"strategies {sorted(got)}"]
     for ts, v in got.items():
         if not all(math.isfinite(v[x])
                    for x in ("unweighted", "weighted", "wmean")):
@@ -223,17 +221,7 @@ def mis_gate(fig):
         t0 = c["strategies"][f"{k},0"]["unweighted"]
         if abs(t0 - uni) > 1e-6 * uni:
             bad.append(f"({k},0) {t0} is not uni {uni}")
-        want_sum = sum(DIAG_MIS_JAX[ts][1] for ts in c["strategies"])
-        for name, ratio, want_ratio, band in (
-                ("SUM weighted", c["sum_ratio"], want_sum / want_uni, 0.01),
-                *((ts, v["ratio"], DIAG_MIS_JAX[ts][0] / want_uni, 0.015)
-                  for ts, v in c["strategies"].items())):
-            if abs(want_ratio - 1) > band:
-                exempt.append(f"class {k} {name}: script {want_ratio:.4f}")
-            elif abs(ratio - 1) > band:
-                bad.append(f"class {k} {name} {ratio:.4f}x uni, outside "
-                           f"{band:.1%}")
-    return bad, exempt
+    return bad
 
 
 def shade_gate(x, shade_ab):
@@ -2826,7 +2814,7 @@ def main() -> int:
 
     out, sec = tool("diag_mis", str(DIAG_MIS_SPP), "32")
     mis = dict(last_json(out), seconds=sec)
-    mis["failures"], mis["bands_the_script_misses"] = mis_gate(mis)
+    mis["failures"] = mis_gate(mis)
     out, sec = tool("diag_mis", str(DIAG_MIS_REF_SPP), "32",
                     CLIVE2_REFERENCE_MIS="1")
     mis_ref = dict(last_json(out), seconds=sec)

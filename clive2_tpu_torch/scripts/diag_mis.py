@@ -27,9 +27,9 @@ the device and reach the host once, at the end.
     python -m clive2_tpu_torch.scripts.diag_mis [spp] [size] [classes...]
         [--device cuda|cpu]
 
-``classes`` restricts the report to those classes (all when none is
-given).  Prints the JAX script's lines, then one JSON line of the same
-figures.  Runs on the card unless ``--device cpu`` (without a card the
+``classes`` are taken and ignored, as the JAX script, whose usage names
+them, ignores them: every class is reported.  Prints the JAX script's
+lines, then one JSON line of the same figures.  Runs on the card unless ``--device cpu`` (without a card the
 default raises).  ``CLIVE2_REFERENCE_MIS=1`` diagnoses the reference's
 estimator.
 """
@@ -116,15 +116,13 @@ def accumulate(data, width, height, spp, key):
     return acc_ps, acc_uni
 
 
-def report(acc_ps, acc_uni, classes=None, out=print):
+def report(acc_ps, acc_uni, out=print):
     """Print the JAX script's per-class report; returns its figures:
     class -> dict(uni, strategies: "t,s" -> dict(unweighted, weighted,
     wmean, ratio), sum_weighted, sum_ratio); a ratio is None where the
     class has no unidirectional image."""
     figures = {}
     for k in sorted({t + s for (t, s) in acc_ps}):
-        if classes and k not in classes:
-            continue
         uni_mean = float(acc_uni[k].mean()) if k in acc_uni else 0.0
         out(f"\n== class k={k} (uni mean {uni_mean:.6g}) ==")
         strategies, tot_weighted = {}, 0.0
@@ -149,7 +147,7 @@ def report(acc_ps, acc_uni, classes=None, out=print):
     return figures
 
 
-def run(spp=64, size=32, classes=(), device="cuda"):
+def run(spp=64, size=32, device="cuda"):
     """The diagnostic on Cornell ``empty`` at ``size`` x ``size`` and
     ``spp`` samples on ``device``; prints the report and its JSON line and
     returns the figures."""
@@ -166,7 +164,7 @@ def run(spp=64, size=32, classes=(), device="cuda"):
         device=torch.cuda.get_device_name(device) if device.type == "cuda"
         else "cpu",
         n_strategies=len(acc_ps),
-        classes=report(acc_ps, acc_uni, set(classes)))
+        classes=report(acc_ps, acc_uni))
     print(json.dumps(figures), flush=True)
     return figures
 
@@ -175,10 +173,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("spp", nargs="?", type=int, default=64)
     p.add_argument("size", nargs="?", type=int, default=32)
-    p.add_argument("classes", nargs="*", type=int)
+    p.add_argument("classes", nargs="*", type=int,
+                   help="taken and ignored, as by the JAX script")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
-    return run(args.spp, args.size, args.classes, args.device)
+    return run(args.spp, args.size, args.device)
 
 
 if __name__ == "__main__":

@@ -125,15 +125,22 @@ def recorded_casts(casts, pixels):
         yield
 
 
-def transition(prev_by_slot, cur, pixel, verts):
-    """Counts of one sample transition: the current cast ``cur`` against
-    the previous sample's occluders by slot [P, W*H]."""
+def slot_hits(prev_by_slot, cur, pixel, verts):
+    """[P, N] lane-order masks of one sample transition, the current cast
+    ``cur`` against the previous sample's occluders by slot [P, W*H]:
+    (active, occluded, cache hit)."""
     act = cur["active"] & (cur["t_max"] > 0)
     occ = act & (cur["tri"] >= 0)
     cand = prev_by_slot[:, pixel]          # the slot's occluder, lane order
     hit = act & (cand >= 0) & occludes(
         verts, cand.reshape(-1), cur["o"].reshape(-1, 3),
         cur["d"].reshape(-1, 3), cur["t_max"].reshape(-1)).reshape(act.shape)
+    return act, occ, hit
+
+
+def transition(prev_by_slot, cur, pixel, verts):
+    """Counts of one sample transition (``slot_hits``)."""
+    act, occ, hit = slot_hits(prev_by_slot, cur, pixel, verts)
     return dict(active=int(act.sum()), occluded=int(occ.sum()),
                 cache_hit=int(hit.sum()),
                 disagreements=int((hit & ~occ).sum()))

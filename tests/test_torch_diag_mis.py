@@ -136,14 +136,15 @@ def test_cli_on_the_cpu_prints_the_scripts_lines():
     assert p.returncode == 0, p.stderr
     lines = p.stdout.strip().splitlines()
     assert lines[0] == "spp=1 size=8x8"
-    assert [ln for ln in lines if ln.startswith("== class")] == [
-        ln for ln in lines if ln.startswith(("== class k=2 ",
-                                             "== class k=3 "))]
-    assert sum(ln.startswith("  SUM weighted") for ln in lines) == 2
+    # the classes "2 3" are taken and ignored, as by the script
+    assert [ln.split(" (")[0] for ln in lines if ln.startswith("== class")] \
+        == [f"== class k={k}" for k in range(2, 13)]
     figures = json.loads(lines[-1])
+    assert sum(ln.startswith("  SUM weighted") for ln in lines) == sum(
+        c["sum_ratio"] is not None for c in figures["classes"].values())
     assert figures["spp"] == 1 and figures["size"] == 8
-    assert figures["n_strategies"] == 41 and sorted(figures["classes"]) == \
-        ["2", "3"]
+    assert figures["n_strategies"] == 41 and sorted(
+        figures["classes"], key=int) == [str(k) for k in range(2, 13)]
     assert figures["reference_mis"] is False
 
 
