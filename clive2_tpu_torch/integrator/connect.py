@@ -36,6 +36,7 @@ from ..constants import DELTA, MAX_BOUNCES
 from ..ops.gather import gather_rows
 from ..ops.intersect import intersect_scene
 from ..ops.sampling import INV_2PI, INV_PI, PI, dot, normalize
+from ..utils.profiling import spanned
 from .trace import sort_knob
 
 
@@ -199,6 +200,7 @@ def cast_connections(origin, direction, active, t_max, scene, any_hit: bool,
     return hit_i.reshape(p_cnt, n), hit_t.reshape(p_cnt, n)
 
 
+@spanned("connect")
 def connect_paths(cam_path, light_path, scene, width: int, height: int,
                   max_bounces: int = MAX_BOUNCES,
                   debug_per_strategy: bool = False, sort=None):

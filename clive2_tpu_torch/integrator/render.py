@@ -31,6 +31,7 @@ from ..ops.filters import (
     finalize_samples_scatter,
 )
 from ..ops.intersect import ray_order
+from ..utils.profiling import spanned
 from .connect import connect_paths
 from .trace import (
     generate_camera_rays,
@@ -140,6 +141,7 @@ def pair_lights(lorder, light_path):
         length=back(light_path["length"], dim=0))
 
 
+@spanned("trace")
 def trace_wavefront(key, scene, width, height,
                     max_bounces: int = MAX_BOUNCES,
                     debug_per_strategy: bool = False, tile=None,

@@ -23,6 +23,7 @@ import collections
 import torch
 
 from ..constants import DELTA
+from ..utils.profiling import span, spanned
 
 INF = float("inf")
 
@@ -331,6 +332,7 @@ def traversal_of(scene):
                  if k in scene), None)
 
 
+@spanned("cast")
 def intersect_scene(origin, direction, scene, active=None, t_max=None,
                     any_hit=False, sort=False):
     """The dispatch behind every cast, keyed by the scene's tables.
@@ -373,12 +375,16 @@ def intersect_scene(origin, direction, scene, active=None, t_max=None,
         sort = name in ("stream", "stream2")
     if sort and name is not None:
         table = scene[name]
-        order = ray_order(morton_key(origin, direction, table["lo"],
-                                     table["hi"], active))
-        pick = lambda x: None if x is None else x[order]
-        hit = unsort(order, traverse(
-            origin[order], direction[order], scene, active=pick(active),
-            t_max=pick(t_max), any_hit=any_hit))
+        with span("cast.sort"):
+            order = ray_order(morton_key(origin, direction, table["lo"],
+                                         table["hi"], active))
+            pick = lambda x: None if x is None else x[order]
+            o, d, a, tm = (origin[order], direction[order], pick(active),
+                           pick(t_max))
+        hit = traverse(o, d, scene, active=a, t_max=tm, any_hit=any_hit)
+        del o, d, a, tm  # free the sorted copies before unsort
+        with span("cast.sort"):
+            hit = unsort(order, hit)
     else:
         hit = traverse(origin, direction, scene, active=active, t_max=t_max,
                        any_hit=any_hit)

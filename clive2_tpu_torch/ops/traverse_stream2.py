@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ..constants import DELTA
+from ..utils.profiling import span
 from .intersect import INF, WORK, _mt, box_entry, cull_bound, safe_inverse
 # the cut, the top tree and its walk are the stream1 kernel's
 # (ops/traverse_stream.py), as in the JAX package, where stream2 imports
@@ -338,13 +339,18 @@ def queued_cast(rays, steps, out, chunk=CHUNK, tail_min=TAIL_MIN):
             steps.walk(st)
             counts.append(steps.bin(st))
             rounds += 1
-            live = counts[-2]()[0]         # the live rays this round began with
+            with span("wait"):
+                live = counts[-2]()[0]     # the live rays this round began with
             if live == 0 or live < tail_min:
                 break
         lasts.append(counts[-1])
         steps.tail(st, tuple(x[lo:lo + chunk] for x in out))
     steps.join()
-    return rounds, sum(read()[0] for read in lasts)
+    left = 0
+    for read in lasts:
+        with span("wait"):
+            left += read()[0]
+    return rounds, left
 
 
 def ray_rows(origin, direction, ctr):

@@ -31,6 +31,7 @@ from .integrator.render import (
 )
 from .parallel.mesh import resolve_device
 from .scene import Scene
+from .utils.profiling import spanned
 
 
 def _adaptive_scores(state):
@@ -101,6 +102,7 @@ class Renderer:
                                                max_bounces)
 
     @timed
+    @spanned("sample")
     def run_sample(self):
         """One progressive BDPT sample over every pixel.  The sample key
         folds the sample index into the seed key, as the JAX package does;
@@ -127,6 +129,7 @@ class Renderer:
         self.samples += 1
 
     @timed
+    @spanned("sample")
     def run_adaptive_sample(self, fraction: float = 0.25):
         """One BDPT sample for only the highest-variance ``fraction`` of
         pixels, chosen from the accumulated per-pixel statistics (run a few

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.profiling import spanned
+
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -25,6 +27,7 @@ def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & _M
 
 
+@spanned("rng")
 def threefry2x32(k0, k1, x0, x1):
     """The threefry2x32 hash of counter words (x0, x1) under key (k0, k1).
 

@@ -1,57 +1,60 @@
 """Profiling and tracing utilities (port of clive2_tpu/utils/profiling.py).
 
-  * ``stage_timer``: a wall-clock context manager that waits for the card
-    before it reads the clock, so that a time under asynchronous launches
-    means what it says;
+  * ``span``: the program's spans, ``clive2.<name>`` ranges that a running
+    ``torch.profiler`` records on its own clock, beside the device work
+    launched inside them, and nothing when no profiler runs; ``spanned``
+    puts a function's body in one.  The seven names and their sites:
+    ``sample`` (``Renderer.run_sample``, ``run_adaptive_sample``),
+    ``trace`` (``integrator/render.py:trace_wavefront``), ``connect``
+    (``integrator/connect.py:connect_paths``), ``rng``
+    (``rng.threefry2x32``, behind every draw, split and fold), ``cast``
+    (``ops/intersect.py:intersect_scene``), ``cast.sort`` (its Morton sort
+    and gathers, and its unsort) and ``wait`` (each round read of
+    ``ops/traverse_stream2.py:queued_cast``);
   * ``trace_to``: a ``torch.profiler`` trace of the enclosed region, written
     as a Chrome trace (open it in Perfetto or chrome://tracing), and
     ``device_busy``, the card's busy share read from such a trace;
-  * ``device_memory_stats``: ``torch.cuda.memory_stats`` per card;
   * ``timed``: the reference's wall-clock decorator (``constants.timed``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from ..constants import timed  # noqa: F401  (re-export, as the JAX package)
 
 TRACE_FILE = "trace.json"
 # what the card does in a Chrome trace of torch.profiler
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "clive2."
+_OFF = contextlib.nullcontext()
 
 
-def _synchronize(sync):
-    """Wait for ``sync`` (a tensor or a device) or, when None, every card."""
-    if sync is None:
-        if torch.cuda.is_available():
-            for i in range(torch.cuda.device_count()):
-                torch.cuda.synchronize(i)
-        return
-    device = sync.device if isinstance(sync, torch.Tensor) else \
-        torch.device(sync)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def span(name: str):
+    """A ``clive2.<name>`` range (``torch.profiler.record_function``) while
+    a profiler records, else one shared null context: a span costs a flag
+    read when no profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(SPAN_PREFIX + name)
+    return _OFF
 
 
-@contextlib.contextmanager
-def stage_timer(name: str, result_holder: dict | None = None, sync=None):
-    """Time a pipeline stage: after the block, wait for ``sync`` (a tensor
-    or a device; every card when None), then add the seconds to
-    ``result_holder[name]``, or print them when no holder is given."""
-    t0 = time.perf_counter()
-    yield
-    _synchronize(sync)
-    dt = time.perf_counter() - t0
-    if result_holder is not None:
-        result_holder[name] = result_holder.get(name, 0.0) + dt
-    else:
-        print(f"[stage {name}] {dt:.4f}s")
+def spanned(name: str):
+    """Decorate a function so that each call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return inner
+    return wrap
 
 
 @contextlib.contextmanager
@@ -68,7 +71,8 @@ def trace_to(logdir: str):
                                            else [])
     with profile(activities=activities) as prof:
         yield prof
-        _synchronize(None)
+        for i in range(torch.cuda.device_count() if cuda else 0):
+            torch.cuda.synchronize(i)
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
@@ -96,11 +100,3 @@ def device_busy(logdir: str):
                 share=busy / window if window > 0 else 0.0,
                 device_events=len(spans))
 
-
-def device_memory_stats():
-    """``torch.cuda.memory_stats`` of each card by device name; the CPU's
-    entry is an empty dict."""
-    if not torch.cuda.is_available():
-        return {"cpu": {}}
-    return {f"cuda:{i}": torch.cuda.memory_stats(i)
-            for i in range(torch.cuda.device_count())}

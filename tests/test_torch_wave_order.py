@@ -582,20 +582,15 @@ def test_mesh_sample_matches_jax_banded_sample(banded):
 
 # ---- utils/profiling --------------------------------------------------------
 
-def test_profiling_runs_on_the_cpu(tmp_path, capsys):
-    held = {}
-    with profiling.stage_timer("sum", held):
-        torch.ones(1000).sum()
-    assert held["sum"] > 0
-    with profiling.stage_timer("printed"):
-        pass
-    assert "[stage printed]" in capsys.readouterr().out
+def test_profiling_runs_on_the_cpu(tmp_path):
+    assert profiling.span("mm") is profiling.span("sum")  # no profiler
     with profiling.trace_to(str(tmp_path)) as prof:
-        torch.ones(256, 256) @ torch.ones(256, 256)
+        with profiling.span("mm"):
+            torch.ones(256, 256) @ torch.ones(256, 256)
     assert (tmp_path / profiling.TRACE_FILE).exists()
-    assert any("mm" in e.key for e in prof.key_averages())
+    keys = [e.key for e in prof.key_averages()]
+    assert any("mm" in k for k in keys) and "clive2.mm" in keys
     busy = profiling.device_busy(str(tmp_path))
     assert busy["device_events"] == 0 and busy["share"] == 0.0
     assert busy["window_ms"] > 0
-    assert profiling.device_memory_stats() == {"cpu": {}}
     assert profiling.timed is constants.timed
