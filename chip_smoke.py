@@ -104,6 +104,15 @@ Imports no JAX.
 prints the SASS figures of a built kernel library (any checkout's
 ``clive2_tpu_torch/build/*.so``) and exits, so that two builds can be
 compared on one machine.
+
+The phase ``connect_kernels_vs_plain`` (after the main path's casts) holds
+the connection's two kernels (csrc/connect.cu) to their plain versions on
+one sample of Cornell and sponza at 1920x1080 and times each beside its
+byte bound and its plain stage; the ``kernels`` line carries their rows.
+
+    python3 chip_smoke.py --phase connect_kernels_vs_plain
+
+runs that phase alone.
 """
 
 from __future__ import annotations
@@ -652,6 +661,155 @@ def build_timed(preset, w, h, device):
     finally:
         scene_mod.build_bvh = build_bvh
     return scene, total, sum(spent)
+
+
+def connect_tag(name):
+    """A connection kernel instance (csrc/connect.cu) by its stage and
+    template flag: rays (any_hit | closest) or shade (corrected |
+    reference)."""
+    flag = "ILb1E" in name
+    if "connect_rays_kernel" in name:
+        return "rays any_hit" if flag else "rays closest"
+    if "connect_shade_kernel" in name:
+        return "shade reference" if flag else "shade corrected"
+    return None
+
+
+def connect_bytes(n, max_bounces, reference, pixels):
+    """The least bytes each connection kernel moves for ``n`` lanes: every
+    vertex field it reads once (stage A: each subpath's origin, normal and
+    material; stage B: origin, direction, normal, color, three importances,
+    material, triangle, and the camera's hit_light; the light subpath's
+    triangle only under the reference estimator), the lengths, the cast's
+    [P, N] answers; its outputs written once, the light images (``pixels``
+    of 16 B) among them."""
+    p = max_bounces ** 2
+    rays = n * (max_bounces * 2 * 28 + 8 + p * (12 + 12 + 1 + 4))
+    camera = 48 + 12 + 12         # 4 vectors, 3 importances, 3 ids
+    light = 48 + 12 + 4 + 4 * reference
+    shade = n * (max_bounces * (camera + light) + 4 + p * (4 + 4 + 1)
+                 + 16) + 16 * pixels
+    return dict(rays=rays, shade=shade)
+
+
+def connect_kernels_vs_plain(scenes, seed=5):
+    """Phase ``connect_kernels_vs_plain``: on one sample of each of
+    ``scenes`` ((name, scene, width, height)), in the renderer's wave
+    order, each connection kernel against its plain version on the same
+    inputs (stage B on the cast of the plain version's rays): the largest
+    differences and the tests' tolerances held; each kernel's CUDA-event
+    time (median of 5 calls of its wrapper, the light images' zero fill
+    included) beside its byte bound, and the plain stage's (one call);
+    ptxas's registers and spills.  Returns the figures by scene."""
+    import torch
+
+    from clive2_tpu_torch import kernels, rng
+    from clive2_tpu_torch.integrator import connect, render
+
+    def ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+    def rel(a, b):
+        d = (a - b).abs() / b.abs().clamp(min=1e-30)
+        d = d[torch.isfinite(d) & (a != b)]
+        return float(d.max()) if d.numel() else 0.0
+
+    resources = ptxas_figures(kernels.ptxas_report("connect.cu"),
+                              connect_tag)
+    out = {}
+    for name, scene, w, h in scenes:
+        dev = scene.data["camera"]["center"].device
+        wf = render.trace_wavefront(
+            rng.key(seed, dev), scene.data, w, h,
+            order=render._wave_order(scene.data))
+        cam, light = wf["cam_path"], wf["light_path"]
+        n = cam["length"].shape[0]
+        pairs = connect.connection_pairs()
+        any_hit = connect.any_hit_casts()
+        got_a = connect.rays_kernel(cam, light, scene.data, pairs, any_hit)
+        want_a = connect.connection_rays_plain(cam, light, scene.data,
+                                               pairs, None, None, any_hit)
+        tri, t = connect.cast_connections(*want_a, scene.data, any_hit,
+                                          wf["connect_sort"])
+        args = (cam, light, scene.data, tri, t, want_a[2], w, h)
+        got_b = connect.shade_kernel(*args)
+        want_b = connect.shade_plain(*args)
+        figures = dict(
+            lanes=n, order=render._wave_order(scene.data),
+            origin_equal=bool(torch.equal(got_a[0], want_a[0])),
+            active_differing=int((got_a[2] != want_a[2]).sum()),
+            n_rays=int(want_a[2].sum()),
+            direction_max_abs=float((got_a[1] - want_a[1]).abs().max()),
+            t_max_max_rel=rel(got_a[3], want_a[3]),
+            contribution_max_rel=rel(got_b[0], want_b[0]),
+            weight_sum_max_rel=rel(got_b[1], want_b[1]),
+            light_image_max_abs=float((got_b[2] - want_b[2]).abs().max()),
+            light_weight_max_abs=float((got_b[3] - want_b[3]).abs().max()))
+        torch.testing.assert_close(got_a[1], want_a[1], rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(got_a[3], want_a[3], rtol=1e-6, atol=0,
+                                   equal_nan=True)
+        for a, b in zip(got_b[:2], want_b[:2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        for a, b in zip(got_b[2:], want_b[2:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        if not figures["origin_equal"] or figures["active_differing"]:
+            raise AssertionError(f"connect_kernels_vs_plain {name}: "
+                                 f"{figures}")
+        del got_a, got_b, want_b
+        torch.cuda.empty_cache()
+        bound = connect_bytes(n, 6, False, w * h)
+        times = dict(
+            rays=ms(lambda: connect.rays_kernel(cam, light, scene.data,
+                                                pairs, any_hit), 5),
+            shade=ms(lambda: connect.shade_kernel(*args), 5),
+            rays_plain=ms(lambda: connect.connection_rays_plain(
+                cam, light, scene.data, pairs, None, None, any_hit), 1),
+            shade_plain=ms(lambda: connect.shade_plain(*args), 1))
+        for k in ("rays", "shade"):
+            figures[k] = dict(
+                ms=times[k], plain_ms=times[k + "_plain"],
+                bytes=bound[k], bound_ms=bound[k] / HBM_BYTES_S * 1e3,
+                bound_by="bytes",
+                bound_share=bound[k] / HBM_BYTES_S * 1e3 / times[k])
+        out[name] = figures
+        del want_a, tri, t, args, wf, cam, light
+        torch.cuda.empty_cache()
+    emit(phase="connect_kernels_vs_plain", resources=resources, **out)
+    return dict(resources=resources, **out)
+
+
+def connect_phase_alone() -> int:
+    """``--phase connect_kernels_vs_plain``: that phase alone, on Cornell
+    and sponza at 1920x1080 (the meshes written when missing)."""
+    import torch
+
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.scene import RESOURCE_DIR
+    from clive2_tpu_torch.testing import write_assets
+
+    dev = torch.device("cuda")
+    kernels.load()
+    write_assets(RESOURCE_DIR)
+    connect_kernels_vs_plain(
+        (("cornell_1080p", ct.create_scene_from_preset(
+            "empty", 1920, 1080, device=dev), 1920, 1080),
+         ("sponza_1080p", ct.create_scene_from_preset(
+             "sponza", 1920, 1080, device=dev), 1920, 1080)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
 
 
 def random_rays(n, lo, hi, gen, device):
@@ -1553,6 +1711,11 @@ def main() -> int:
         del casts, c
         torch.cuda.empty_cache()
 
+    # ---- 5b. the connection's kernels against their plain versions -------
+    connect_figures = connect_kernels_vs_plain(
+        (("cornell_1080p", cornell, 1920, 1080),
+         ("sponza_1080p", sponza, 1920, 1080)))
+
     # ---- 6./7. the main path at full size ----------------------------------
     # the queued fat-leaf traversal's kernels, counted apart from its casts
     # (intersect_stream2.launches counts casts)
@@ -1881,7 +2044,10 @@ def main() -> int:
             numbers[name]["seconds"] = time.perf_counter() - t0
             t0 = time.perf_counter()
 
-    ran = drive("oracles", ("brute",), run_oracles)
+    # the convergence oracles' per-strategy images are the connection's
+    # plain versions (connect_paths(debug_per_strategy=True))
+    from clive2_tpu_torch.testing import CONNECT_PLAIN
+    ran = drive("oracles", ("brute",), run_oracles, compared=CONNECT_PLAIN)
     emit(phase="oracles", counts=ran, **numbers)
     for name, r in numbers.items():
         oracles.check(name, r)
@@ -3039,6 +3205,17 @@ def main() -> int:
                        ("stream", "sponza_1080p_stream1")):
         next(row for row in rows if row["name"] == name)["wave_order"] = dict(
             cell=cell, casts=wave[cell]["casts"])
+    # the connection's kernels: sponza 1080p's sample (phase
+    # connect_kernels_vs_plain); they replace no TPU kernel
+    for name in ("rays", "shade"):
+        rows.append(dict(
+            name=f"connect_{name}", route="cuda",
+            source="clive2_tpu_torch/csrc/connect.cu",
+            replaces="none: clive2_tpu/integrator/connect.py is XLA-fused "
+                     "jnp",
+            launches=launches[f"connect_{name}"],
+            **connect_figures["sponza_1080p"][name],
+            cast="sponza 1920x1080, one sample's 2,073,600 lanes"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3051,6 +3228,9 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         print(json.dumps(sass_figures(sys.argv[2])), flush=True)
         sys.exit(0)
+    if sys.argv[1:] == ["--phase", "connect_kernels_vs_plain"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(connect_phase_alone())
     try:
         code = main()
     except Exception as e:                 # report the phase that failed

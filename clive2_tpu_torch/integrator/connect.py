@@ -6,10 +6,18 @@ Stage A casts every (t, s) strategy that needs a ray (t=1 camera-plane
 projections and general-join visibility tests) as ONE batch of P*N rays:
 any-hit casts capped below the target under the corrected estimator,
 closest-hit casts capped just beyond it under the reference estimator (whose
-visibility rule asks that the hit BE the target).  Stage B unrolls the
-per-strategy MIS chains as masked elementwise ops over the wavefront.  t=1
-splats are one scatter-add per channel; splat pixels outside the image are
-dropped.
+visibility rule asks that the hit BE the target).  Stage B weighs and sums
+every strategy from the cast's answers; t=1 splats are added into the light
+image, splat pixels outside the image dropped.
+
+On the card each stage is one hand-written kernel (csrc/connect.cu):
+``clive2_connect_rays`` writes stage A's rays (``rays_kernel``) and
+``clive2_connect_shade`` weighs every strategy of a lane in registers and
+adds its splats with atomics (``shade_kernel``).  Their plain versions,
+``connection_rays_plain`` and ``shade_plain`` (the per-strategy MIS chains
+unrolled as masked elementwise ops over the wavefront, the splats one
+scatter-add per image), run on the CPU, and on any device for
+``connect_paths(debug_per_strategy=True)``.
 
 The JAX package's A/B knobs of that cast, read from the environment at call
 time:
@@ -27,12 +35,15 @@ the same.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
 
-from .. import constants
+from .. import constants, kernels
 from ..constants import DELTA, MAX_BOUNCES
+from ..materials import CAMERA_MATERIAL
 from ..ops.gather import gather_rows
 from ..ops.intersect import intersect_scene
 from ..ops.sampling import INV_2PI, INV_PI, PI, dot, normalize
@@ -128,11 +139,30 @@ def connection_rays(cam_path, light_path, scene, pairs, l_spec, c_spec,
     focal point), active where the strategy needs its cast, capped at the
     target (camera vertex or sensor plane): below it for any-hit casts,
     just beyond it for closest-hit ones.  ``l_spec``/``c_spec``: [D, N]
-    specular flags of the light and camera subpaths' vertices.  Returns
-    (origin, direction, active, t_max)."""
+    specular flags of the light and camera subpaths' vertices
+    (``specular``), or None to derive them from the scene's materials.
+    Returns (origin, direction, active, t_max).
+
+    On CUDA tensors the kernel ``clive2_connect_rays`` (``rays_kernel``)
+    computes them, deriving the specular flags itself (so ``l_spec`` and
+    ``c_spec`` are not read there); on CPU tensors the plain version."""
+    if cam_path["length"].device.type == "cpu":
+        return connection_rays_plain(cam_path, light_path, scene, pairs,
+                                     l_spec, c_spec, any_hit)
+    return rays_kernel(cam_path, light_path, scene, pairs, any_hit)
+
+
+def connection_rays_plain(cam_path, light_path, scene, pairs, l_spec,
+                          c_spec, any_hit: bool):
+    """``connection_rays`` as tensor ops, on any device."""
+    connection_rays_plain.calls += 1
     CV, cam_len = cam_path["vertices"], cam_path["length"]
     LV, light_len = light_path["vertices"], light_path["length"]
     cam = scene["camera"]
+    if l_spec is None:
+        l_spec = specular(LV, scene["mat"])
+    if c_spec is None:
+        c_spec = specular(CV, scene["mat"])
     pair_arr = torch.tensor(pairs, dtype=torch.int32, device=cam_len.device)
     t_i = (pair_arr[:, 0] - 1).long()             # [P]
     s_i = (pair_arr[:, 1] - 1).long()
@@ -184,6 +214,187 @@ def connection_rays(cam_path, light_path, scene, pairs, l_spec, c_spec,
     return lv_o, direction, active, t_max
 
 
+connection_rays_plain.calls = 0
+
+
+# ---- the kernels' wrappers (csrc/connect.cu) --------------------------------
+
+_VEC_FIELDS = ("origin", "direction", "normal", "color")
+_INT_FIELDS = ("material", "triangle", "hit_light")
+_RAY_FIELDS = ("origin", "normal", "material")
+_SHADE_FIELDS = ("origin", "direction", "normal", "color", "c_importance",
+                 "l_importance", "tot_importance", "material", "triangle")
+
+
+def _path_fields(path, fields, n: int, dev, what: str):
+    """Pointers of a subpath's vertex ``fields`` ([D, N, 3] f32 vectors,
+    [D, N] f32 or i32 scalars, each depth row contiguous and every field
+    ``stride`` lanes from one depth to the next), with the stride and D.
+    Raises on a field the kernels do not take."""
+    ptrs, stride, depth = [], None, None
+    for k in fields:
+        v = path["vertices"][k]
+        vec = k in _VEC_FIELDS
+        dtype = torch.int32 if k in _INT_FIELDS else torch.float32
+        shape = (v.shape[0], n, 3) if vec else (v.shape[0], n)
+        if v.device != dev or v.dtype != dtype or tuple(v.shape) != shape:
+            raise ValueError(
+                f"{what} field {k} must be {dtype} [D, {n}"
+                f"{', 3' if vec else ''}] on {dev}, got {tuple(v.shape)} "
+                f"{v.dtype} on {v.device}")
+        inner = (3, 1) if vec else (1,)
+        width = 3 if vec else 1
+        rows = all(st == want or size == 1 for st, want, size in
+                   zip(v.stride()[1:], inner, v.shape[1:]))
+        step = v.stride(0)
+        if (not rows or step % width
+                or (v.shape[0] > 1 and stride is not None
+                    and step // width != stride)):
+            raise ValueError(f"{what} field {k}: each depth row must be "
+                             "contiguous, every field of the subpath the "
+                             "same lanes apart from one depth to the next")
+        if v.shape[0] > 1:
+            stride = step // width
+        if depth is not None and v.shape[0] != depth:
+            raise ValueError(f"{what} fields hold different depths")
+        depth = v.shape[0]
+        ptrs.append(v.data_ptr())
+    return ptrs, (n if stride is None else stride), depth
+
+
+def _checked(t, dtype, shape, dev, what: str):
+    """``t`` itself, after checking its dtype, shape, device and that it
+    is contiguous."""
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {dtype} "
+                         f"{list(shape)} on {dev}, got {tuple(t.shape)} "
+                         f"{t.dtype} on {t.device}")
+    return t
+
+
+def _camera(cam, keys, dev):
+    """Pointers of the camera's device tensors ``keys``."""
+    return [_checked(cam[k], torch.float32,
+                     () if k.startswith("phys") else (3,), dev,
+                     f"camera {k}").data_ptr() for k in keys]
+
+
+def _materials(mat, keys, dev):
+    """Pointers of the material table's ``keys``, then its row count."""
+    m = mat["type"].shape[0]
+    out = [_checked(mat[k], torch.int32 if k == "type" else torch.float32,
+                    (m,) if k == "type" else (m, 3), dev,
+                    f"material {k}").data_ptr() for k in keys]
+    if m <= CAMERA_MATERIAL:
+        raise ValueError(f"the material table has {m} rows: the sensor's "
+                         f"material is row {CAMERA_MATERIAL}")
+    return out + [m]
+
+
+@functools.lru_cache(maxsize=None)
+def _host_pairs(pairs):
+    """The pairs as a host array of 2P ints, which the entry copies into
+    the launch's parameters (kept alive by the cache)."""
+    return (ctypes.c_int * (2 * len(pairs)))(*(v for ts in pairs for v in ts))
+
+
+def rays_kernel(cam_path, light_path, scene, pairs, any_hit: bool):
+    """``connection_rays`` through ``clive2_connect_rays``, on the device of
+    the subpaths' tensors, with the specular flags derived in the kernel.
+    Reads no device value on the host."""
+    cam_len = cam_path["length"]
+    dev, n = cam_len.device, cam_len.shape[0]
+    pairs = tuple(tuple(int(v) for v in ts) for ts in pairs)
+    if not pairs or len(set(pairs)) != len(pairs) or any(
+            len(ts) != 2 or not 1 <= v <= MAX_BOUNCES
+            for ts in pairs for v in ts):
+        raise ValueError(f"the kernel takes distinct pairs (t, s) in "
+                         f"[1, {MAX_BOUNCES}], got {pairs}")
+    c_ptrs, c_stride, c_depth = _path_fields(cam_path, _RAY_FIELDS, n, dev,
+                                             "camera")
+    l_ptrs, l_stride, l_depth = _path_fields(light_path, _RAY_FIELDS, n, dev,
+                                             "light")
+    depth = max(v for ts in pairs for v in ts)
+    if depth > min(c_depth, l_depth):
+        raise ValueError(f"pairs reach depth {depth}, the subpaths hold "
+                         f"{min(c_depth, l_depth)} vertices")
+    lens = [_checked(path["length"], torch.int32, (n,), dev,
+                     f"{what} length").data_ptr()
+            for what, path in (("camera", cam_path), ("light", light_path))]
+    mat_type, n_mat = _materials(scene["mat"], ("type",), dev)
+    cam = _camera(scene["camera"], ("center", "focal_point", "direction"),
+                  dev)
+    p = len(pairs)
+    origin = torch.empty((p, n, 3), device=dev)
+    direction = torch.empty((p, n, 3), device=dev)
+    active = torch.empty((p, n), dtype=torch.bool, device=dev)
+    t_max = torch.empty((p, n), device=dev)
+    if n:
+        kernels.call("clive2_connect_rays", dev, *c_ptrs, c_stride, *l_ptrs,
+                     l_stride, *lens, n, depth, mat_type, n_mat, *cam,
+                     ctypes.addressof(_host_pairs(pairs)), p, int(any_hit),
+                     origin.data_ptr(), direction.data_ptr(),
+                     active.data_ptr(), t_max.data_ptr())
+        rays_kernel.launches += 1
+    return origin, direction, active, t_max
+
+
+rays_kernel.launches = 0
+
+
+def shade_kernel(cam_path, light_path, scene, cast_tri, cast_t, cast_active,
+                 width: int, height: int, max_bounces: int = MAX_BOUNCES):
+    """``shade`` through ``clive2_connect_shade``, on the device of the
+    tensors, under the estimator ``constants.REFERENCE_MIS`` names at this
+    call.  Reads no device value on the host."""
+    cam_len = cam_path["length"]
+    dev, n = cam_len.device, cam_len.shape[0]
+    if not 1 <= max_bounces <= MAX_BOUNCES:
+        raise ValueError(f"max_bounces={max_bounces}: the kernel takes 1 to "
+                         f"{MAX_BOUNCES}")
+    c_ptrs, c_stride, c_depth = _path_fields(
+        cam_path, _SHADE_FIELDS + ("hit_light",), n, dev, "camera")
+    l_ptrs, l_stride, l_depth = _path_fields(light_path, _SHADE_FIELDS, n,
+                                             dev, "light")
+    if max_bounces > min(c_depth, l_depth):
+        raise ValueError(f"max_bounces={max_bounces}, the subpaths hold "
+                         f"{min(c_depth, l_depth)} vertices")
+    _checked(cam_len, torch.int32, (n,), dev, "camera length")
+    pn = (max_bounces ** 2, n)
+    casts = [_checked(x, dtype, pn, dev, f"cast {what}").data_ptr()
+             for x, dtype, what in ((cast_tri, torch.int32, "triangles"),
+                                    (cast_t, torch.float32, "t"),
+                                    (cast_active, torch.bool, "active"))]
+    mat = _materials(scene["mat"], ("type", "color", "emission"), dev)
+    packed = scene["tri"]["packed"]
+    if (packed.dtype != torch.float32 or packed.dim() != 2
+            or packed.shape[1] <= 14 or packed.stride(1) != 1
+            or packed.device != dev):
+        raise ValueError("scene tri packed must be f32 [T, >= 15] rows on "
+                         f"{dev}")
+    cam = _camera(scene["camera"], ("center", "focal_point", "direction",
+                                    "dx", "dy", "phys_width", "phys_height"),
+                  dev)
+    contribution = torch.empty((n, 3), device=dev)
+    weight_sum = torch.empty(n, device=dev)
+    light_image = torch.zeros((width * height, 3), device=dev)
+    light_weight = torch.zeros(width * height, device=dev)
+    if n:
+        kernels.call("clive2_connect_shade", dev, *c_ptrs, c_stride, *l_ptrs,
+                     l_stride, cam_len.data_ptr(), n, max_bounces, *casts,
+                     *mat, packed.data_ptr(), packed.stride(0),
+                     packed.shape[0], *cam, width, height,
+                     int(constants.REFERENCE_MIS), contribution.data_ptr(),
+                     weight_sum.data_ptr(), light_image.data_ptr(),
+                     light_weight.data_ptr())
+        shade_kernel.launches += 1
+    return contribution, weight_sum, light_image, light_weight
+
+
+shade_kernel.launches = 0
+
+
 def cast_connections(origin, direction, active, t_max, scene, any_hit: bool,
                      sort):
     """Stage A's cast of ``connection_rays`` as one batch (or compacted
@@ -213,42 +424,94 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
       light_weight_image [H, W]
       n_rays                     connection rays cast
 
+    On the card stage A's rays are one launch of ``clive2_connect_rays`` and
+    stage B one of ``clive2_connect_shade`` (csrc/connect.cu); on the CPU
+    their plain versions run.
+
     ``debug_per_strategy`` adds ``per_strategy``: (t, s) -> dict(weighted
     [H, W, 3], unweighted [H, W, 3], weight [H, W]) full-frame images of that
     one strategy (t=1 splats scattered by their pixel).  The wavefront must
     be whole frames: lane i is pixel i mod W*H, and the frames' images are
     summed, so that one call can carry many samples.  A diagnostic for the
-    convergence oracles, built only when asked for.
+    convergence oracles, built only when asked for: it runs the plain
+    versions of both stages on any device, the card included.
 
     ``sort`` is the cast's Morton-sort policy (``intersect_scene``); None
     reads ``CLIVE2_CONNECT_SORT``.
     """
-    reference = constants.REFERENCE_MIS
-    any_hit = not reference and any_hit_casts()
+    any_hit = not constants.REFERENCE_MIS and any_hit_casts()
     cast_sort = sort_knob("CLIVE2_CONNECT_SORT") if sort is None else sort
+    pairs = connection_pairs(max_bounces)
+
+    # ---- stage A: all (t, s) ray casts as ONE batched cast ----------------
+    rays = connection_rays_plain if debug_per_strategy else connection_rays
+    origin, direction, cast_active, t_max = rays(
+        cam_path, light_path, scene, pairs, None, None, any_hit)
+    cast_tri, cast_t = cast_connections(origin, direction, cast_active,
+                                        t_max, scene, any_hit, cast_sort)
+    del origin, direction, t_max
+
+    # ---- stage B: per-strategy MIS + contributions ------------------------
+    args = (cam_path, light_path, scene, cast_tri, cast_t, cast_active,
+            width, height, max_bounces)
+    per_strategy = {}
+    if debug_per_strategy:
+        images = shade_plain(*args, per_strategy=per_strategy)
+    else:
+        images = shade(*args)
+    contribution, contrib_weight, light_image, light_w = images
+    out = dict(
+        contribution=contribution,
+        contrib_weight_sum=contrib_weight,
+        light_image=light_image.reshape(height, width, 3),
+        light_weight_image=light_w.reshape(height, width),
+        n_rays=cast_active.sum(),
+    )
+    if debug_per_strategy:
+        out["per_strategy"] = per_strategy
+    return out
+
+
+def shade(cam_path, light_path, scene, cast_tri, cast_t, cast_active,
+          width: int, height: int, max_bounces: int = MAX_BOUNCES):
+    """Stage B: every (t, s) strategy's balance-heuristic weight and
+    contribution from the cast's answers ([P, N] in ``connection_pairs``
+    order).  Returns (contribution [N, 3] of the t != 1 strategies,
+    contrib_weight_sum [N], light_image [H*W, 3] and light_weight_image
+    [H*W] of the t = 1 splats; splats off the image are dropped).
+
+    On CUDA tensors the kernel ``clive2_connect_shade`` (``shade_kernel``);
+    on CPU tensors the plain version."""
+    if cast_tri.device.type == "cpu":
+        return shade_plain(cam_path, light_path, scene, cast_tri, cast_t,
+                           cast_active, width, height, max_bounces)
+    return shade_kernel(cam_path, light_path, scene, cast_tri, cast_t,
+                        cast_active, width, height, max_bounces)
+
+
+def shade_plain(cam_path, light_path, scene, cast_tri, cast_t, cast_active,
+                width: int, height: int, max_bounces: int = MAX_BOUNCES,
+                per_strategy=None):
+    """``shade`` as tensor ops, on any device: the per-strategy MIS chains
+    unrolled into masked elementwise ops over the wavefront, the t=1
+    splats one scatter-add per image.  ``per_strategy``, a dict, receives
+    each strategy's debug images (``connect_paths(debug_per_strategy=
+    True)``)."""
+    shade_plain.calls += 1
+    reference = constants.REFERENCE_MIS
     CV, cam_len = cam_path["vertices"], cam_path["length"]
     LV = light_path["vertices"]
     mat = scene["mat"]
     dev = cam_len.device
-
     n = cam_len.shape[0]
-    pairs = connection_pairs(max_bounces)
-
-    # ---- stage A: all (t, s) ray casts as ONE batched cast ----------------
+    debug = per_strategy is not None
     pre = precompute_mis(CV, LV, mat)
-    origin, direction, cast_active, t_max = connection_rays(
-        cam_path, light_path, scene, pairs, pre["L"]["spec"],
-        pre["C"]["spec"], any_hit)
-    cast_tri, cast_t = cast_connections(origin, direction, cast_active,
-                                        t_max, scene, any_hit, cast_sort)
-    del origin, direction, t_max
-    pair_index = {ts: i for i, ts in enumerate(pairs)}
+    pair_index = {ts: i for i, ts in
+                  enumerate(connection_pairs(max_bounces))}
 
-    # ---- stage B: per-strategy MIS + contributions (static unroll) --------
     contribution = torch.zeros((n, 3), device=dev)
     contrib_weight = torch.zeros(n, device=dev)
     splat_pix, splat_val, splat_wgt = [], [], []
-    per_strategy = {}
 
     def record(t, s, valid, w, est, pix=None):
         """One strategy's debug images; est is its UNWEIGHTED estimate
@@ -272,15 +535,14 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
                 continue
             if t == 1:
                 idx = pair_index[(t, s)]
-                pix, val, wgt, debug = _strategy_t1(
+                pix, val, wgt, dbg = _strategy_t1(
                     t, s, CV, LV, scene, width, height, cast_tri[idx],
-                    cast_t[idx], cast_active[idx], pre,
-                    debug=debug_per_strategy)
+                    cast_t[idx], cast_active[idx], pre, debug=debug)
                 splat_pix.append(pix)
                 splat_val.append(val)
                 splat_wgt.append(wgt)
-                if debug_per_strategy:
-                    record(t, s, *debug, pix=pix)
+                if debug:
+                    record(t, s, *dbg, pix=pix)
                 continue
             cv = _vstatic(CV, t - 1)
             if s == 0:
@@ -376,7 +638,7 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
             contrib = (w * g / torch.clamp(p_s, min=1e-38))[:, None] * color
             contribution += torch.where(valid[:, None], contrib, 0.0)
             contrib_weight += torch.where(valid, w, 0.0)
-            if debug_per_strategy:
+            if debug:
                 record(t, s, valid, w, torch.where(
                     valid[:, None],
                     (g / torch.clamp(p_s, min=1e-38))[:, None] * color, 0.0))
@@ -390,17 +652,10 @@ def connect_paths(cam_path, light_path, scene, width: int, height: int,
     light_image.index_add_(0, pix, torch.cat(splat_val)[keep])
     light_w = torch.zeros(width * height, device=dev)
     light_w.index_add_(0, pix, torch.cat(splat_wgt)[keep])
+    return contribution, contrib_weight, light_image, light_w
 
-    out = dict(
-        contribution=contribution,
-        contrib_weight_sum=contrib_weight,
-        light_image=light_image.reshape(height, width, 3),
-        light_weight_image=light_w.reshape(height, width),
-        n_rays=cast_active.sum(),
-    )
-    if debug_per_strategy:
-        out["per_strategy"] = per_strategy
-    return out
+
+shade_plain.calls = 0
 
 
 def _strategy_t1(t, s, CV, LV, scene, width, height, hit_i, hit_t, active,

@@ -76,6 +76,22 @@ _SIGNATURES = {
     # rows, out | a, b, c, m, n, k, trans_a
     "clive2_slab_copy": [_P] + [ctypes.c_int] * 3 + [_P, _P],
     "clive2_mma_bf16": [_P] * 3 + [ctypes.c_int] * 4 + [_P],
+    # the connection (csrc/connect.cu): each subpath's vertex fields and
+    # their depth stride, lengths, n, depth, material types and count,
+    # camera, host pairs and count, any_hit | origin, direction, active,
+    # t_max
+    "clive2_connect_rays": ([_P] * 3 + [ctypes.c_int64]) * 2 + [_P, _P]
+    + [ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int] + [_P] * 4
+    + [ctypes.c_int] * 2 + [_P] * 4 + [_P],
+    # the camera subpath's 10 fields and stride, the light subpath's 9 and
+    # stride, camera lengths, n, max_bounces, the cast's tri, t, active,
+    # material type, color, emission and count, packed rows, columns and
+    # count, 7 camera tensors, width, height, reference | contribution,
+    # weight sum, light image, light weights
+    "clive2_connect_shade": [_P] * 10 + [ctypes.c_int64] + [_P] * 9
+    + [ctypes.c_int64, _P, ctypes.c_int64, ctypes.c_int] + [_P] * 6
+    + [ctypes.c_int, _P, ctypes.c_int, ctypes.c_int64] + [_P] * 7
+    + [ctypes.c_int] * 3 + [_P] * 4 + [_P],
 }
 
 _lib = None

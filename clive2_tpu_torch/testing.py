@@ -5,9 +5,10 @@ kernels' tie rule, and the packet walk's inside a leaf:
 its early-reject pre-test; rays and a deep tree at the packet walk's
 edges (``packet_edge_rays``, ``deep_bvh2_tables``); ``launch_counters``
 and ``check_launches``,
-which tell which kernels a render ran; ``CastLog``, ``differing_slots``
-and ``reached_pixels``, which find the pixels two renders of one sample
-may differ on because some cast answered differently (near ties); and
+which tell which kernels a render ran; ``CastLog``, ``differing_slots``,
+``reached_pixels`` and ``splat_pixels``, which find the pixels two
+renders of one sample may differ on because some cast answered
+differently (near ties); and
 ``spawn_ranks``, which runs a function on the ranks of a gloo process
 group in spawned processes, under a time limit (the tile mesh's tests).
 
@@ -22,6 +23,7 @@ import time
 
 import numpy as np
 
+from .constants import MAX_BOUNCES
 
 # the queued fat-leaf traversal's own kernels (intersect_stream2.launches
 # counts its casts), and the plain versions that no render on the card runs
@@ -31,7 +33,13 @@ STREAM2_KERNELS = ("stream2_walk", "stream2_count", "stream2_plan",
 PLAIN_VERSIONS = ("brute_plain", "gather_walk", "stream2_plain",
                   "wide_plain", "stream_plain", "packet_walk_plain",
                   "link_probe_plain", "slab_copy_plain", "matmul_t_plain",
-                  "matmul_plain")
+                  "matmul_plain", "connect_rays_plain",
+                  "connect_shade_plain")
+# the connection's kernels, which every render on the card launches (once
+# each a connect_paths) whatever its cast kernel, and their plain
+# versions, which only connect_paths(debug_per_strategy=True) runs there
+CONNECT_KERNELS = ("connect_rays", "connect_shade")
+CONNECT_PLAIN = ("connect_rays_plain", "connect_shade_plain")
 
 
 def launch_counters():
@@ -39,6 +47,7 @@ def launch_counters():
     kernels a render ran: the ``launches`` of each cast's kernel wrapper
     and of the queued fat-leaf traversal's kernels (STREAM2_KERNELS), and
     the ``calls`` of each plain version (PLAIN_VERSIONS)."""
+    from .integrator import connect
     from .ops import (brute, intersect, link_probe, mosaic_probes as mp,
                       packet_walk, traverse_bvh2, traverse_stream,
                       traverse_stream2 as s2, traverse_wide)
@@ -57,7 +66,8 @@ def launch_counters():
                    packet_walk=packet_walk.packet_walk,
                    link_probe=link_probe.scale_shift,
                    slab_copy=mp.slab_copy, matmul_t=mp.matmul_t,
-                   matmul=mp.matmul)
+                   matmul=mp.matmul, connect_rays=connect.rays_kernel,
+                   connect_shade=connect.shade_kernel)
     plain = dict(brute_plain=brute.brute_plain,
                  gather_walk=intersect.intersect_bvh_packed,
                  stream2_plain=s2.stream2_plain,
@@ -67,7 +77,9 @@ def launch_counters():
                  link_probe_plain=link_probe.scale_shift_plain,
                  slab_copy_plain=mp.slab_copy_plain,
                  matmul_t_plain=mp.matmul_t_plain,
-                 matmul_plain=mp.matmul_plain)
+                 matmul_plain=mp.matmul_plain,
+                 connect_rays_plain=connect.connection_rays_plain,
+                 connect_shade_plain=connect.shade_plain)
     return {**{k: (fn, "launches") for k, fn in kernels.items()},
             **{k: (fn, "calls") for k, fn in plain.items()}}
 
@@ -76,14 +88,15 @@ def check_launches(label, kernel, ran, compared=()):
     """Raise unless every kernel named in ``kernel`` ran (``ran``: counts by
     the names of ``launch_counters``), no plain version ran but those named
     in ``compared`` (a tool that holds its kernels to them), and no other
-    kernel ran (with ``stream2``, the queued kernels may)."""
+    kernel ran (with ``stream2``, the queued kernels may; the connection's
+    kernels always may)."""
     idle = [k for k in kernel if ran[k] <= 0]
     if idle:
         raise AssertionError(f"{label}: the {idle} kernels never ran")
     if any(ran[k] for k in PLAIN_VERSIONS if k not in compared):
         raise AssertionError(f"{label}: a plain version ran: {ran}")
-    allowed = set(kernel) | (set(STREAM2_KERNELS) if "stream2" in kernel
-                             else set())
+    allowed = set(kernel) | set(CONNECT_KERNELS) | (
+        set(STREAM2_KERNELS) if "stream2" in kernel else set())
     if any(v for k, v in ran.items()
            if k not in PLAIN_VERSIONS and k not in allowed):
         raise AssertionError(f"{label}: another kernel ran: {ran}")
@@ -130,6 +143,21 @@ def reached_pixels(slot, lanes, splats, width, height):
     return near
 
 
+def splat_pixels(cam_path, light_path, scene, cast_tri, cast_t, cast_active,
+                 width, height, max_bounces=MAX_BOUNCES):
+    """The pixel each lane's t=1 strategy (1, s) splats onto, W*H for a
+    dropped splat: [N] each, s = 1 .. max_bounces, from the plain
+    ``connect._strategy_t1`` on the arguments of ``connect.shade``."""
+    from .integrator import connect
+
+    CV, LV = cam_path["vertices"], light_path["vertices"]
+    pre = connect.precompute_mis(CV, LV, scene["mat"])
+    return [connect._strategy_t1(1, s, CV, LV, scene, width, height,
+                                 cast_tri[s - 1], cast_t[s - 1],
+                                 cast_active[s - 1], pre)[0]
+            for s in range(1, max_bounces + 1)]
+
+
 class CastLog:
     """Records one render's casts through the integrator, to compare two
     renders of the same sample cast for cast (two traversal routes, say):
@@ -161,7 +189,7 @@ class CastLog:
         def splat(fn):
             def wrapped(*a, **k):
                 res = fn(*a, **k)
-                self.splats.append(res[0].cpu().numpy())
+                self.splats += [x.cpu().numpy() for x in splat_pixels(*a)]
                 return res
             return wrapped
 
@@ -182,7 +210,7 @@ class CastLog:
         self._stack = contextlib.ExitStack()
         for mod, name, wrap in ((trace, "intersect_scene", cast),
                                 (connect, "intersect_scene", cast),
-                                (connect, "_strategy_t1", splat),
+                                (connect, "shade", splat),
                                 (render, "pair_lights", pairing),
                                 (render, "filter_weights", weights)):
             orig = getattr(mod, name)

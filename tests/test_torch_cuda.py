@@ -25,6 +25,14 @@ tiles and from the smallest K to the largest on normals, mixed magnitudes
 and cancelling sums, and raise off their tiles and past MAX_K:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k mosaic
+
+The connection's two kernels match their plain versions on one sample of
+Cornell and teapots at 64x48 under both estimators, both connection cast
+rules and max_bounces 6 and 3, at any lane count; each launches once a
+``connect_paths``, which then calls no plain version and reads no device
+value on the host:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k connect
 """
 
 import numpy as np
@@ -987,3 +995,239 @@ def test_mosaic_probe_kernels_raise_off_their_tiles(dev, kernel):
                  ctypes.c_int(int(kernel == "matmul_t")))
     with pytest.raises(RuntimeError, match="launch failed"):
         kernels.call(entry[0], dev, *entry[1:])
+
+
+# ---- the connection's two kernels (csrc/connect.cu) -------------------------
+
+CONNECT_W, CONNECT_H = 64, 48
+
+
+@pytest.fixture(scope="module")
+def connect_scenes(tmp_path_factory):
+    """Cornell (diffuse, brute kernel) and teapots (glass: specular
+    vertices; BVH2 kernel) at 64x48 on the card, built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from clive2_tpu_torch.testing import teapots_scene
+
+    dev = torch.device("cuda")
+    return dict(
+        cornell=ct.create_scene_from_preset("empty", CONNECT_W, CONNECT_H,
+                                            device=dev),
+        teapots=teapots_scene(tmp_path_factory.mktemp("teapots"), CONNECT_W,
+                              CONNECT_H, dev))
+
+
+def _subpaths(scene, max_bounces, seed=5):
+    """One raster sample's camera and light subpaths, as ``connect_paths``
+    receives them (views of the merged trace: each field's depth rows
+    2N lanes apart)."""
+    w = render.trace_wavefront(rng.key(seed, "cuda"), scene.data, CONNECT_W,
+                               CONNECT_H, max_bounces=max_bounces)
+    return w["cam_path"], w["light_path"]
+
+
+def _near_threshold(cam_path, light_path, data, pairs):
+    """[P, N] bool: rays whose deciding dot (t=1: the projection against
+    the camera direction, against 0; a join: either junction cosine,
+    against DELTA) lies within 1e-6 of its threshold, where the kernel's
+    dot, summed in another order, may decide otherwise."""
+    from clive2_tpu_torch.constants import DELTA
+    from clive2_tpu_torch.ops.sampling import dot, normalize
+
+    CV, LV = cam_path["vertices"], light_path["vertices"]
+    t_i = torch.tensor([t - 1 for t, _ in pairs], device=CV["origin"].device)
+    s_i = torch.tensor([s - 1 for _, s in pairs], device=CV["origin"].device)
+    lv_o, lv_n = LV["origin"][s_i], LV["normal"][s_i]
+    cv_o, cv_n = CV["origin"][t_i], CV["normal"][t_i]
+    cam = data["camera"]
+    proj = normalize(cam["focal_point"] - lv_o)
+    d = normalize(cv_o - lv_o)
+    near = lambda x, thr: (x - thr).abs() <= 1e-6
+    return torch.where((t_i == 0)[:, None],
+                       near(dot(proj, cam["direction"]), 0.0),
+                       near(dot(lv_n, d), DELTA) | near(dot(cv_n, -d), DELTA))
+
+
+@pytest.mark.parametrize("any_hit", [True, False])
+@pytest.mark.parametrize("max_bounces", [6, 3])
+@pytest.mark.parametrize("preset", ["cornell", "teapots"])
+def test_connect_rays_kernel_matches_its_plain_version(
+        dev, connect_scenes, monkeypatch, preset, max_bounces, any_hit):
+    """Stage A: ``origin`` is a copy, so equal; ``active`` equal but where
+    the deciding dot lies within 1e-6 of its threshold; ``direction`` (a
+    unit vector: absolute is relative to its length) and ``t_max`` within
+    1e-6 relative, since the kernel's 3-term dots may round in another
+    order than PyTorch's reduce (both are built with --fmad=false)."""
+    from clive2_tpu_torch.integrator import connect
+
+    # the reference estimator casts closest-hit (any_hit False); its
+    # subpaths store their vertices by its own rule
+    monkeypatch.setattr(constants, "REFERENCE_MIS", not any_hit)
+    scene = connect_scenes[preset]
+    cam_path, light_path = _subpaths(scene, max_bounces)
+    pairs = connect.connection_pairs(max_bounces)
+    got = connect.rays_kernel(cam_path, light_path, scene.data, pairs,
+                              any_hit)
+    want = connect.connection_rays_plain(cam_path, light_path, scene.data,
+                                         pairs, None, None, any_hit)
+    assert torch.equal(got[0], want[0])
+    near = _near_threshold(cam_path, light_path, scene.data, pairs)
+    assert torch.equal(got[2] | near, want[2] | near)
+    assert want[2].any() and (~want[2]).any()
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("any_hit_env", ["1", "0"])
+@pytest.mark.parametrize("reference", [False, True])
+@pytest.mark.parametrize("max_bounces", [6, 3])
+@pytest.mark.parametrize("preset", ["cornell", "teapots"])
+def test_connect_shade_kernel_matches_its_plain_version(
+        dev, connect_scenes, monkeypatch, preset, max_bounces, reference,
+        any_hit_env):
+    """Stage B on one cast: ``contribution`` and ``contrib_weight_sum``
+    within 1e-5 relative (the same arithmetic in the same order, but for
+    dots that may sum in another order); the light images within 1e-4
+    relative plus 1e-6 absolute, because the order of the atomics, like
+    that of ``index_add_``, varies from run to run."""
+    from clive2_tpu_torch.integrator import connect
+
+    monkeypatch.setattr(constants, "REFERENCE_MIS", reference)
+    monkeypatch.setenv("CLIVE2_ANY_HIT", any_hit_env)
+    any_hit = not reference and connect.any_hit_casts()
+    scene = connect_scenes[preset]
+    cam_path, light_path = _subpaths(scene, max_bounces)
+    pairs = connect.connection_pairs(max_bounces)
+    o, d, active, t_max = connect.connection_rays_plain(
+        cam_path, light_path, scene.data, pairs, None, None, any_hit)
+    tri, t = connect.cast_connections(o, d, active, t_max, scene.data,
+                                      any_hit, None)
+    args = (cam_path, light_path, scene.data, tri, t, active, CONNECT_W,
+            CONNECT_H, max_bounces)
+    got = connect.shade_kernel(*args)
+    want = connect.shade_plain(*args)
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    assert want[1].sum() > 0 and want[3].sum() > 0
+
+
+@pytest.mark.parametrize("reference", [False, True])
+def test_connect_paths_launches_each_kernel_once(dev, connect_scenes,
+                                                 monkeypatch, reference):
+    """Every ``connect_paths`` on the card launches each kernel once and
+    calls neither plain version, with no host read of a device value in
+    the wrappers (CUDA's sync debug mode raises on one); its ``n_rays``
+    and outputs are those of ``debug_per_strategy=True``, which runs the
+    plain versions and launches neither kernel."""
+    from clive2_tpu_torch.integrator import connect
+    from clive2_tpu_torch.testing import launch_counters
+
+    monkeypatch.setattr(constants, "REFERENCE_MIS", reference)
+    scene = connect_scenes["teapots"]
+    cam_path, light_path = _subpaths(scene, 6, seed=8)
+    names = ("connect_rays", "connect_shade", "connect_rays_plain",
+             "connect_shade_plain")
+    counters = launch_counters()
+
+    def counts():
+        return [getattr(*counters[k]) for k in names]
+
+    before = counts()
+    got = connect.connect_paths(cam_path, light_path, scene.data, CONNECT_W,
+                                CONNECT_H)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 0, 0]
+    before = counts()
+    want = connect.connect_paths(cam_path, light_path, scene.data,
+                                 CONNECT_W, CONNECT_H,
+                                 debug_per_strategy=True)
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 1, 1]
+    assert int(got["n_rays"]) == int(want["n_rays"]) > 0
+    for k in ("contribution", "contrib_weight_sum"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+    for k in ("light_image", "light_weight_image"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
+
+    any_hit = not reference
+    pairs = connect.connection_pairs(6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        o, d, active, t_max = connect.rays_kernel(
+            cam_path, light_path, scene.data, pairs, any_hit)
+        tri = torch.full(active.shape, -1, dtype=torch.int32, device=dev)
+        t = torch.full(active.shape, float("inf"), device=dev)
+        connect.shade_kernel(cam_path, light_path, scene.data, tri, t,
+                             active, CONNECT_W, CONNECT_H)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_connect_kernels_neither_spill_nor_keep_a_stack_frame(dev):
+    """ptxas's report on csrc/connect.cu: every instance keeps its chains
+    in registers (the unrolled strategies index no local array)."""
+    from clive2_tpu_torch import kernels
+
+    kernels.load()
+    report = kernels.ptxas_report("connect.cu")
+    parts = report.split("Compiling entry function")[1:]
+    assert len(parts) == 4
+    for part in parts:
+        assert "0 bytes stack frame, 0 bytes spill stores" in part, part
+
+
+def test_connect_kernels_take_any_lane_count_and_raise_past_max_bounces(
+        dev, connect_scenes):
+    """A wavefront of a few lanes (a tile's or a subset's), one lane, and
+    none, as the plain versions give them; max_bounces past MAX_BOUNCES
+    raises, and so does the C entry when called past the wrapper."""
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.integrator import connect
+
+    scene = connect_scenes["cornell"]
+    cam_path, light_path = _subpaths(scene, 6)
+    pairs = connect.connection_pairs(6)
+    cut = lambda p, n: dict(vertices={k: v[:, :n] for k, v in
+                                      p["vertices"].items()},
+                            length=p["length"][:n])
+    for n in (1, 77):
+        cam, light = cut(cam_path, n), cut(light_path, n)
+        got = connect.rays_kernel(cam, light, scene.data, pairs, True)
+        want = connect.connection_rays_plain(cam, light, scene.data, pairs,
+                                             None, None, True)
+        assert torch.equal(got[0], want[0]) and got[2].shape == (36, n)
+        tri, t = connect.cast_connections(*want, scene.data, True, None)
+        args = (cam, light, scene.data, tri, t, want[2], CONNECT_W,
+                CONNECT_H)
+        for a, b in zip(connect.shade_kernel(*args),
+                        connect.shade_plain(*args)):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    # no lanes: nothing to launch, outputs of no lanes and empty images
+    cam, light = cut(cam_path, 0), cut(light_path, 0)
+    launches = connect.rays_kernel.launches, connect.shade_kernel.launches
+    o, _, active, _ = connect.rays_kernel(cam, light, scene.data, pairs,
+                                          True)
+    assert o.shape == (36, 0, 3) and active.shape == (36, 0)
+    got = connect.shade_kernel(cam, light, scene.data,
+                               torch.zeros((36, 0), dtype=torch.int32,
+                                           device=dev),
+                               torch.zeros((36, 0), device=dev), active,
+                               CONNECT_W, CONNECT_H)
+    assert got[0].shape == (0, 3) and not got[2].any()
+    assert (connect.rays_kernel.launches,
+            connect.shade_kernel.launches) == launches
+    tri = torch.zeros((49, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="max_bounces"):
+        connect.shade_kernel(cam_path, light_path, scene.data, tri,
+                             tri.float(), tri.bool(), CONNECT_W, CONNECT_H,
+                             7)
+    out = torch.empty(16, device=dev)
+    p = out.data_ptr()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.call("clive2_connect_shade", dev, *[p] * 10, 1, *[p] * 9, 1,
+                     p, 1, 7, *[p] * 6, 8, p, 16, 1, *[p] * 7, 4, 4, 0,
+                     *[p] * 4)

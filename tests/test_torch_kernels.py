@@ -6,6 +6,9 @@ for another card than the current one; a failed launch raises with the
 entry's name and CUDA's message.  And every entry of ``_SIGNATURES`` is a
 C entry of csrc/*.cu with as many parameters, of the same kinds.  The
 real reads and launches are pinned on the card (tests/test_torch_cuda.py).
+The connection's wrappers (integrator/connect.py) pass their arguments in
+the order of their C entries and refuse what the kernels do not take; on
+the CPU ``connect_paths`` runs the plain versions.
 """
 
 import contextlib
@@ -157,3 +160,187 @@ def test_every_signature_is_a_c_entry_of_the_sources(name):
     entries = _c_entries()
     assert name in entries, f"no extern \"C\" int {name}(...) in csrc/*.cu"
     assert [KIND[t] for t in kernels._SIGNATURES[name]] == entries[name]
+
+
+# ---- the connection's wrappers (integrator/connect.py) ----------------------
+
+CONNECT_W, CONNECT_H = 8, 6
+
+
+@pytest.fixture(scope="module")
+def cpu_connect():
+    """The Cornell box at 8x6 on the CPU, one raster sample's subpaths as
+    ``connect_paths`` receives them, and its connection cast."""
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import rng
+    from clive2_tpu_torch.integrator import connect, render
+
+    scene = ct.create_scene_from_preset("empty", CONNECT_W, CONNECT_H,
+                                        device="cpu")
+    w = render.trace_wavefront(rng.key(3), scene.data, CONNECT_W, CONNECT_H)
+    pairs = connect.connection_pairs()
+    o, d, active, t_max = connect.connection_rays_plain(
+        w["cam_path"], w["light_path"], scene.data, pairs, None, None, True)
+    tri, t = connect.cast_connections(o, d, active, t_max, scene.data, True,
+                                      None)
+    return scene.data, w["cam_path"], w["light_path"], tri, t, active
+
+
+@pytest.fixture
+def fake_connect(fake, monkeypatch):
+    """``fake`` with the connection's two entries."""
+    def entry(name):
+        def fn(*args):
+            fake["calls"].append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(kernels, "_entries", {
+        n: entry(n) for n in ("clive2_connect_rays", "clive2_connect_shade")})
+    fake["streams"] += [7] * 8
+    return fake
+
+
+def _fields(path, names):
+    return [path["vertices"][k].data_ptr() for k in names]
+
+
+def test_connect_rays_wrapper_passes_its_arguments_in_order(cpu_connect,
+                                                            fake_connect):
+    """Each subpath's origin, normal and material with their depth stride
+    (2N: views of the merged trace), lengths, N, depth, the material types,
+    the camera, the pairs as a host array, any_hit, then the four outputs
+    and the stream; one launch counted."""
+    from clive2_tpu_torch.integrator import connect
+
+    data, cam, light, _, _, _ = cpu_connect
+    n = cam["length"].shape[0]
+    pairs = connect.connection_pairs(3)
+    before = connect.rays_kernel.launches
+    out = connect.rays_kernel(cam, light, data, pairs, False)
+    (name, args), = fake_connect["calls"]
+    assert name == "clive2_connect_rays"
+    fields = ("origin", "normal", "material")
+    want = (_fields(cam, fields) + [2 * n] + _fields(light, fields)
+            + [2 * n, cam["length"].data_ptr(), light["length"].data_ptr(),
+               n, 3, data["mat"]["type"].data_ptr(), 8]
+            + [data["camera"][k].data_ptr()
+               for k in ("center", "focal_point", "direction")])
+    assert list(args[:len(want)]) == want
+    host = ctypes.cast(args[len(want)], ctypes.POINTER(ctypes.c_int))
+    assert [host[i] for i in range(18)] == [v for ts in pairs for v in ts]
+    assert args[len(want) + 1:len(want) + 3] == (9, 0)
+    assert list(args[len(want) + 3:-1]) == [x.data_ptr() for x in out]
+    assert args[-1] == 7 and connect.rays_kernel.launches == before + 1
+    assert [tuple(x.shape) for x in out] == [(9, n, 3), (9, n, 3), (9, n),
+                                            (9, n)]
+    assert out[2].dtype == torch.bool
+
+
+def test_connect_shade_wrapper_passes_its_arguments_in_order(
+        cpu_connect, fake_connect, monkeypatch):
+    """The camera subpath's ten fields and stride, the light subpath's nine
+    and stride, the camera lengths, N, max_bounces, the cast, the material
+    table, the packed triangle rows, the camera's seven tensors, the image
+    size, the estimator read at the call, the four outputs (the light
+    images zeroed) and the stream."""
+    from clive2_tpu_torch import constants
+    from clive2_tpu_torch.integrator import connect
+
+    data, cam, light, tri, t, active = cpu_connect
+    monkeypatch.setattr(constants, "REFERENCE_MIS", True)
+    n = cam["length"].shape[0]
+    before = connect.shade_kernel.launches
+    out = connect.shade_kernel(cam, light, data, tri, t, active, CONNECT_W,
+                               CONNECT_H)
+    (name, args), = fake_connect["calls"]
+    assert name == "clive2_connect_shade"
+    fields = ("origin", "direction", "normal", "color", "c_importance",
+              "l_importance", "tot_importance", "material", "triangle")
+    mat, packed = data["mat"], data["tri"]["packed"]
+    want = (_fields(cam, fields + ("hit_light",)) + [2 * n]
+            + _fields(light, fields) + [2 * n, cam["length"].data_ptr(), n,
+                                        6]
+            + [x.data_ptr() for x in (tri, t, active)]
+            + [mat[k].data_ptr() for k in ("type", "color", "emission")]
+            + [8, packed.data_ptr(), 16, packed.shape[0]]
+            + [data["camera"][k].data_ptr()
+               for k in ("center", "focal_point", "direction", "dx", "dy",
+                         "phys_width", "phys_height")]
+            + [CONNECT_W, CONNECT_H, 1] + [x.data_ptr() for x in out] + [7])
+    assert list(args) == want
+    assert connect.shade_kernel.launches == before + 1
+    assert [tuple(x.shape) for x in out] == [
+        (n, 3), (n,), (CONNECT_W * CONNECT_H, 3), (CONNECT_W * CONNECT_H,)]
+    assert not out[2].any() and not out[3].any()
+
+
+def _with_field(path, name, value):
+    return dict(path, vertices=dict(path["vertices"], **{name: value}))
+
+
+REFUSALS = {
+    "wrong dtype": lambda cam: _with_field(
+        cam, "material", cam["vertices"]["material"].long()),
+    "non-contiguous field": lambda cam: _with_field(
+        cam, "normal",
+        cam["vertices"]["normal"].transpose(0, 1).contiguous()
+        .transpose(0, 1)),
+    "fields at other strides": lambda cam: _with_field(
+        cam, "origin", cam["vertices"]["origin"].contiguous()),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+@pytest.mark.parametrize("stage", ["rays", "shade"])
+def test_connect_wrappers_refuse_what_the_kernels_do_not_take(
+        cpu_connect, fake_connect, stage, case):
+    from clive2_tpu_torch.integrator import connect
+
+    data, cam, light, tri, t, active = cpu_connect
+    cam = REFUSALS[case](cam)
+    with pytest.raises(ValueError):
+        if stage == "rays":
+            connect.rays_kernel(cam, light, data, connect.connection_pairs(),
+                                True)
+        else:
+            connect.shade_kernel(cam, light, data, tri, t, active,
+                                 CONNECT_W, CONNECT_H)
+    assert fake_connect["calls"] == []
+
+
+def test_connect_wrappers_refuse_past_max_bounces(cpu_connect,
+                                                  fake_connect):
+    """max_bounces past MAX_BOUNCES (or past the subpaths' depth), pairs
+    outside [1, MAX_BOUNCES], a cast of another shape."""
+    from clive2_tpu_torch.integrator import connect
+
+    data, cam, light, tri, t, active = cpu_connect
+    with pytest.raises(ValueError, match="max_bounces"):
+        connect.shade_kernel(cam, light, data, tri, t, active, CONNECT_W,
+                             CONNECT_H, 7)
+    with pytest.raises(ValueError, match="pairs"):
+        connect.rays_kernel(cam, light, data, connect.connection_pairs(7),
+                            True)
+    with pytest.raises(ValueError, match="cast"):
+        connect.shade_kernel(cam, light, data, tri, t, active, CONNECT_W,
+                             CONNECT_H, 5)
+    assert fake_connect["calls"] == []
+
+
+def test_connect_paths_on_the_cpu_runs_the_plain_versions(cpu_connect):
+    """On CPU tensors each stage's plain version runs once a call and
+    neither kernel launches; the four counts are registered."""
+    from clive2_tpu_torch.integrator import connect
+    from clive2_tpu_torch.testing import launch_counters
+
+    data, cam, light, _, _, _ = cpu_connect
+    counters = launch_counters()
+    names = ("connect_rays", "connect_shade", "connect_rays_plain",
+             "connect_shade_plain")
+    before = [getattr(*counters[k]) for k in names]
+    for debug in (False, True):
+        connect.connect_paths(cam, light, data, CONNECT_W, CONNECT_H,
+                              debug_per_strategy=debug)
+    after = [getattr(*counters[k]) for k in names]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 2, 2]
