@@ -113,6 +113,15 @@ byte bound and its plain stage; the ``kernels`` line carries their rows.
     python3 chip_smoke.py --phase connect_kernels_vs_plain
 
 runs that phase alone.
+
+The phase ``dragon_1080p`` (after the tools) renders the benchmark's
+``dragon.1080p`` cell, the glass dragon at 1920x1080 on the BVH2 kernel,
+and profiles a stretch of it: the program's counters, the specular share
+of the stored vertices and the ``clive2.*`` spans a sample.
+
+    python3 chip_smoke.py --phase dragon_1080p
+
+runs that phase alone.
 """
 
 from __future__ import annotations
@@ -806,6 +815,109 @@ def connect_phase_alone() -> int:
             "empty", 1920, 1080, device=dev), 1920, 1080),
          ("sponza_1080p", ct.create_scene_from_preset(
              "sponza", 1920, 1080, device=dev), 1920, 1080)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+DRAGON_SEED = 2147483953
+
+
+def dragon_1080p(seed=DRAGON_SEED):
+    """Phase ``dragon_1080p``: the ``dragon.1080p`` cell's session
+    (``benchmark/modes/progressive.py``: the glass dragon preset at
+    1920x1080 after the traffic's warm-up samples), as many samples as the
+    traffic traces timed untraced, then one profiled stretch of as many:
+    the program's counters (``utils/profiling.py:count``), the specular
+    share of the stored vertices, and the ``clive2.*`` spans a sample
+    (``benchmark/spans.py:read``), with the launches of every cast kernel
+    (the BVH2 kernel only) and the device time of each of the port's own
+    kernels a sample.  Prints one JSON line."""
+    import shutil
+
+    import torch
+
+    from benchmark import manifest, spans, tracing
+    from benchmark.modes.progressive import Session
+    from clive2_tpu_torch.testing import check_launches, launch_counters
+    from clive2_tpu_torch.utils import profiling
+
+    torch.cuda.reset_peak_memory_stats()
+    c = manifest.cell(manifest.load_manifest(ROOT), "dragon.1080p", ROOT)
+    traffic = c["traffic"]
+    session = Session(c["config"], traffic, seed, "cuda")
+    r = session.renderer
+    tables = sorted(k for k in ("brute", "bvh2", "wide", "stream",
+                                "stream2") if k in session.scene.data)
+    n = int(traffic["trace_samples"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        r.run_sample()
+    torch.cuda.synchronize()
+    untraced_s = (time.perf_counter() - t0) / n
+    tracing.warm_profiler()
+    profiling.counts()
+    counters = launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    logdir = os.path.join(ROOT, "output", "chip_smoke_traces", "dragon")
+    with profiling.trace_to(logdir):
+        for _ in range(n):
+            r.run_sample()
+    counted = profiling.counts()
+    ran = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    check_launches("dragon_1080p", ("bvh2",), ran)
+    trace_file = os.path.join(logdir, profiling.TRACE_FILE)
+    got = spans.read(trace_file)
+    # the port's own kernels (every name but PyTorch's at::), by name
+    with open(trace_file) as f:
+        own = {}
+        for e in json.load(f)["traceEvents"]:
+            if e.get("cat") == "kernel" and "at::" not in e["name"]:
+                k = own.setdefault(e["name"], dict(launches=0, ms=0.0))
+                k["launches"] += 1 / n
+                k["ms"] += float(e["dur"]) / 1e3 / n
+    shutil.rmtree(logdir, ignore_errors=True)
+    per = lambda v: v / n
+    by_span = {k: dict(count=per(v["count"]), host_ms=1e3 * per(v["host_s"]),
+                       device_ms=1e3 * per(v["device_s"]),
+                       self_device_ms=1e3 * per(v["self_device_s"]),
+                       self_launches=per(v["self_launches"]),
+                       idle_ms=1e3 * per(v["idle_s"]))
+               for k, v in sorted(got["spans"].items())}
+    out = dict(
+        scene_tris=session.n_triangles, tables=tables,
+        scene_build_s=session.scene_build_s, samples=n,
+        untraced_s_per_sample=untraced_s,
+        counters={k: per(v) for k, v in counted.items()},
+        specular_share=(counted["trace.specular_vertices"]
+                        / counted["trace.vertices"]),
+        launches={k: per(v) for k, v in ran.items() if v},
+        own_kernels=own,
+        device_ms_per_sample=1e3 * per(got["device_s"]),
+        outside_ms_per_sample=1e3 * per(got["outside_s"]),
+        spans=by_span,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(phase="dragon_1080p", **out)
+    del session, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def dragon_phase_alone() -> int:
+    """``--phase dragon_1080p``: that phase alone (the mesh written when
+    missing)."""
+    import torch
+
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.scene import RESOURCE_DIR
+    from clive2_tpu_torch.testing import write_assets
+
+    kernels.load()
+    write_assets(RESOURCE_DIR)
+    dragon_1080p()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
@@ -3022,6 +3134,9 @@ def main() -> int:
     shutil.rmtree(os.path.join(ROOT, "output", "chip_smoke"),
                   ignore_errors=True)
 
+    # ---- 7c. the glass dragon cell's counters and spans ---------------------
+    dragon_1080p()
+
     # ---- 8. the same small render on the CPU and on the card --------------
     imgs = {}
     for device in ("cpu", "cuda"):
@@ -3228,9 +3343,12 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         print(json.dumps(sass_figures(sys.argv[2])), flush=True)
         sys.exit(0)
-    if sys.argv[1:] == ["--phase", "connect_kernels_vs_plain"]:
+    alone = {"connect_kernels_vs_plain": connect_phase_alone,
+             "dragon_1080p": dragon_phase_alone}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" and (
+            sys.argv[2] in alone):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(connect_phase_alone())
+        sys.exit(alone[sys.argv[2]]())
     try:
         code = main()
     except Exception as e:                 # report the phase that failed

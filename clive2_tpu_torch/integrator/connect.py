@@ -48,7 +48,7 @@ from ..ops.gather import gather_rows
 from ..ops.intersect import intersect_scene
 from ..ops.sampling import INV_2PI, INV_PI, PI, dot, normalize
 from ..utils.profiling import spanned
-from .trace import sort_knob
+from .trace import sort_knob, specular
 
 
 def any_hit_casts() -> bool:
@@ -760,12 +760,6 @@ def _strategy_t1(t, s, CV, LV, scene, width, height, hit_i, hit_t, active,
         dbg = (valid, w, est)
     return (pix_out, torch.where(valid[:, None], value, 0.0),
             torch.where(valid, w, 0.0), dbg)
-
-
-def specular(V, mat):
-    """[D, N] bool: the subpath vertices ``V`` lie on specular materials."""
-    matv = V["material"]
-    return gather_rows(mat["type"], matv.reshape(-1)).reshape(matv.shape) > 0
 
 
 def precompute_mis(CV, LV, mat):

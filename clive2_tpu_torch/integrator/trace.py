@@ -42,6 +42,7 @@ from ..ops.sampling import (
     random_hemisphere_uniform,
     sample_triangle_uniform,
 )
+from ..utils.profiling import count, span
 
 
 def sort_knob(name):
@@ -202,7 +203,12 @@ def trace_subpaths(key, rays, scene, from_camera,
     light wavefronts trace as one merged wavefront.  Ray i draws row i of
     each depth's random numbers, or row ``lanes[i]`` when ``lanes`` ([N]
     int) is given.  ``sort`` is the extension casts' Morton-sort policy
-    (``intersect_scene``); None reads ``CLIVE2_TRACE_SORT``.  Returns
+    (``intersect_scene``); None reads ``CLIVE2_TRACE_SORT``.  Each
+    bounce's shading, from the hit's gathers to the new throughput, runs
+    in the span ``trace.shade``; while a profiler records, the stored
+    vertices and those among them on a specular material are counted
+    (``trace.vertices``, ``trace.specular_vertices``;
+    ``utils/profiling.py:count``).  Returns
       vertices: dict of [D, N, ...] tensors (fields as in generate_*)
       valid:    [D, N] bool, vertex d stored
       length:   [N] i32
@@ -229,74 +235,76 @@ def trace_subpaths(key, rays, scene, from_camera,
         hit_ok = hit_i >= 0
         safe_i = torch.clamp(hit_i, min=0)
 
-        attrs = gather_rows(tri["packed"], safe_i)
-        face_n = attrs[:, 0:3]
-        n0 = attrs[:, 3:6]
-        n1 = attrs[:, 6:9]
-        n2 = attrs[:, 9:12]
-        tri_mat = attrs[:, 12].to(torch.int32)
-        is_light = attrs[:, 13].to(torch.int32)
-        is_camera = attrs[:, 14].to(torch.int32)
+        with span("trace.shade"):
+            attrs = gather_rows(tri["packed"], safe_i)
+            face_n = attrs[:, 0:3]
+            n0 = attrs[:, 3:6]
+            n1 = attrs[:, 6:9]
+            n2 = attrs[:, 9:12]
+            tri_mat = attrs[:, 12].to(torch.int32)
+            is_light = attrs[:, 13].to(torch.int32)
+            is_camera = attrs[:, 14].to(torch.int32)
 
-        alpha = gather_rows(mat["alpha"], tri_mat)
-        ior = gather_rows(mat["ior"], tri_mat)
-        mat_type = gather_rows(mat["type"], tri_mat)
-        mat_color = gather_rows(mat["color"], tri_mat)
+            alpha = gather_rows(mat["alpha"], tri_mat)
+            ior = gather_rows(mat["ior"], tri_mat)
+            mat_type = gather_rows(mat["type"], tri_mat)
+            mat_color = gather_rows(mat["color"], tri_mat)
 
-        d = cur["direction"]
-        cos_f = dot(-d, face_n)
-        front = cos_f > 0.0
-        degenerate = cos_f == 0.0
+            d = cur["direction"]
+            cos_f = dot(-d, face_n)
+            front = cos_f > 0.0
+            degenerate = cos_f == 0.0
 
-        sampled_n = bsdf.interpolate_normal(n0, n1, n2, hit_u, hit_v)
-        nrm = torch.where(front[:, None], sampled_n, -sampled_n)
-        ni = torch.where(front, 1.0, ior)
-        no = torch.where(front, ior, 1.0)
+            sampled_n = bsdf.interpolate_normal(n0, n1, n2, hit_u, hit_v)
+            nrm = torch.where(front[:, None], sampled_n, -sampled_n)
+            ni = torch.where(front, 1.0, ior)
+            no = torch.where(front, ior, 1.0)
 
-        new_origin = cur["origin"] + d * hit_t[:, None]
-        new_hit_light = torch.where(
-            (is_light != 0) & (dot(d, face_n) < 0.0), hit_i, -1)
-        new_hit_camera = torch.where(is_camera != 0, hit_i, -1)
+            new_origin = cur["origin"] + d * hit_t[:, None]
+            new_hit_light = torch.where(
+                (is_light != 0) & (dot(d, face_n) < 0.0), hit_i, -1)
+            new_hit_camera = torch.where(is_camera != 0, hit_i, -1)
 
-        wi = -d
-        ka, kb, kc = rng.split(rng.fold_in(key, depth), 3)
-        roll_a = rng.uniform(ka, (n, 2), rows=lanes)
-        roll_b = rng.uniform(kb, (n, 2), rows=lanes)
-        # an independent uniform for the Fresnel lottery (the reference
-        # reuses roll_b.x)
-        roll_c = rng.uniform(kc, (n,), rows=lanes)
+            wi = -d
+            ka, kb, kc = rng.split(rng.fold_in(key, depth), 3)
+            roll_a = rng.uniform(ka, (n, 2), rows=lanes)
+            roll_b = rng.uniform(kb, (n, 2), rows=lanes)
+            # an independent uniform for the Fresnel lottery (the
+            # reference reuses roll_b.x)
+            roll_c = rng.uniform(kc, (n,), rows=lanes)
 
-        m = ggx_sample(nrm, roll_a, alpha)
-        ok_m = (dot(wi, m) >= 0.0) & (dot(m, nrm) >= 0.0)
-        fres = bsdf.fresnel(wi, m, ni, no)
+            m = ggx_sample(nrm, roll_a, alpha)
+            ok_m = (dot(wi, m) >= 0.0) & (dot(m, nrm) >= 0.0)
+            fres = bsdf.fresnel(wi, m, ni, no)
 
-        # bounce routines return (fwd, rev) pdfs in camera convention; swap
-        # per ray for light-subpath lanes
-        diffuse = bsdf.diffuse_bounce(wi, nrm, roll_b)
-        reflect = bsdf.reflect_bounce(wi, nrm, m, ni, no, alpha)
-        transmit = bsdf.transmit_bounce(wi, nrm, m, ni, no, alpha)
-        wo, f, fwd_p, rev_p = _select_bounce(
-            mat_type, roll_c, fres, diffuse, reflect, transmit)
-        c_p = torch.where(fc, fwd_p, rev_p)
-        l_p = torch.where(fc, rev_p, fwd_p)
+            # bounce routines return (fwd, rev) pdfs in camera convention;
+            # swap per ray for light-subpath lanes
+            diffuse = bsdf.diffuse_bounce(wi, nrm, roll_b)
+            reflect = bsdf.reflect_bounce(wi, nrm, m, ni, no, alpha)
+            transmit = bsdf.transmit_bounce(wi, nrm, m, ni, no, alpha)
+            wo, f, fwd_p, rev_p = _select_bounce(
+                mat_type, roll_c, fres, diffuse, reflect, transmit)
+            c_p = torch.where(fc, fwd_p, rev_p)
+            l_p = torch.where(fc, rev_p, fwd_p)
 
-        # throughput: material color only on external reflection / egress
-        wi_fn = dot(wi, face_n)
-        wo_fn = dot(wo, face_n)
-        apply_color = (((wi_fn > 0.0) & (wo_fn > 0.0))
-                       | ((wi_fn < 0.0) & (wo_fn > 0.0)))
-        new_color = torch.where(
-            apply_color[:, None],
-            f[:, None] * cur["color"] * mat_color,
-            f[:, None] * cur["color"],
-        )
-        # the Lambertian emitter's flux toward the first light-subpath edge
-        # carries cos(n_light, dir): fold it in at the first light bounce
-        # (the reference estimator omits it)
-        if depth == 0 and not reference:
-            emit_cos = dot(cur["direction"], cur["normal"]).abs()
+            # throughput: material color only on external reflection /
+            # egress
+            wi_fn = dot(wi, face_n)
+            wo_fn = dot(wo, face_n)
+            apply_color = (((wi_fn > 0.0) & (wo_fn > 0.0))
+                           | ((wi_fn < 0.0) & (wo_fn > 0.0)))
             new_color = torch.where(
-                (~fc)[:, None], new_color * emit_cos[:, None], new_color)
+                apply_color[:, None],
+                f[:, None] * cur["color"] * mat_color,
+                f[:, None] * cur["color"],
+            )
+            # the Lambertian emitter's flux toward the first light-subpath
+            # edge carries cos(n_light, dir): fold it in at the first light
+            # bounce (the reference estimator omits it)
+            if depth == 0 and not reference:
+                emit_cos = dot(cur["direction"], cur["normal"]).abs()
+                new_color = torch.where(
+                    (~fc)[:, None], new_color * emit_cos[:, None], new_color)
 
         new_fwd = fwd_pending
         new_tot = cur["tot_importance"] * new_fwd
@@ -344,9 +352,19 @@ def trace_subpaths(key, rays, scene, from_camera,
 
     vertices = {k: torch.stack([v[k] for v in verts]) for k in verts[0]}
     valid = torch.stack(stores)
+    count("trace.vertices", lambda: valid.sum())
+    count("trace.specular_vertices",
+          lambda: (valid & specular(vertices, mat)).sum())
     length = valid.to(torch.int32).sum(0, dtype=torch.int32)
     n_rays = torch.clamp(length + 1, max=max_bounces).sum()
     return dict(vertices=vertices, valid=valid, length=length, n_rays=n_rays)
+
+
+def specular(V, mat):
+    """[D, N] bool: the subpath vertices ``V`` lie on specular materials
+    (type above 0; ``csrc/connect.cu:specular``)."""
+    matv = V["material"]
+    return gather_rows(mat["type"], matv.reshape(-1)).reshape(matv.shape) > 0
 
 
 def unidirectional_image(path, all_hits: bool = False):

@@ -3,14 +3,20 @@
   * ``span``: the program's spans, ``clive2.<name>`` ranges that a running
     ``torch.profiler`` records on its own clock, beside the device work
     launched inside them, and nothing when no profiler runs; ``spanned``
-    puts a function's body in one.  The seven names and their sites:
+    puts a function's body in one.  The eight names and their sites:
     ``sample`` (``Renderer.run_sample``, ``run_adaptive_sample``),
-    ``trace`` (``integrator/render.py:trace_wavefront``), ``connect``
-    (``integrator/connect.py:connect_paths``), ``rng``
+    ``trace`` (``integrator/render.py:trace_wavefront``), ``trace.shade``
+    (each bounce's shading in ``integrator/trace.py:trace_subpaths``),
+    ``connect`` (``integrator/connect.py:connect_paths``), ``rng``
     (``rng.threefry2x32``, behind every draw, split and fold), ``cast``
     (``ops/intersect.py:intersect_scene``), ``cast.sort`` (its Morton sort
     and gathers, and its unsort) and ``wait`` (each round read of
     ``ops/traverse_stream2.py:queued_cast``);
+  * ``count``: the program's counters, device totals added while a
+    profiler records and nothing otherwise, read with ``counts``.  The
+    names and their sites: ``trace.vertices`` (the stored subpath
+    vertices of ``trace_subpaths``) and ``trace.specular_vertices``
+    (those on a specular material, ``integrator/trace.py:specular``);
   * ``trace_to``: a ``torch.profiler`` trace of the enclosed region, written
     as a Chrome trace (open it in Perfetto or chrome://tracing), and
     ``device_busy``, the card's busy share read from such a trace;
@@ -35,6 +41,9 @@ TRACE_FILE = "trace.json"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN_PREFIX = "clive2."
 _OFF = contextlib.nullcontext()
+# the counters' device totals by name, made by the first ``count`` of a
+# name while a profiler records and emptied by ``counts``
+_COUNTS = {}
 
 
 def span(name: str):
@@ -44,6 +53,31 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return record_function(SPAN_PREFIX + name)
     return _OFF
+
+
+def count(name: str, value):
+    """Add ``value`` (a device scalar, or a function that makes one) into
+    the device total of counter ``name`` while a profiler records, with no
+    host sync; else nothing: a flag read, no launch and no tensor (a
+    function is not called)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    value = value() if callable(value) else value
+    total = _COUNTS.get(name)
+    if total is None:
+        _COUNTS[name] = value.to(torch.int64, copy=True)
+    else:
+        total.add_(value)
+
+
+def counts() -> dict:
+    """The counters' totals since the last call, {name: int}, read with
+    one sync, and cleared."""
+    names = sorted(_COUNTS)
+    if not names:
+        return {}
+    totals = torch.stack([_COUNTS.pop(k) for k in names])
+    return dict(zip(names, totals.tolist()))
 
 
 def spanned(name: str):

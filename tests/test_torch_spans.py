@@ -6,8 +6,10 @@
 * The tree of a sample under ``trace_to``: one ``clive2.sample`` holding
   one ``clive2.trace`` and one ``clive2.connect``, every ``clive2.cast``
   inside one of the two and one a call of ``intersect_scene``, every
-  ``clive2.rng`` inside the sample; on a scene with a streaming table in
-  Morton order, two ``clive2.cast.sort`` ranges inside each sorted cast.
+  ``clive2.trace.shade`` inside the trace, every ``clive2.rng`` inside the
+  sample; on a scene with a streaming table in Morton order, two
+  ``clive2.cast.sort`` ranges inside each sorted cast.
+* ``clive2.trace.shade`` once a bounce, between its cast and the next.
 * ``queued_cast`` waits once a round read: its ``clive2.wait`` ranges
   number its rounds plus its chunks.
 """
@@ -20,6 +22,7 @@ import torch
 
 import clive2_tpu_torch as ct
 from clive2_tpu_torch import scene as port_scene
+from clive2_tpu_torch.constants import MAX_BOUNCES
 from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.integrator import connect, trace
 from clive2_tpu_torch.models.primitives import icosphere
@@ -171,9 +174,30 @@ def test_the_span_tree_of_a_sample(tmp_path, monkeypatch, method):
     draws = _of(got, "rng")
     assert draws and all(_inside(d, sample) for d in draws)
     assert any(_inside(d, stage) for d in draws)
+    shades = _of(got, "trace.shade")
+    assert shades and all(_inside(s, stage) for s in shades)
     # the brute casts do not sort, and nothing here queues
-    assert {g[0] for g in got} == {"sample", "trace", "connect", "cast",
-                                   "rng"}
+    assert {g[0] for g in got} == {"sample", "trace", "trace.shade",
+                                   "connect", "cast", "rng"}
+
+
+def test_a_shade_span_a_bounce(tmp_path):
+    """``clive2.trace.shade`` once a bounce, ``MAX_BOUNCES`` times a sample,
+    inside ``clive2.trace``, each after its bounce's cast and before the
+    next."""
+    r = ct.Renderer(_cornell(), seed=4)
+    with profiling.trace_to(str(tmp_path)):
+        r.run_sample()
+    got = _ranges(tmp_path)
+    stage, = _of(got, "trace")
+    shades = _of(got, "trace.shade")
+    casts = [c for c in _of(got, "cast") if _inside(c, stage)]
+    assert len(shades) == len(casts) == MAX_BOUNCES
+    assert all(_inside(s, stage) for s in shades)
+    for k, (cast, shade) in enumerate(zip(casts, shades)):
+        assert cast[2] <= shade[1] + EPS
+        if k + 1 < len(casts):
+            assert shade[2] <= casts[k + 1][1] + EPS
 
 
 def test_sorted_casts_hold_their_sort_spans(tmp_path, monkeypatch, ico):
