@@ -114,6 +114,17 @@ byte bound and its plain stage; the ``kernels`` line carries their rows.
 
 runs that phase alone.
 
+The phase ``rng_kernels_vs_plain`` (after the connection's) replays the
+RNG calls of one sample of Cornell and sponza at 1920x1080 (22 draws, 15
+key derivations) through the RNG's kernels (csrc/rng.cu) and their plain
+versions: bit equality, CUDA-event times beside the bound (integer
+operations), plain times and ptxas's figures; the ``kernels`` line
+carries their rows.
+
+    python3 chip_smoke.py --phase rng_kernels_vs_plain
+
+runs that phase alone.
+
 The phase ``dragon_1080p`` (after the tools) renders the benchmark's
 ``dragon.1080p`` cell, the glass dragon at 1920x1080 on the BVH2 kernel,
 and profiles a stretch of it: the program's counters, the specular share
@@ -918,6 +929,152 @@ def dragon_phase_alone() -> int:
     kernels.load()
     write_assets(RESOURCE_DIR)
     dragon_1080p()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+# the RNG's bound (csrc/rng.cu): integer operations a threefry2x32 value
+# (20 add/rotate/xor rounds, 5 key injections, the float conversion) over
+# the H100's INT32 rate (132 SMs x 64 lanes x 1.98 GHz), against 4 bytes
+# a value written over HBM_BYTES_S
+RNG_OPS = 80
+INT32_OPS_S = 132 * 64 * 1.98e9
+
+
+def rng_tag(name):
+    """An RNG kernel instance (csrc/rng.cu): ``keys``, or a draw by its
+    rows (none, inner 1, 2, any) and output (bits, uniform)."""
+    if "keys_kernel" in name:
+        return "keys"
+    m = re.search(r"draw_kernelILin?(\d)ELb([01])E", name)
+    if m is None:
+        return None
+    rows = {"0": "no_rows", "1": "rows_inner_1", "2": "rows_inner_2"}
+    inner = "rows_any" if "ILin1E" in name else rows[m.group(1)]
+    return f"draw {inner} {'bits' if m.group(2) == '1' else 'uniform'}"
+
+
+def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
+    """Phase ``rng_kernels_vs_plain``: the RNG calls of one sample of each
+    of ``scenes`` ((name, scene)), recorded as the renderer makes them (22
+    draws, 15 key derivations), each replayed through its kernel and its
+    plain version on the same key: bit equality (and of ``random_bits``
+    for each draw); each kernel call's CUDA-event time (median of 5) beside
+    its bound, the plain version's (one call) and the 37 calls back to
+    back (median of 5); ptxas's registers and spills.  Returns the figures
+    by scene."""
+    import torch
+
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import kernels, rng
+
+    def ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+    kernel_of = {k: getattr(rng, k) for k in ("fold_in", "split", "uniform")}
+    plain_of = dict(fold_in=rng.fold_in_plain, split=rng.split_plain,
+                    uniform=rng.uniform_plain)
+    resources = ptxas_figures(kernels.ptxas_report("rng.cu"), rng_tag)
+    out = {}
+    for name, scene in scenes:
+        calls = []
+
+        def recorder(fn_name):
+            def inner(k, *args, **kw):
+                calls.append((fn_name, k.clone(), args, {
+                    a: v.clone() if isinstance(v, torch.Tensor) else v
+                    for a, v in kw.items()}))
+                return kernel_of[fn_name](k, *args, **kw)
+            return inner
+
+        r = ct.Renderer(scene, seed=seed, device=scene.device)
+        for k in kernel_of:
+            setattr(rng, k, recorder(k))
+        try:
+            r.run_sample()
+        finally:
+            for k, fn in kernel_of.items():
+                setattr(rng, k, fn)
+        torch.cuda.synchronize()
+        del r
+        rows, values, unequal = [], 0, []
+        for i, (fn_name, k, args, kw) in enumerate(calls):
+            got = kernel_of[fn_name](k, *args, **kw)
+            want = plain_of[fn_name](k, *args, **kw)
+            if fn_name == "uniform":
+                same = torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                same &= torch.equal(rng.random_bits(k, *args, **kw),
+                                    rng.random_bits_plain(k, *args, **kw))
+            else:
+                same = torch.equal(got, want)
+            if not same:
+                unequal.append(i)
+            n = got.numel()
+            values += n if fn_name == "uniform" else 0
+            kernel_ms = ms(lambda: kernel_of[fn_name](k, *args, **kw), 5)
+            bound_ms = max(n * RNG_OPS / INT32_OPS_S,
+                           got.element_size() * n / HBM_BYTES_S) * 1e3
+            rows.append(dict(call=fn_name, shape=list(got.shape),
+                             ms=kernel_ms, bound_ms=bound_ms,
+                             plain_ms=ms(lambda: plain_of[fn_name](
+                                 k, *args, **kw), 1)))
+            del got, want
+        replay = lambda: [kernel_of[f](k, *a, **kw)
+                          for f, k, a, kw in calls]
+        draws = [x for x in rows if x["call"] == "uniform"]
+        bound_ms = max(values * RNG_OPS / INT32_OPS_S,
+                       4 * values / HBM_BYTES_S) * 1e3
+        figures = dict(
+            calls=len(calls), draws=len(draws), values=values,
+            bit_equal=not unequal, unequal_calls=unequal,
+            sample_ms=ms(replay, 5), bound_ms=bound_ms,
+            bound_by="int32 operations",
+            draw_ms=sum(x["ms"] for x in draws),
+            keys_ms=sum(x["ms"] for x in rows if x["call"] != "uniform"),
+            plain_ms=sum(x["plain_ms"] for x in rows), per_call=rows)
+        figures["bound_share"] = bound_ms / figures["sample_ms"]
+        out[name] = figures
+        del calls
+        torch.cuda.empty_cache()
+        if unequal or len(draws) != 22 or len(rows) != 37:
+            figures.pop("per_call")
+            raise AssertionError(f"rng_kernels_vs_plain {name}: {figures}")
+    if any(v["spill_store_bytes"] for v in resources.values()):
+        raise AssertionError(f"rng_kernels_vs_plain: a spill: {resources}")
+    emit(phase="rng_kernels_vs_plain", resources=resources, **out)
+    return dict(resources=resources, **out)
+
+
+def rng_phase_alone() -> int:
+    """``--phase rng_kernels_vs_plain``: that phase alone, on Cornell and
+    sponza at 1920x1080 (the mesh written when missing)."""
+    import torch
+
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.scene import RESOURCE_DIR
+    from clive2_tpu_torch.testing import write_assets
+
+    dev = torch.device("cuda")
+    kernels.load()
+    write_assets(RESOURCE_DIR)
+    rng_kernels_vs_plain(
+        (("cornell_1080p", ct.create_scene_from_preset(
+            "empty", 1920, 1080, device=dev)),
+         ("sponza_1080p", ct.create_scene_from_preset(
+             "sponza", 1920, 1080, device=dev))))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
@@ -1827,6 +1984,9 @@ def main() -> int:
     connect_figures = connect_kernels_vs_plain(
         (("cornell_1080p", cornell, 1920, 1080),
          ("sponza_1080p", sponza, 1920, 1080)))
+    # ---- 5c. the RNG's kernels against their plain versions ---------------
+    rng_figures = rng_kernels_vs_plain((("cornell_1080p", cornell),
+                                        ("sponza_1080p", sponza)))
 
     # ---- 6./7. the main path at full size ----------------------------------
     # the queued fat-leaf traversal's kernels, counted apart from its casts
@@ -3331,6 +3491,22 @@ def main() -> int:
             launches=launches[f"connect_{name}"],
             **connect_figures["sponza_1080p"][name],
             cast="sponza 1920x1080, one sample's 2,073,600 lanes"))
+    # the RNG's kernels: sponza 1080p's sample (phase rng_kernels_vs_plain);
+    # they replace no TPU kernel
+    sponza_rng = rng_figures["sponza_1080p"]
+    for name, call, ms_key in (("rng_uniform", "uniform", "draw_ms"),
+                               ("rng_keys", None, "keys_ms")):
+        per = [x for x in sponza_rng["per_call"]
+               if (x["call"] == call) == (call is not None)]
+        rows.append(dict(
+            name=name, route="cuda", source="clive2_tpu_torch/csrc/rng.cu",
+            replaces="none: jax.random's threefry is XLA-fused",
+            launches=launches[name], bit_equal=sponza_rng["bit_equal"],
+            ms=sponza_rng[ms_key],
+            bound_ms=sum(x["bound_ms"] for x in per),
+            bound_by="int32 operations",
+            plain_ms=sum(x["plain_ms"] for x in per),
+            cast=f"sponza 1920x1080, one sample's {len(per)} calls"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3344,7 +3520,8 @@ if __name__ == "__main__":
         print(json.dumps(sass_figures(sys.argv[2])), flush=True)
         sys.exit(0)
     alone = {"connect_kernels_vs_plain": connect_phase_alone,
-             "dragon_1080p": dragon_phase_alone}
+             "dragon_1080p": dragon_phase_alone,
+             "rng_kernels_vs_plain": rng_phase_alone}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and (
             sys.argv[2] in alone):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

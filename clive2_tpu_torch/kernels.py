@@ -92,6 +92,11 @@ _SIGNATURES = {
     + [ctypes.c_int64, _P, ctypes.c_int64, ctypes.c_int] + [_P] * 6
     + [ctypes.c_int, _P, ctypes.c_int, ctypes.c_int64] + [_P] * 7
     + [ctypes.c_int] * 3 + [_P] * 4 + [_P],
+    # the threefry RNG (csrc/rng.cu): key, rows, row count, inner size,
+    # bits | out; key, first counter, count | out
+    "clive2_rng_uniform": [_P, _P, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_int, _P, _P],
+    "clive2_rng_keys": [_P, ctypes.c_int64, ctypes.c_int, _P, _P],
 }
 
 _lib = None

@@ -8,7 +8,8 @@
     ``trace`` (``integrator/render.py:trace_wavefront``), ``trace.shade``
     (each bounce's shading in ``integrator/trace.py:trace_subpaths``),
     ``connect`` (``integrator/connect.py:connect_paths``), ``rng``
-    (``rng.threefry2x32``, behind every draw, split and fold), ``cast``
+    (every draw, split and fold: on the card ``rng.uniform_kernel`` and
+    ``rng.keys_kernel``, on the CPU ``rng.threefry2x32``), ``cast``
     (``ops/intersect.py:intersect_scene``), ``cast.sort`` (its Morton sort
     and gathers, and its unsort) and ``wait`` (each round read of
     ``ops/traverse_stream2.py:queued_cast``);

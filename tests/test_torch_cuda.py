@@ -33,6 +33,16 @@ rules and max_bounces 6 and 3, at any lane count; each launches once a
 value on the host:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k connect
+
+The RNG's two kernels (csrc/rng.cu) give the plain versions' bits
+exactly: every draw (``uniform``, ``random_bits``) of either shape at any
+length, on its own rows or on a permutation, a tile's slice or rows whose
+counters pass 2^32, under keys from ``key``, ``fold_in``, ``split`` and
+``wrap_key_data``, and every ``fold_in`` and ``split``; a sample on the
+card launches one kernel a hash, 37 in all, and reads no device value on
+the host in the RNG:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k rng
 """
 
 import numpy as np
@@ -1231,3 +1241,126 @@ def test_connect_kernels_take_any_lane_count_and_raise_past_max_bounces(
         kernels.call("clive2_connect_shade", dev, *[p] * 10, 1, *[p] * 9, 1,
                      p, 1, 7, *[p] * 6, 8, p, 16, 1, *[p] * 7, 4, 4, 0,
                      *[p] * 4)
+
+
+# ---- the RNG's two kernels (csrc/rng.cu) -------------------------------------
+
+RNG_LENGTHS = [0, 1, 77, 4_147_200]
+
+
+def _rng_keys(dev):
+    """Keys of each kind on the card: ``key``, ``fold_in``, ``split`` (a
+    row of the [3, 2] keys, a view at an offset) and ``wrap_key_data``."""
+    k = rng.key(2**32 - 1, dev)
+    return dict(key=rng.key(1234, dev), fold_in=rng.fold_in(k, 2**31 + 5),
+                split=rng.split(k, 3)[2],
+                wrap_key_data=rng.wrap_key_data([0xDEADBEEF, 7], dev))
+
+
+def _rng_rows(kind, n, dev):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    return dict(
+        none=None,
+        permutation=torch.randperm(n, generator=gen, device=dev),
+        tile=torch.arange(3 * n + 11, 4 * n + 11, device=dev),
+        past_2_32=torch.arange(n, device=dev) + (2**32 - n // 2))[kind]
+
+
+@pytest.mark.parametrize("rows", ["none", "permutation", "tile",
+                                  "past_2_32"])
+@pytest.mark.parametrize("n", RNG_LENGTHS)
+@pytest.mark.parametrize("inner", [(), (2,)])
+def test_rng_draws_equal_their_plain_versions_bit_for_bit(dev, inner, n,
+                                                          rows):
+    """``uniform`` and ``random_bits`` on a key on the card (the kernel)
+    against ``uniform_plain`` and ``random_bits_plain`` on the same key:
+    equal as int32 words, not within a tolerance.  Rows past 2^32 make the
+    counter's high word non-zero."""
+    shape = (n,) + inner
+    r = _rng_rows(rows, n, dev)
+    for name, k in _rng_keys(dev).items():
+        before = rng.uniform_kernel.launches
+        got = rng.uniform(k, shape, rows=r)
+        bits = rng.random_bits(k, shape, rows=r)
+        assert rng.uniform_kernel.launches == before + 2 * (n > 0)
+        want = rng.uniform_plain(k, shape, rows=r)
+        want_bits = rng.random_bits_plain(k, shape, rows=r)
+        assert got.dtype == torch.float32 and bits.dtype == torch.int64
+        assert got.shape == want.shape == bits.shape, name
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+        assert torch.equal(bits, want_bits), name
+        assert n == 0 or (got.min() >= 0 and got.max() < 1)
+
+
+def test_rng_keys_equal_their_plain_versions(dev):
+    """``fold_in`` (data of 0 to 2^32 - 1, and negative data taken to 32
+    bits) and ``split`` (1 to 1,000 keys) on the card against their plain
+    versions, on every kind of key."""
+    for name, k in _rng_keys(dev).items():
+        for data in (0, 1, 5, 77, 2**31, 2**32 - 1, -1, 2**40 + 3):
+            got = rng.fold_in(k, data)
+            assert got.shape == (2,) and got.device == k.device
+            assert torch.equal(got, rng.fold_in_plain(k, data)), (name, data)
+        for num in (1, 2, 3, 7, 1000):
+            got = rng.split(k, num)
+            assert torch.equal(got, rng.split_plain(k, num)), (name, num)
+    assert rng.split(rng.key(3, dev), 0).shape == (0, 2)
+
+
+@pytest.mark.parametrize("preset", ["cornell", "teapots"])
+def test_a_sample_launches_one_rng_kernel_a_hash(dev, connect_scenes,
+                                                 monkeypatch, preset):
+    """One ``Renderer.run_sample`` at 64x48 launches 37 RNG kernels (22
+    draws, 15 key derivations) and calls no plain version of the RNG; each
+    of the RNG's calls runs under CUDA's sync debug mode, which raises on a
+    host read of a device value.  The sample equals the same sample drawn
+    through the plain versions."""
+    from clive2_tpu_torch.testing import launch_counters
+
+    def no_sync(fn):
+        def inner(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return inner
+
+    scene = connect_scenes[preset]
+    counters = launch_counters()
+    names = ("rng_uniform", "rng_keys", "rng_uniform_plain",
+             "rng_fold_in_plain", "rng_split_plain")
+    with monkeypatch.context() as m:
+        for fn in ("fold_in", "split", "uniform", "random_bits"):
+            m.setattr(rng, fn, no_sync(getattr(rng, fn)))
+        r = ct.Renderer(scene, seed=2**31 + 9, device=dev)
+        before = [getattr(*counters[k]) for k in names]
+        r.run_sample()
+        torch.cuda.synchronize()
+        after = [getattr(*counters[k]) for k in names]
+    assert [a - b for a, b in zip(after, before)] == [22, 15, 0, 0, 0]
+    with monkeypatch.context() as m:
+        m.setattr(rng, "fold_in", rng.fold_in_plain)
+        m.setattr(rng, "split", rng.split_plain)
+        m.setattr(rng, "uniform", rng.uniform_plain)
+        plain = ct.Renderer(scene, seed=2**31 + 9, device=dev)
+        plain.run_sample()
+    # the light image's atomics add in an order that varies from run to run
+    for k in ("summed_image", "summed_weight", "summed_unidirectional"):
+        torch.testing.assert_close(r.state[k], plain.state[k], rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_rng_kernels_neither_spill_nor_keep_a_stack_frame(dev):
+    """ptxas's report on csrc/rng.cu: the eight draw instances (no rows,
+    inner 1, 2 and any; bits or uniform) and the key kernel keep every
+    word in registers."""
+    from clive2_tpu_torch import kernels
+
+    kernels.load()
+    report = kernels.ptxas_report("rng.cu")
+    parts = report.split("Compiling entry function")[1:]
+    assert len(parts) == 9
+    for part in parts:
+        assert "0 bytes stack frame, 0 bytes spill stores" in part, part

@@ -8,7 +8,9 @@ C entry of csrc/*.cu with as many parameters, of the same kinds.  The
 real reads and launches are pinned on the card (tests/test_torch_cuda.py).
 The connection's wrappers (integrator/connect.py) pass their arguments in
 the order of their C entries and refuse what the kernels do not take; on
-the CPU ``connect_paths`` runs the plain versions.
+the CPU ``connect_paths`` runs the plain versions.  So do the RNG's
+(rng.py: ``uniform_kernel``, ``keys_kernel``): a key off the CPU takes
+them, a key on the CPU the plain versions.
 """
 
 import contextlib
@@ -344,3 +346,155 @@ def test_connect_paths_on_the_cpu_runs_the_plain_versions(cpu_connect):
                               debug_per_strategy=debug)
     after = [getattr(*counters[k]) for k in names]
     assert [a - b for a, b in zip(after, before)] == [0, 0, 2, 2]
+
+
+# ---- the RNG's wrappers (rng.py, csrc/rng.cu) --------------------------------
+
+@pytest.fixture
+def fake_rng(fake, monkeypatch):
+    """``fake`` with the RNG's two entries."""
+    def entry(name):
+        def fn(*args):
+            fake["calls"].append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(kernels, "_entries", {
+        n: entry(n) for n in ("clive2_rng_uniform", "clive2_rng_keys")})
+    fake["streams"] += [7] * 8
+    return fake
+
+
+@pytest.mark.parametrize("bits", [False, True])
+def test_rng_uniform_wrapper_passes_its_arguments_in_order(fake_rng, bits):
+    """The key, the rows (a null pointer without them), the row count, the
+    inner size, the bits flag, the output and the stream; the output's
+    shape and dtype those of ``uniform`` (float32) or ``random_bits``
+    (int64); one launch counted a draw."""
+    from clive2_tpu_torch import rng
+
+    k = rng.key(11)
+    rows = torch.tensor([5, 0, 9], dtype=torch.int64)
+    before = rng.uniform_kernel.launches
+    a = rng.uniform_kernel(k, (10, 2), bits=bits)
+    b = rng.uniform_kernel(k, (10, 4, 3), rows, bits=bits)
+    c = rng.uniform_kernel(k, (), bits=bits)
+    dtype = torch.int64 if bits else torch.float32
+    assert [(tuple(x.shape), x.dtype) for x in (a, b, c)] == [
+        ((10, 2), dtype), ((3, 4, 3), dtype), ((), dtype)]
+    assert fake_rng["calls"] == [
+        ("clive2_rng_uniform", (k.data_ptr(), None, 10, 2, int(bits),
+                                a.data_ptr(), 7)),
+        ("clive2_rng_uniform", (k.data_ptr(), rows.data_ptr(), 3, 12,
+                                int(bits), b.data_ptr(), 7)),
+        ("clive2_rng_uniform", (k.data_ptr(), None, 1, 1, int(bits),
+                                c.data_ptr(), 7))]
+    assert rng.uniform_kernel.launches == before + 3
+
+
+def test_rng_keys_wrapper_passes_its_arguments_in_order(fake_rng):
+    """The key, the first counter, the count, the output and the stream:
+    ``fold_in``'s (data, 1) and ``split``'s (0, num); one launch counted a
+    call, none for no keys."""
+    from clive2_tpu_torch import rng
+
+    k = rng.split(rng.key(4), 3)[1]
+    before = rng.keys_kernel.launches
+    one = rng.keys_kernel(k, 2**32 - 1, 1)
+    three = rng.keys_kernel(k, 0, 3)
+    none = rng.keys_kernel(k, 0, 0)
+    assert [tuple(x.shape) for x in (one, three, none)] == [(1, 2), (3, 2),
+                                                            (0, 2)]
+    assert {x.dtype for x in (one, three, none)} == {torch.int64}
+    assert fake_rng["calls"] == [
+        ("clive2_rng_keys", (k.data_ptr(), 2**32 - 1, 1, one.data_ptr(), 7)),
+        ("clive2_rng_keys", (k.data_ptr(), 0, 3, three.data_ptr(), 7))]
+    assert rng.keys_kernel.launches == before + 2
+
+
+def test_rng_keys_off_the_cpu_take_the_kernels(fake_rng):
+    """``fold_in``, ``split``, ``uniform`` and ``random_bits`` on a key
+    that is not on the CPU (here on PyTorch's meta device) launch one
+    kernel each and call no plain version; rows of another integer type
+    are made int64 on the key's device first, as the plain version makes
+    them; ``fold_in`` takes its data to 32 bits."""
+    from clive2_tpu_torch import rng
+    from clive2_tpu_torch.testing import launch_counters
+
+    counters = launch_counters()
+    names = ("rng_uniform", "rng_keys", "rng_uniform_plain",
+             "rng_fold_in_plain", "rng_split_plain")
+    before = [getattr(*counters[n]) for n in names]
+    k = torch.empty(2, dtype=torch.int64, device="meta")
+    assert rng.fold_in(k, -1).shape == (2,)
+    assert rng.split(k, 3).shape == (3, 2)
+    lanes = torch.tensor([3, 1], dtype=torch.int32)
+    u = rng.uniform(k, (6, 2), rows=lanes)
+    bits = rng.random_bits(k, (6,))
+    assert (u.shape, u.dtype, u.device.type) == ((2, 2), torch.float32,
+                                                 "meta")
+    assert (bits.shape, bits.dtype) == ((6,), torch.int64)
+    assert [c[0] for c in fake_rng["calls"]] == [
+        "clive2_rng_keys", "clive2_rng_keys", "clive2_rng_uniform",
+        "clive2_rng_uniform"]
+    assert fake_rng["calls"][0][1][1:3] == (2**32 - 1, 1)
+    assert fake_rng["calls"][2][1][2:5] == (2, 2, 0)
+    after = [getattr(*counters[n]) for n in names]
+    assert [x - y for x, y in zip(after, before)] == [2, 2, 0, 0, 0]
+
+
+RNG_REFUSALS = {
+    "rows of int32": lambda k: rng_draw(k, torch.arange(3, dtype=torch.int32)),
+    "non-contiguous rows": lambda k: rng_draw(
+        k, torch.arange(6, dtype=torch.int64)[::2]),
+    "rows of two dimensions": lambda k: rng_draw(
+        k, torch.zeros((3, 1), dtype=torch.int64)),
+    "rows on another device": lambda k: rng_draw(
+        k.to("meta"), torch.arange(3, dtype=torch.int64)),
+    "a key of int32": lambda k: rng_draw(k.to(torch.int32)),
+    "a key of three words": lambda k: rng_draw(torch.cat([k, k[:1]])),
+    "a non-contiguous key": lambda k: rng_draw(torch.stack([k, k], 1)[:, 0]),
+    "a negative size": lambda k: _rng().uniform_kernel(k, (4, -2)),
+    "keys past 2^31": lambda k: _rng().keys_kernel(k, 0, 2**31),
+    "a counter past 32 bits": lambda k: _rng().keys_kernel(k, 2**32, 1),
+    "a key of int32 to derive from": lambda k: _rng().keys_kernel(
+        k.to(torch.int32), 0, 2),
+}
+
+
+def _rng():
+    from clive2_tpu_torch import rng
+    return rng
+
+
+def rng_draw(k, rows=None):
+    return _rng().uniform_kernel(k, (4, 2), rows)
+
+
+@pytest.mark.parametrize("case", list(RNG_REFUSALS))
+def test_rng_wrappers_refuse_what_the_kernels_do_not_take(fake_rng, case):
+    from clive2_tpu_torch import rng
+
+    with pytest.raises(ValueError):
+        RNG_REFUSALS[case](rng.key(9))
+    assert fake_rng["calls"] == []
+
+
+def test_rng_on_the_cpu_runs_the_plain_versions():
+    """A key on the CPU: each draw, fold and split calls its plain version
+    once and launches no kernel; ``uniform`` is ``uniform_plain``."""
+    from clive2_tpu_torch import rng
+    from clive2_tpu_torch.testing import launch_counters
+
+    counters = launch_counters()
+    names = ("rng_uniform", "rng_keys", "rng_uniform_plain",
+             "rng_fold_in_plain", "rng_split_plain")
+    before = [getattr(*counters[n]) for n in names]
+    k = rng.fold_in(rng.key(3), 7)
+    ka, kb = rng.split(k)
+    u = rng.uniform(ka, (5, 2), rows=torch.tensor([4, 0]))
+    assert torch.equal(u.view(torch.int32), rng.uniform_plain(
+        ka, (5, 2), torch.tensor([4, 0])).view(torch.int32))
+    rng.random_bits(kb, (3,))
+    after = [getattr(*counters[n]) for n in names]
+    assert [x - y for x, y in zip(after, before)] == [0, 0, 3, 1, 1]
