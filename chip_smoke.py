@@ -581,6 +581,20 @@ def brute_fmad(c, tris, ref):
                 if hit.any() else 0.0)
 
 
+def sass_code(library):
+    """{mangled kernel name: [(address, instruction)]} of a built
+    library's SASS (``cuobjdump -sass``)."""
+    from clive2_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {part.split("\n", 1)[0].strip(): [
+        (int(a, 16), ins.strip()) for a, ins in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        for part in re.split(r"\n\s*Function : ", text)[1:]}
+
+
 def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
                                       "stream_kernel", "wide_kernel",
                                       "packet_walk_kernel")):
@@ -591,19 +605,11 @@ def sass_figures(library, kernels_of=("brute_kernel", "bvh2_kernel",
     1 / a), its instructions, its MUFU.RCPs and their ratio, the
     instructions per triangle test that reaches the division (the loop
     unrolled k times holds k of them)."""
-    from clive2_tpu_torch import kernels
-
-    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", library], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     out = {}
-    for part in re.split(r"\n\s*Function : ", text)[1:]:
-        name = part.split("\n", 1)[0].strip()
+    for name, code in sass_code(library).items():
         short = next((k for k in kernels_of if k in name), None)
         if short is None:
             continue
-        code = [(int(a, 16), ins.strip()) for a, ins in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
         addr = [a for a, _ in code]
         loops = []
         for a, ins in code:
@@ -712,6 +718,23 @@ def connect_bytes(n, max_bounces, reference, pixels):
     return dict(rays=rays, shade=shade)
 
 
+def median_event_ms(fn, reps):
+    """The median over ``reps`` calls of ``fn`` of its CUDA-event
+    milliseconds, each call synchronised."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
 def connect_kernels_vs_plain(scenes, seed=5):
     """Phase ``connect_kernels_vs_plain``: on one sample of each of
     ``scenes`` ((name, scene, width, height)), in the renderer's wave
@@ -726,17 +749,7 @@ def connect_kernels_vs_plain(scenes, seed=5):
     from clive2_tpu_torch import kernels, rng
     from clive2_tpu_torch.integrator import connect, render
 
-    def ms(fn, reps):
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[len(times) // 2]
+    ms = median_event_ms
 
     def rel(a, b):
         d = (a - b).abs() / b.abs().clamp(min=1e-30)
@@ -935,25 +948,42 @@ def dragon_phase_alone() -> int:
     return 0
 
 
-# the RNG's bound (csrc/rng.cu): integer operations a threefry2x32 value
-# (20 add/rotate/xor rounds, 5 key injections, the float conversion) over
-# the H100's INT32 rate (132 SMs x 64 lanes x 1.98 GHz), against 4 bytes
-# a value written over HBM_BYTES_S
-RNG_OPS = 80
-INT32_OPS_S = 132 * 64 * 1.98e9
+# the RNG's bound (csrc/rng.cu): the integer operations of one threefry2x32
+# value (20 rounds of add, rotate and xor, 5 key injections of two adds, the
+# two first adds; the float conversion and the counter left out) over the
+# H100's integer issue rate, 128 lanes a clock an SM (its 64 INT32 lanes,
+# and the FMA pipe's 64, on which an add issues as IMAD) x 132 SMs x 1.98
+# GHz; against 4 bytes a value written over HBM_BYTES_S
+RNG_OPS = 72
+INT32_OPS_S = 132 * 128 * 1.98e9
+
+
+def rng_sass(library):
+    """Per RNG kernel instance in a built library, by ``rng_tag``: its
+    SASS instructions and those of the integer classes the hash issues
+    (IADD3, IMAD, SHF, LOP3)."""
+    out = {}
+    for name, code in sass_code(library).items():
+        tag = rng_tag(name)
+        if tag is None:
+            continue
+        ops = [ins.split()[1 if ins.startswith("@") else 0].split(".")[0]
+               for _, ins in code]
+        out[tag] = dict(instructions=len(ops), **{
+            k: ops.count(k) for k in ("IADD3", "IMAD", "SHF", "LOP3")})
+    return out
 
 
 def rng_tag(name):
     """An RNG kernel instance (csrc/rng.cu): ``keys``, or a draw by its
-    rows (none, inner 1, 2, any) and output (bits, uniform)."""
+    counters (rows given or not) and output (bits, uniform)."""
     if "keys_kernel" in name:
         return "keys"
-    m = re.search(r"draw_kernelILin?(\d)ELb([01])E", name)
+    m = re.search(r"draw_kernelILb([01])ELb([01])E", name)
     if m is None:
         return None
-    rows = {"0": "no_rows", "1": "rows_inner_1", "2": "rows_inner_2"}
-    inner = "rows_any" if "ILin1E" in name else rows[m.group(1)]
-    return f"draw {inner} {'bits' if m.group(2) == '1' else 'uniform'}"
+    return (f"draw {'rows' if m.group(1) == '1' else 'no_rows'} "
+            f"{'bits' if m.group(2) == '1' else 'uniform'}")
 
 
 def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
@@ -963,29 +993,20 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
     plain version on the same key: bit equality (and of ``random_bits``
     for each draw); each kernel call's CUDA-event time (median of 5) beside
     its bound, the plain version's (one call) and the 37 calls back to
-    back (median of 5); ptxas's registers and spills.  Returns the figures
-    by scene."""
+    back (median of 5); ptxas's registers and spills and the SASS counts
+    of each instance.  Returns the figures by scene."""
     import torch
 
     import clive2_tpu_torch as ct
     from clive2_tpu_torch import kernels, rng
 
-    def ms(fn, reps):
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[len(times) // 2]
-
+    ms = median_event_ms
     kernel_of = {k: getattr(rng, k) for k in ("fold_in", "split", "uniform")}
     plain_of = dict(fold_in=rng.fold_in_plain, split=rng.split_plain,
                     uniform=rng.uniform_plain)
     resources = ptxas_figures(kernels.ptxas_report("rng.cu"), rng_tag)
+    for tag, counts in rng_sass(kernels.library_path()).items():
+        resources.setdefault(tag, {})["sass"] = counts
     out = {}
     for name, scene in scenes:
         calls = []
@@ -1051,7 +1072,7 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
         if unequal or len(draws) != 22 or len(rows) != 37:
             figures.pop("per_call")
             raise AssertionError(f"rng_kernels_vs_plain {name}: {figures}")
-    if any(v["spill_store_bytes"] for v in resources.values()):
+    if any(v.get("spill_store_bytes") for v in resources.values()):
         raise AssertionError(f"rng_kernels_vs_plain: a spill: {resources}")
     emit(phase="rng_kernels_vs_plain", resources=resources, **out)
     return dict(resources=resources, **out)
@@ -3494,10 +3515,10 @@ def main() -> int:
     # the RNG's kernels: sponza 1080p's sample (phase rng_kernels_vs_plain);
     # they replace no TPU kernel
     sponza_rng = rng_figures["sponza_1080p"]
-    for name, call, ms_key in (("rng_uniform", "uniform", "draw_ms"),
-                               ("rng_keys", None, "keys_ms")):
+    for name, draw, ms_key in (("rng_uniform", True, "draw_ms"),
+                               ("rng_keys", False, "keys_ms")):
         per = [x for x in sponza_rng["per_call"]
-               if (x["call"] == call) == (call is not None)]
+               if (x["call"] == "uniform") == draw]
         rows.append(dict(
             name=name, route="cuda", source="clive2_tpu_torch/csrc/rng.cu",
             replaces="none: jax.random's threefry is XLA-fused",

@@ -16,19 +16,21 @@
 // that code; the hash itself is threefry.cuh's, bit for bit with it.
 //
 // What bounds a draw on the H100 is integer work: a value is one hash of
-// about 80 32-bit operations (20 add/rotate/xor rounds, 5 key injections,
-// the float conversion), against 4 bytes written.  A 1080p sample's 138.9M
-// uniforms are about 11G operations, about 0.7 ms at 132 SMs x 64 INT32
-// lanes x 1.9 GHz, and 0.556 GB written, 0.17 ms at 3.35 TB/s.  So the
-// design keeps every word in registers and issues as many independent
-// hashes as it can: a thread hashes kPer consecutive elements (kPer
-// independent chains for the scheduler to interleave) and writes them
-// with one vector store (float4, or two 16-byte stores of int64 bits), a
-// warp's stores contiguous; a counter's row is found by one division a
-// thread (none when no rows are given, a shift for the inner sizes 1 and 2
-// every sample draw has).  The key is read from device memory inside the
-// kernel, so the host never reads a key.  Blocks of 256 threads; the hash
-// needs few registers, so an SM holds its full 2,048 threads.
+// about 72 32-bit operations (20 add/rotate/xor rounds, 5 key injections
+// of two adds, two first adds), against 4 bytes written.  A 1080p
+// sample's 138.9M uniforms are 10.0G operations, 0.30 ms at 132 SMs x 128
+// integer lanes a clock (64 INT32, and the FMA pipe's 64, where an add
+// issues as IMAD) x 1.98 GHz, and 0.556 GB written, 0.17 ms at 3.35 TB/s
+// (PERF.md has the measured times).  So the design keeps every word in
+// registers and issues as many independent hashes as it can: a thread
+// hashes kPer consecutive elements (kPer independent chains for the
+// scheduler to interleave) and writes them with one vector store (float4,
+// or two 16-byte stores of int64 bits), a warp's stores contiguous; a
+// counter's row is found by one division a thread (none when no rows are
+// given, as on one card's whole frame).  The key is read from device
+// memory inside the kernel, so the host never reads a key.  Blocks of 256
+// threads; the hash needs few registers (at most 31 by ptxas), so an SM
+// holds its full 2,048 threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,10 +43,10 @@ constexpr int kThreads = 256;
 constexpr int kPer = 4;             // consecutive elements a thread
 constexpr int kKeyThreads = 128;
 
-// kInner: 0 with no rows (the counter is the element's index), 1 or 2 for
-// that inner size, -1 for an inner size read at run time.  kBits: write
-// the 32 bits as int64 (random_bits), else the uniform float.
-template <int kInner, bool kBits>
+// kRows: the counters of rows[] (else the element's index is its
+// counter).  kBits: write the 32 bits as int64 (random_bits), else the
+// uniform float.
+template <bool kRows, bool kBits>
 __global__ void __launch_bounds__(kThreads)
     draw_kernel(const long long* __restrict__ key,
                 const long long* __restrict__ rows, long long n,
@@ -54,18 +56,17 @@ __global__ void __launch_bounds__(kThreads)
   if (i0 >= n) return;
   const uint32_t k0 = (uint32_t)__ldg(key), k1 = (uint32_t)__ldg(key + 1);
   uint64_t c[kPer];
-  if constexpr (kInner == 0) {
+  if constexpr (!kRows) {
 #pragma unroll
     for (int k = 0; k < kPer; ++k) c[k] = (uint64_t)(i0 + k);
   } else {
-    const long long width = kInner > 0 ? kInner : inner;
-    long long r = i0 / width;
-    long long col = i0 - r * width;
+    long long r = i0 / inner;
+    long long col = i0 - r * inner;
     uint64_t row = (uint64_t)__ldg(rows + r);
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
-      c[k] = row * (uint64_t)width + (uint64_t)col;
-      if (++col == width) {
+      c[k] = row * (uint64_t)inner + (uint64_t)col;
+      if (++col == inner) {
         col = 0;
         ++r;
         if (i0 + k + 1 < n) row = (uint64_t)__ldg(rows + r);
@@ -110,16 +111,16 @@ __global__ void __launch_bounds__(kKeyThreads)
   out[2 * i + 1] = w.x1;
 }
 
-template <int kInner>
+template <bool kRows>
 cudaError_t launch_draw(unsigned blocks, cudaStream_t s, int bits,
                         const long long* key, const long long* rows,
                         long long n, long long inner, void* out) {
   if (bits)
-    draw_kernel<kInner, true><<<blocks, kThreads, 0, s>>>(key, rows, n,
-                                                          inner, out);
+    draw_kernel<kRows, true><<<blocks, kThreads, 0, s>>>(key, rows, n,
+                                                         inner, out);
   else
-    draw_kernel<kInner, false><<<blocks, kThreads, 0, s>>>(key, rows, n,
-                                                           inner, out);
+    draw_kernel<kRows, false><<<blocks, kThreads, 0, s>>>(key, rows, n,
+                                                          inner, out);
   return cudaGetLastError();
 }
 
@@ -140,12 +141,8 @@ extern "C" int clive2_rng_uniform(const long long* key,
   const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
   cudaStream_t s = (cudaStream_t)stream;
   if (rows == nullptr)
-    return (int)launch_draw<0>(blocks, s, bits, key, rows, n, inner, out);
-  if (inner == 1)
-    return (int)launch_draw<1>(blocks, s, bits, key, rows, n, inner, out);
-  if (inner == 2)
-    return (int)launch_draw<2>(blocks, s, bits, key, rows, n, inner, out);
-  return (int)launch_draw<-1>(blocks, s, bits, key, rows, n, inner, out);
+    return (int)launch_draw<false>(blocks, s, bits, key, rows, n, inner, out);
+  return (int)launch_draw<true>(blocks, s, bits, key, rows, n, inner, out);
 }
 
 // count keys [count, 2] (int64) hashed from the key's counters

@@ -1316,7 +1316,8 @@ def test_a_sample_launches_one_rng_kernel_a_hash(dev, connect_scenes,
     of the RNG's calls runs under CUDA's sync debug mode, which raises on a
     host read of a device value.  The sample equals the same sample drawn
     through the plain versions."""
-    from clive2_tpu_torch.testing import launch_counters
+    from clive2_tpu_torch.testing import (RNG_KERNELS, RNG_PLAIN,
+                                          launch_counters)
 
     def no_sync(fn):
         def inner(*args, **kw):
@@ -1329,8 +1330,7 @@ def test_a_sample_launches_one_rng_kernel_a_hash(dev, connect_scenes,
 
     scene = connect_scenes[preset]
     counters = launch_counters()
-    names = ("rng_uniform", "rng_keys", "rng_uniform_plain",
-             "rng_fold_in_plain", "rng_split_plain")
+    names = RNG_KERNELS + RNG_PLAIN
     with monkeypatch.context() as m:
         for fn in ("fold_in", "split", "uniform", "random_bits"):
             m.setattr(rng, fn, no_sync(getattr(rng, fn)))
@@ -1353,14 +1353,14 @@ def test_a_sample_launches_one_rng_kernel_a_hash(dev, connect_scenes,
 
 
 def test_rng_kernels_neither_spill_nor_keep_a_stack_frame(dev):
-    """ptxas's report on csrc/rng.cu: the eight draw instances (no rows,
-    inner 1, 2 and any; bits or uniform) and the key kernel keep every
-    word in registers."""
+    """ptxas's report on csrc/rng.cu: the four draw instances (rows given
+    or not; bits or uniform) and the key kernel keep every word in
+    registers."""
     from clive2_tpu_torch import kernels
 
     kernels.load()
     report = kernels.ptxas_report("rng.cu")
     parts = report.split("Compiling entry function")[1:]
-    assert len(parts) == 9
+    assert len(parts) == 5
     for part in parts:
         assert "0 bytes stack frame, 0 bytes spill stores" in part, part

@@ -419,11 +419,11 @@ def test_rng_keys_off_the_cpu_take_the_kernels(fake_rng):
     are made int64 on the key's device first, as the plain version makes
     them; ``fold_in`` takes its data to 32 bits."""
     from clive2_tpu_torch import rng
-    from clive2_tpu_torch.testing import launch_counters
+    from clive2_tpu_torch.testing import (RNG_KERNELS, RNG_PLAIN,
+                                          launch_counters)
 
     counters = launch_counters()
-    names = ("rng_uniform", "rng_keys", "rng_uniform_plain",
-             "rng_fold_in_plain", "rng_split_plain")
+    names = RNG_KERNELS + RNG_PLAIN
     before = [getattr(*counters[n]) for n in names]
     k = torch.empty(2, dtype=torch.int64, device="meta")
     assert rng.fold_in(k, -1).shape == (2,)
@@ -484,11 +484,11 @@ def test_rng_on_the_cpu_runs_the_plain_versions():
     """A key on the CPU: each draw, fold and split calls its plain version
     once and launches no kernel; ``uniform`` is ``uniform_plain``."""
     from clive2_tpu_torch import rng
-    from clive2_tpu_torch.testing import launch_counters
+    from clive2_tpu_torch.testing import (RNG_KERNELS, RNG_PLAIN,
+                                          launch_counters)
 
     counters = launch_counters()
-    names = ("rng_uniform", "rng_keys", "rng_uniform_plain",
-             "rng_fold_in_plain", "rng_split_plain")
+    names = RNG_KERNELS + RNG_PLAIN
     before = [getattr(*counters[n]) for n in names]
     k = rng.fold_in(rng.key(3), 7)
     ka, kb = rng.split(k)
