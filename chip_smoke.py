@@ -119,7 +119,8 @@ RNG calls of one sample of Cornell and sponza at 1920x1080 (22 draws, 15
 key derivations) through the RNG's kernels (csrc/rng.cu) and their plain
 versions: bit equality, CUDA-event times beside the bound (integer
 operations), plain times and ptxas's figures; the ``kernels`` line
-carries their rows.
+carries their rows.  A two-rank tile mesh's band of each frame holds the
+draws that take rows (``rows=lanes``) bit for bit too.
 
     python3 chip_smoke.py --phase rng_kernels_vs_plain
 
@@ -994,11 +995,14 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
     for each draw); each kernel call's CUDA-event time (median of 5) beside
     its bound, the plain version's (one call) and the 37 calls back to
     back (median of 5); ptxas's registers and spills and the SASS counts
-    of each instance.  Returns the figures by scene."""
+    of each instance.  The 22 draws of a two-rank tile mesh's lower band,
+    which take rows (``rows=lanes``), are held bit for bit too, untimed.
+    Returns the figures by scene."""
     import torch
 
     import clive2_tpu_torch as ct
     from clive2_tpu_torch import kernels, rng
+    from clive2_tpu_torch.integrator import render
 
     ms = median_event_ms
     kernel_of = {k: getattr(rng, k) for k in ("fold_in", "split", "uniform")}
@@ -1007,8 +1011,10 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
     resources = ptxas_figures(kernels.ptxas_report("rng.cu"), rng_tag)
     for tag, counts in rng_sass(kernels.library_path()).items():
         resources.setdefault(tag, {})["sass"] = counts
-    out = {}
-    for name, scene in scenes:
+
+    def record(run):
+        """The RNG calls ``run()`` makes, each with a copy of its key and
+        tensor arguments."""
         calls = []
 
         def recorder(fn_name):
@@ -1019,27 +1025,44 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
                 return kernel_of[fn_name](k, *args, **kw)
             return inner
 
-        r = ct.Renderer(scene, seed=seed, device=scene.device)
         for k in kernel_of:
             setattr(rng, k, recorder(k))
         try:
-            r.run_sample()
+            run()
         finally:
             for k, fn in kernel_of.items():
                 setattr(rng, k, fn)
         torch.cuda.synchronize()
+        return calls
+
+    def same_bits(fn_name, k, args, kw):
+        got = kernel_of[fn_name](k, *args, **kw)
+        want = plain_of[fn_name](k, *args, **kw)
+        if fn_name != "uniform":
+            return got, torch.equal(got, want)
+        return got, (torch.equal(got.view(torch.int32),
+                                 want.view(torch.int32))
+                     and torch.equal(rng.random_bits(k, *args, **kw),
+                                     rng.random_bits_plain(k, *args, **kw)))
+
+    out = {}
+    for name, scene in scenes:
+        r = ct.Renderer(scene, seed=seed, device=scene.device)
+        calls = record(r.run_sample)
         del r
+        # the lower band of a two-rank tile mesh, rendered on this device:
+        # its draws take the rows path (rows=lanes, merged_lanes)
+        w, h = scene.pixel_width, scene.pixel_height
+        tile_key = rng.fold_in(rng.key(seed, device=scene.device), 0)
+        tile_calls = [c for c in record(lambda: render.render_sample(
+            tile_key, scene.data, w, h, tile=(h // 2, h - h // 2)))
+            if c[3].get("rows") is not None]
+        tile_unequal = [i for i, c in enumerate(tile_calls)
+                        if not same_bits(*c)[1]]
+        torch.cuda.empty_cache()
         rows, values, unequal = [], 0, []
         for i, (fn_name, k, args, kw) in enumerate(calls):
-            got = kernel_of[fn_name](k, *args, **kw)
-            want = plain_of[fn_name](k, *args, **kw)
-            if fn_name == "uniform":
-                same = torch.equal(got.view(torch.int32),
-                                   want.view(torch.int32))
-                same &= torch.equal(rng.random_bits(k, *args, **kw),
-                                    rng.random_bits_plain(k, *args, **kw))
-            else:
-                same = torch.equal(got, want)
+            got, same = same_bits(fn_name, k, args, kw)
             if not same:
                 unequal.append(i)
             n = got.numel()
@@ -1051,7 +1074,7 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
                              ms=kernel_ms, bound_ms=bound_ms,
                              plain_ms=ms(lambda: plain_of[fn_name](
                                  k, *args, **kw), 1)))
-            del got, want
+            del got
         replay = lambda: [kernel_of[f](k, *a, **kw)
                           for f, k, a, kw in calls]
         draws = [x for x in rows if x["call"] == "uniform"]
@@ -1060,6 +1083,8 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
         figures = dict(
             calls=len(calls), draws=len(draws), values=values,
             bit_equal=not unequal, unequal_calls=unequal,
+            tile_rows_draws=len(tile_calls),
+            tile_bit_equal=not tile_unequal, tile_unequal_calls=tile_unequal,
             sample_ms=ms(replay, 5), bound_ms=bound_ms,
             bound_by="int32 operations",
             draw_ms=sum(x["ms"] for x in draws),
@@ -1067,9 +1092,10 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
             plain_ms=sum(x["plain_ms"] for x in rows), per_call=rows)
         figures["bound_share"] = bound_ms / figures["sample_ms"]
         out[name] = figures
-        del calls
+        del calls, tile_calls
         torch.cuda.empty_cache()
-        if unequal or len(draws) != 22 or len(rows) != 37:
+        if (unequal or tile_unequal or len(draws) != 22 or len(rows) != 37
+                or figures["tile_rows_draws"] != 22):
             figures.pop("per_call")
             raise AssertionError(f"rng_kernels_vs_plain {name}: {figures}")
     if any(v.get("spill_store_bytes") for v in resources.values()):

@@ -71,9 +71,15 @@ def key_data(k):
 
 
 def fold_in(k, data):
-    """``jax.random.fold_in``: hash the counter (0, data) under ``k``."""
-    if k.device.type == "cpu" or isinstance(data, torch.Tensor):
+    """``jax.random.fold_in``: hash the counter (0, data) under ``k``.
+
+    Off the CPU ``data`` is a Python integer: the kernel takes the counter
+    as an argument, and reading a tensor's value would stall the host."""
+    if k.device.type == "cpu":
         return fold_in_plain(k, data)
+    if isinstance(data, torch.Tensor):
+        raise TypeError(f"fold_in on a key on {k.device} takes an integer, "
+                        "not a tensor")
     return keys_kernel(k, int(data) & _M, 1).reshape(2)
 
 

@@ -443,6 +443,25 @@ def test_rng_keys_off_the_cpu_take_the_kernels(fake_rng):
     assert [x - y for x, y in zip(after, before)] == [2, 2, 0, 0, 0]
 
 
+def test_rng_fold_in_off_the_cpu_refuses_tensor_data(fake_rng):
+    """Off the CPU ``fold_in`` routes by the key's device alone: tensor
+    data is refused, with no launch and no plain hash on the card."""
+    from clive2_tpu_torch import rng
+    from clive2_tpu_torch.testing import (RNG_KERNELS, RNG_PLAIN,
+                                          launch_counters)
+
+    counters = launch_counters()
+    names = RNG_KERNELS + RNG_PLAIN
+    before = [getattr(*counters[n]) for n in names]
+    k = torch.empty(2, dtype=torch.int64, device="meta")
+    for data in (torch.tensor(5), torch.tensor(5, device="meta")):
+        with pytest.raises(TypeError):
+            rng.fold_in(k, data)
+    assert fake_rng["calls"] == []
+    after = [getattr(*counters[n]) for n in names]
+    assert after == before
+
+
 RNG_REFUSALS = {
     "rows of int32": lambda k: rng_draw(k, torch.arange(3, dtype=torch.int32)),
     "non-contiguous rows": lambda k: rng_draw(
