@@ -9,12 +9,10 @@ sample of each configuration; the queued fat-leaf traversal also kernel by
 kernel on one round of the first chunk of each of its casts), times both on
 those casts (and, on the BVH scenes' casts, the other kernels that can carry
 the scene as an A/B: on the fat-leaf casts also the per-thread fat-leaf
-kernel, the FP32-only leaf test and other tail sizes), holds the BVH2, BVH8
-and streaming kernels to a soup of exact ties, reports what an exact
-early-reject pre-test would end on the brute casts (by lane and by warp), a
-development build of it with ``--fmad=true`` beside the exact one, and the
-SASS instructions per triangle test, and the persistent traversal kernels'
-registers, shared memory, spills and resident blocks, then
+kernel and other tail sizes), holds the BVH2, BVH8 and streaming kernels to
+a soup of exact ties, reports the SASS instructions per triangle test and
+the persistent traversal kernels' registers, shared memory, spills and
+resident blocks, then
 renders the main-path configurations through ``create_scene_from_preset``
 -> ``Renderer.run_sample()`` with launch counters proving which kernel
 carried every cast, 2 samples each: Cornell ``empty`` at 1920x1080 and
@@ -139,7 +137,6 @@ runs that phase alone.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import os
 import re
@@ -509,77 +506,6 @@ def table_bytes(tables):
     Morton sort, is not the kernel's)."""
     return sum(t.numel() * t.element_size() for k, t in tables.items()
                if k not in ("lo", "hi"))
-
-
-def brute_pretest(c, tris, warps=1 << 14):
-    """The exact pre-test of csrc/brute.cu's note (not run by the kernel;
-    ops/brute.py:pretest_stage) on every
-    k-th warp of cast ``c`` (32 consecutive rays, at most ``warps`` of
-    them): the share of the active lanes' triangle tests that end at each
-    stage, and the share of (warp, triangle) pairs in which some active
-    lane reaches each stage (a warp runs a stage when any lane does)."""
-    import torch
-
-    from clive2_tpu_torch.ops import brute
-
-    n = c["origin"].shape[0] // 32 * 32
-    k = max(1, n // 32 // warps)
-    idx = (torch.arange(0, n // 32, k, device=c["origin"].device)[:, None]
-           * 32 + torch.arange(32, device=c["origin"].device)).ravel()
-    act = (torch.ones(idx.numel(), dtype=torch.bool, device=idx.device)
-           if c["active"] is None else c["active"][idx].bool())
-    stage = brute.pretest_stage(c["origin"][idx], c["direction"][idx], tris)
-    lanes = stage[act].long()
-    reach = torch.where(act[:, None], stage.long(), -1).reshape(
-        -1, 32, tris.shape[0]).amax(1)
-    return dict(
-        warps=int(idx.numel() // 32), warp_stride=k,
-        lane_end_share={s: float((lanes == i).float().mean())
-                        for i, s in enumerate(brute.STAGES)},
-        pretest_end_share=float((lanes < 3).float().mean()),
-        warp_reach_share={s: float((reach >= i).float().mean())
-                          for i, s in enumerate(brute.STAGES)})
-
-
-def brute_fmad(c, tris, ref):
-    """A development build of csrc/brute.cu with --fmad=true in place of
-    --fmad=false (not used by the port), timed on cast ``c`` over 5
-    launches beside the exact kernel's output ``ref``: the share of rays
-    whose ids agree and the largest |t| difference where they do."""
-    import torch
-
-    from clive2_tpu_torch import kernels
-
-    flags = ["--fmad=true" if f == "--fmad=false" else f
-             for f in kernels.NVCC_FLAGS]
-    so = os.path.join(kernels.BUILD_DIR, "brute_fmad_true.so")
-    t0 = time.perf_counter()
-    subprocess.run([kernels.nvcc(), *flags, "-shared", "-o", so,
-                    os.path.join(kernels.CSRC, "brute.cu")], check=True,
-                   capture_output=True, timeout=600)
-    build_s = time.perf_counter() - t0
-    fn = ctypes.CDLL(so).clive2_brute
-    fn.argtypes = kernels._SIGNATURES["clive2_brute"]
-    fn.restype = ctypes.c_int
-    rays = kernels.ray_args(c["origin"], c["direction"], c["active"],
-                            c["t_max"])
-
-    def run():
-        out = kernels.hit_outputs(c["origin"])
-        rc = fn(*rays.pointers(), kernels.ptr(tris),
-                ctypes.c_int(tris.shape[0]), *map(kernels.ptr, out),
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if rc:
-            raise RuntimeError(f"brute --fmad=true: CUDA error {rc}")
-        return out
-
-    ms, got = cuda_time(run, 5)
-    same = got[0] == ref[0]
-    hit = same & (ref[0] >= 0)
-    return dict(ms=ms, build_s=build_s,
-                ids_agree=float(same.float().mean()),
-                max_abs_t_diff=float((got[1][hit] - ref[1][hit]).abs().max())
-                if hit.any() else 0.0)
 
 
 def sass_code(library):
@@ -1214,10 +1140,10 @@ def stream2_parts(c, tables, label, states=3):
     """One round of the queued fat-leaf traversal on cast ``c`` (at most
     one chunk of rays), kernel by kernel against its plain step on the same
     state: the first walk, the count, plan and scatter kernels of the
-    binning, both leaf-test instances, the second walk, and the tail.  Each
-    kernel is timed over ``states`` fresh copies of its input state, its
-    plain step once.  Returns {part: dict(ms, plain_ms, bytes, ops, ...)} and the
-    prefilter's figures."""
+    binning, the leaf test, the second walk, and the tail.  Each kernel is
+    timed over ``states`` fresh copies of its input state, its plain step
+    once.  Returns {part: dict(ms, plain_ms, bytes, ops, ...)} and the
+    round's live rays and tiles."""
     import torch
 
     from clive2_tpu_torch import kernels
@@ -1294,62 +1220,20 @@ def stream2_parts(c, tables, label, states=3):
     parts["scatter"]["ops"] = live
     tiles = int(binned.info[1])
 
-    # the leaf test: both instances against the plain step, on the same
-    # (kernel-binned) queue
-    keep = torch.zeros(binned.max_tiles * 128, 4, dtype=torch.int32,
-                       device=r.origin.device)
-
-    def same_best(a, b, what):
+    # the leaf test against the plain step, on the same (kernel-binned)
+    # queue
+    def same_best(a, b):
         if not (torch.equal(a.bt, b.bt) and torch.equal(a.bc, b.bc)):
-            raise AssertionError(f"{label}: {what} leaf test differs")
+            raise AssertionError(f"{label}: leaf test differs")
 
     pos, f_all = s2.queue_positions(binned)
     touched = torch.unique(f_all)
     fs = tables["fat_start"].long()
     leaf_bytes = (pos.numel() * (4 + 64 + 8 + 8)
                   + 80 * int((fs[touched + 1] - fs[touched]).sum()))
-    tested = run("leaf_tf32",
-                 lambda st: s2.leaf_test(st, tables, "tf32", keep),
+    tested = run("leaf", lambda st: s2.leaf_test(st, tables),
                  lambda st: s2.leaf_test_plain(st, tables), binned,
-                 leaf_bytes, lambda a, b: same_best(a, b, "tf32"))
-    run("leaf_fp32", lambda st: s2.leaf_test(st, tables, "fp32"),
-        lambda st: s2.leaf_test_plain(st, tables), binned,
-        leaf_bytes, lambda a, b: same_best(a, b, "fp32"))
-
-    # the prefilter: its survivors against the plain filter's, and every
-    # pair the exact test accepts under the tile's starting best t kept
-    width = s2._width(tables)
-    col = torch.arange(width, device=pos.device)
-    count = dict(pairs=0, kept=0, exact=0, missed=0, agree=0)
-    for k in range(0, pos.numel(), 1 << 16):
-        e = pos[k:k + (1 << 16)]
-        rr = binned.queue[e].long()
-        f = f_all[k:k + (1 << 16)]
-        kept = ((keep[e][:, col // 32] >> (col % 32)) & 1).bool()
-        row, bt = binned.ray[rr], binned.bt[rr]
-        plain_keep = s2.tf32_filter_plain(tables, f, row, bt, width)
-        ok, t, _ = s2.slot_pass(tables, f, row[:, 3:6].unbind(-1),
-                                row[:, 9:12].unbind(-1),
-                                row[:, 12:15].unbind(-1), width)
-        need = ok & (t <= bt[:, None])
-        valid = col < (fs[f + 1] - fs[f])[:, None]
-        count["pairs"] += int(valid.sum())
-        count["kept"] += int(kept.sum())
-        count["exact"] += int(need.sum())
-        count["missed"] += int((need & ~kept).sum()
-                               + (need & ~plain_keep).sum())
-        count["agree"] += int(((kept == plain_keep) & valid).sum())
-    if count["missed"]:
-        raise AssertionError(f"{label}: the prefilter rejected pairs the "
-                             f"exact test accepts: {count}")
-    filt = dict(pairs=count["pairs"],
-                pass_share=count["kept"] / count["pairs"],
-                exact_share=count["exact"] / count["pairs"],
-                agreement_with_plain=count["agree"] / count["pairs"])
-    if filt["agreement_with_plain"] < 0.999:
-        raise AssertionError(f"{label}: the prefilter disagrees with its "
-                             f"plain version: {filt}")
-    del keep
+                 leaf_bytes, same_best)
 
     rewalked = run("walk2", lambda st: s2.walk_to_leaf(st, tables, any_hit),
                    lambda st: s2.walk_to_leaf_plain(st, tables, any_hit),
@@ -1370,14 +1254,13 @@ def stream2_parts(c, tables, label, states=3):
         lambda a, b: compare_hits(outs["kernel"], outs["plain"],
                                   f"{label} tail"))
     WORK.clear()
-    return parts, dict(filt, live_after_walk=live, tiles=tiles)
+    return parts, dict(live_after_walk=live, tiles=tiles)
 
 
-def stream2_variant(c, data, instance=None, tail_min=None, steps=None,
-                    per_thread=False):
-    """Cast ``c`` through the queued fat-leaf traversal with a leaf-test
-    instance, tail size or steps class of its own (the A/Bs), or through
-    the per-thread kernel whole.  Returns (outputs, dict(rounds, tail_rays)
+def stream2_variant(c, data, tail_min=None, steps=None, per_thread=False):
+    """Cast ``c`` through the queued fat-leaf traversal with a tail size or
+    steps class of its own (the A/Bs), or through the per-thread kernel
+    whole.  Returns (outputs, dict(rounds, tail_rays)
     or None)."""
     from clive2_tpu_torch.ops import traverse_stream2 as s2
 
@@ -1388,8 +1271,7 @@ def stream2_variant(c, data, instance=None, tail_min=None, steps=None,
         return out, None
     stats = s2.queued_cast(
         (rays.origin, rays.direction, rays.active, rays.t_max),
-        (steps or s2.KernelSteps)(tables, c["any_hit"],
-                                  instance or s2.LEAF_TEST), out,
+        (steps or s2.KernelSteps)(tables, c["any_hit"]), out,
         tail_min=s2.TAIL_MIN if tail_min is None else tail_min)
     return out, dict(zip(("rounds", "tail_rays"), stats))
 
@@ -1574,15 +1456,14 @@ def main() -> int:
         "random": random_rays(1 << 20, -10.0, 10.0, gen, dev),
         "camera": (cam_o["origin"], cam_o["direction"]),
     }
-    # the hand-built edges of the test (and of the pre-test), each against
-    # both edge triangles
+    # the hand-built edges of the test, each against both edge triangles
     from clive2_tpu_torch.testing import brute_edge_cases
 
     eo, ed, etris = (torch.from_numpy(x).to(dev) for x in brute_edge_cases())
     for k in range(etris.shape[0]):
         got = brute.intersect_brute(eo, ed, etris[k:k + 1])
         compare_hits(got, brute.brute_plain(eo, ed, etris[k:k + 1]),
-                     f"brute pre-test edges, triangle {k}")
+                     f"brute edge cases, triangle {k}")
     checks = 2
     for tname, tris in (("cornell", cornell.data["brute"]["tris"]),
                         ("soup256", soup_tris)):
@@ -1808,7 +1689,7 @@ def main() -> int:
             c["origin"], c["direction"], teapots.data["bvh"],
             active=c["active"], t_max=c["t_max"])
 
-    timing, bounds, compared, pretest_of = {}, {}, {}, {}
+    timing, bounds, compared = {}, {}, {}
     for name, scene, w, h, module, wrapper, kernel_fn, plain_fn, tables in (
             ("brute", cornell, 1920, 1080, brute, "intersect_brute",
              brute_cast(brute.intersect_brute), brute_cast(brute.brute_plain),
@@ -1833,15 +1714,6 @@ def main() -> int:
             compared[name, shapes[rays]] = rays
             bounds[name, shapes[rays]] = bound(cast_bytes(c, tables),
                                                work_ops(work))
-            extra = {}
-            if name == "brute":
-                # where an exact pre-test would end the tests, and a --fmad=true
-                # build timed beside the kernel (kernel, fmad, kernel)
-                tris = cornell.data["brute"]["tris"]
-                extra["pretest"] = brute_pretest(c, tris)
-                extra["fmad_true"] = brute_fmad(c, tris, got)
-                extra["ms_again"] = cuda_time(lambda: kernel_fn(c), 5)[0]
-                pretest_of[shapes[rays]] = extra["pretest"]
             emit(phase="main_path_cast", kernel=name, cast=shapes[rays],
                  rays=rays, any_hit=c["any_hit"],
                  active=rays if c["active"] is None else int(c["active"].sum()),
@@ -1850,7 +1722,7 @@ def main() -> int:
                  bound_ms=bounds[name, shapes[rays]][0],
                  bound_by=bounds[name, shapes[rays]][1],
                  bound_share=bounds[name, shapes[rays]][0] / ms, work=work,
-                 max_abs_err_t=e, matches_plain=True, **extra)
+                 max_abs_err_t=e, matches_plain=True)
             del got, want
         del casts, c
     torch.cuda.empty_cache()
@@ -1954,12 +1826,9 @@ def main() -> int:
                     del want_b
                 del ab_out
             if name == "stream2":
-                # the per-thread kernel, the other leaf-test instance, and
-                # other tail sizes, on the same cast: all equal the
-                # default's ids
-                other = "tf32" if s2.LEAF_TEST == "fp32" else "fp32"
+                # the per-thread kernel and other tail sizes, on the same
+                # cast: all equal the default's ids
                 for key, kw in (("per_thread", dict(per_thread=True)),
-                                (f"{other}_leaf_test", dict(instance=other)),
                                 *((f"tail_min_{t}", dict(tail_min=t))
                                   for t in (0, 1 << 12, 1 << 14, 1 << 18))):
                     v_ms, (v_out, stats) = cuda_time(
@@ -1992,8 +1861,8 @@ def main() -> int:
                 # the shapes the main path's first launches get
                 head = {k: v if k == "any_hit" or v is None
                         else v[:s2.CHUNK] for k, v in c.items()}
-                parts, filt = stream2_parts(head, scene.data["stream2"],
-                                            label)
+                parts, round_ = stream2_parts(head, scene.data["stream2"],
+                                              label)
                 parts_of[sname, shapes[rays]] = parts
                 emit(phase="kernel_stream2_parts_vs_plain", scene=sname,
                      cast=shapes[rays], rays=rays,
@@ -2001,7 +1870,7 @@ def main() -> int:
                      parts={k: dict(v, bound_ms=bound(v["bytes"],
                                                       v["ops"])[0])
                             for k, v in parts.items()},
-                     prefilter=filt, equal=True)
+                     **round_, equal=True)
             cap = c["t_max"]
             emit(phase="main_path_cast", kernel=name, scene=sname,
                  cast=shapes[rays], rays=rays, compared_rays=m,
@@ -3403,8 +3272,6 @@ def main() -> int:
                  ("wide", "dragon", "extension")),
         cast_row("stream", "traverse_stream.cu", "traverse_stream.py:104",
                  ("stream", "medium_dragon", "extension"))]
-    rows[0]["pretest_end_share"] = pretest_of["connection"][
-        "pretest_end_share"]
     rows[3]["dragon_connection"] = dict(
         zip(("ms", "plain_ms"), timing["wide", "dragon", "connection"]),
         bound_ms=bounds["wide", "dragon", "connection"][0],
@@ -3420,7 +3287,7 @@ def main() -> int:
             ("stream2_count", "count", "stream2_queue.cu"),
             ("stream2_plan", "plan", "stream2_queue.cu"),
             ("stream2_scatter", "scatter", "stream2_queue.cu"),
-            ("stream2_leaf", f"leaf_{s2.LEAF_TEST}", "stream2_queue.cu"),
+            ("stream2_leaf", "leaf", "stream2_queue.cu"),
             ("stream2_tail", "tail", "traverse_stream2.cu")):
         v = sponza_parts[part]
         b_ms, b_by = bound(v["bytes"], v["ops"])
@@ -3434,8 +3301,6 @@ def main() -> int:
             **({"library_call": "torch.bincount"} if lib_ms is not None
                else {"library_note": notes[name]}),
             cast="sponza connection, first chunk, one round"))
-    other = "tf32" if s2.LEAF_TEST == "fp32" else "fp32"
-    rows[-2][f"ab_{other}_ms"] = sponza_parts[f"leaf_{other}"]["ms"]
     # the per-thread kernel: the whole of sponza's connection cast (A/B)
     thread_ms = timing["stream2", "sponza", "connection per_thread"]
     b_ms, b_by = bounds["stream2", "sponza", "connection"]

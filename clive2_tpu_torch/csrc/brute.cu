@@ -29,53 +29,10 @@
 // 128 ray planes, the padding of N to 1024-ray blocks and the SMEM scalar
 // table do not carry over: rays stay [N, 3] as the port holds them.
 //
-// The exact early-reject pre-test, measured and not kept.  It computed
-// h and a, then s and U, and ended a triangle's test when u < 0 or u > 1
-// was certain; then q and V (v < 0, u + v > 1), then T (t < 0); only the
-// survivors took f = 1 / a and the plain test.  It ends 89% of the active
-// lanes' tests on the Cornell 1080p connection cast, but a warp runs a
-// stage when any lane reaches it, and neighbouring connection rays go to
-// unrelated light vertices: 93% of (warp, triangle) pairs reach the v
-// stage and 70% the division.  The branches and the pre-test's compares
-// cost more than they saved: 4.17 ms against 3.14 on that cast (PERF.md,
-// NVIDIA H100 80GB HBM3, 700 W).  ops/brute.py:pretest_stage keeps the rule as a plain measurement
-// of what it would end on a cast (chip_smoke prints both shares), held to
-// brute_plain by tests/test_torch_intersect.py, for rays coherent enough to
-// make it pay.
-//
-// Why the pre-test never rejects a triangle brute_plain accepts.  Every
-// quantity is computed in brute_plain's order (--fmad=false), so a, U, V,
-// T are plain's floats.  Let lo = |a| * 2^-20 and hi = |a| * (1 + 2^-20),
-// rounded, and Ua, Va, Ta the values U, V, T with their sign flipped when
-// a is not > 0 (exact).  Plain's u = RN(f U) with f = RN(1 / a).
-//  (0) a = +-0: f = +-inf, so u is NaN (U = 0) or +-inf, and u >= 0 and
-//      u <= 1 cannot both hold.  Rejected first.
-//  (1) Ua < -lo (u < 0 certain): U and a are nonzero with opposite signs.
-//      If |a| >= 2^-106, lo is exact, so |U| > |a| 2^-20; f is normal with
-//      relative error <= 2^-24, or subnormal (|a| > 2^126) with 1/|a| >
-//      2^-128 and |U| > 2^106, so |f U| > 2^-23: u is negative and
-//      nonzero, never the -0.0 that underflow would give (-0.0 >= 0
-//      holds).  If |a| < 2^-106, |f| > 2^106 or f = inf, and |U| >= 2^-149,
-//      so |f U| >= 2^-43 (or u = -inf).  Either way u >= 0 fails.  The same
-//      holds for V (v < 0) and for T (t < 0, so t > kDelta fails).
-//  (2) Ua > hi (u > 1 certain): U and a have the same sign.  Let e =
-//      2^-24.  If hi is normal, hi >= |a| (1 + 16e)(1 - e); f carries a
-//      relative error of at most e (4e when f is subnormal), so f U > (1 +
-//      16e)(1 - e)(1 - 4e) > 1 + 8e = 1 + 2^-21 and u = RN(f U) >= 1 +
-//      2^-21.  If hi is subnormal, Ua is at least the float after hi, above
-//      |a| (1 + 2^-20) exactly, and f = 1 / a is normal (the same bound) or
-//      inf (u = inf).  If hi overflows to inf, nothing is rejected.  u <= 1
-//      fails.
-//  (3) Ua >= 0, Va >= 0 and RN(Ua + Va) > hi (u + v > 1 certain): U and V
-//      have a's sign, so |U| + |V| > |a| (1 + 16e)(1 - e) / (1 + e), and
-//      plain's u + v >= (|U| + |V|) / |a| (1 - 4e)(1 - e)^2 > 1 + 7e, which
-//      rounds to at least 1 + 2^-23.  u + v <= 1 fails.
-//  NaN in a, U, V or T makes every comparison false: nothing is rejected,
-//  and brute_plain rejects such a triangle anyway.  a = +-inf gives lo =
-//  hi = inf: nothing is rejected.
-// The margin 2^-20 is 16 times the relative rounding of each step, so the
-// pre-test gives up only triangles within 2^-20 of an edge, which the exact
-// test then decides.
+// An exact early-reject pre-test (end a triangle's test once u, v or t
+// fails by a margin, before the division) was measured and not kept: 4.17
+// ms against 3.14 on the Cornell 1080p connection cast (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md, "Settled A/Bs").
 //
 // Rounding: the file is compiled with --fmad=false and the test is
 // common.cuh's expressions in brute_plain's order, so both round

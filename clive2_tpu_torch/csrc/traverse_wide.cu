@@ -33,7 +33,7 @@
 // but 10% more box tests and 11% more triangle tests, 7.6 boxes a visit,
 // and a warp's visit runs to its widest lane: with 9 blocks per SM hiding
 // the steps' latency, the work decides, and the kernel takes about 5%
-// longer than BVH2 on that cast (scripts/wide_variants.py, PERF.md).
+// longer than BVH2 on that cast (PERF.md, "Settled A/Bs").
 //
 // What the design does about it (the first design: one thread per ray in a
 // grid-stride loop, a 96-entry stack in local memory, 56 scalar loads per
@@ -70,7 +70,7 @@
 //     with unequal leaves do not wait on each other child by child: 3-4%
 //     off the dragon's connection cast against nested loops, and 56
 //     registers against 64, which lets 9 blocks share an SM
-//     (scripts/wide_variants.py).  The visit stays one unrolled loop over
+//     (PERF.md, "Settled A/Bs").  The visit stays one unrolled loop over
 //     the node's children: a walk of one child per step, which would spare
 //     lanes at narrow nodes the wait for wide ones, was 21% slower.
 //  5. Ties: a row replaces the best hit when (t, row) is lexicographically

@@ -65,8 +65,7 @@ _SIGNATURES = {
     "clive2_s2q_count": [_P, ctypes.c_int64, _P, _P],
     "clive2_s2q_plan": [_P, ctypes.c_int, _P, _P, _P, _P],
     "clive2_s2q_scatter": [_P, ctypes.c_int64, _P, _P, _P],
-    "clive2_s2q_leaf_tf32": [_P] * 4 + [ctypes.c_int64] + [_P] * 8,
-    "clive2_s2q_leaf_fp32": [_P] * 4 + [ctypes.c_int64] + [_P] * 8,
+    "clive2_s2q_leaf": [_P] * 4 + [ctypes.c_int64] + [_P] * 7,
     # nodes, tris, packet, variant, count | t, id, counts
     "clive2_packet_walk": _RAYS + [_P, _P] + [ctypes.c_int] * 3 + [_P] * 3
     + [_P],

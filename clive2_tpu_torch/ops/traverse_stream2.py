@@ -46,10 +46,8 @@ Departures from the TPU kernel, each for a TPU limit the card does not have:
   its next fat leaf, resumed from a stack kept in device memory, (b) a
   counting sort of the rays by fat leaf into tiles of ``TILE`` rays, (c) one
   block per tile that loads the fat leaf's feature rows into shared memory
-  once and runs the exact FP32 test of every slot against its rays (a
-  second instance first rejects the (ray, slot) pairs that a TF32
-  tensor-core product shows to clearly miss, the MXU matmul's place;
-  ``tf32_filter_plain``).  Once fewer than ``TAIL_MIN`` rays are live, the
+  once and runs the exact FP32 test of every slot against its rays, the
+  MXU matmul's place.  Once fewer than ``TAIL_MIN`` rays are live, the
   per-thread kernel finishes them from their saved state, on a side stream
   so that it overlaps the next chunk; a cast of fewer than ``QUEUE_MIN``
   rays takes that kernel whole.  The SMEM-budget loop over
@@ -85,19 +83,13 @@ TILE = 128          # rays per leaf-test block (csrc/stream2_queue.cu:kTile)
 CHUNK = 1 << 22     # rays per chunk of the queued traversal
 # live rays below which the per-thread kernel finishes a chunk: of 0, 2^12,
 # 2^14, 2^16 and 2^18, 2^16 was fastest on the medium dragon's and sponza
-# 1080p's casts (PERF.md)
+# 1080p's casts (PERF.md, "Settled A/Bs")
 TAIL_MIN = 1 << 16
 # casts of fewer rays take the per-thread kernel whole: it was faster on the
 # medium dragon 512's extension casts (524,288 rays), the queued traversal
 # on sponza 1080p's (4,147,200), and a queued cast reads counts from the
-# card (PERF.md)
+# card (PERF.md, "Settled A/Bs")
 QUEUE_MIN = 1 << 20
-# the leaf-test instance the wrapper launches: the FP32-only one measured
-# faster on sponza 1080p's connection cast (PERF.md)
-LEAF_TEST = "fp32"
-FILTER_EPS = 2.0 ** -8      # the prefilter's margin (csrc/stream2_queue.cu)
-FILTER_FLOOR = 2.0 ** -96
-FILTER_HUGE = 2.0 ** 50
 SUB_SLOTS = 8       # triangles per SAH leaf (gather-walk leaf rows)
 LANES = 128         # fat-leaf capacity per block: cols = 128 * blocks_per_leaf
 N_FEAT = 20         # 19 feature coefficients + 1 zero pad (80-byte rows)
@@ -483,63 +475,6 @@ def leaf_test_plain(st, tables):
         st.bc[ci] = torch.where(better, slot, cur_c).to(torch.int32)
 
 
-
-def _tf32(x):
-    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32``."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def clearly_misses(a, u, v, t, ma, mu, mv, mt, bt):
-    """The prefilter's margin rule (csrc/stream2_queue.cu:clearly_misses)
-    on the forms a, u_n, v_n, t_n and their magnitude bounds."""
-    aa = a.abs()
-    sure = (aa > FILTER_EPS * ma + FILTER_FLOOR) & (aa < FILTER_HUGE)
-    s = torch.where(a > 0, 1.0, -1.0)
-    su, sv, st = s * u, s * v, s * t
-    return sure & (
-        (su < -(FILTER_EPS * mu + FILTER_FLOOR))
-        | (sv < -(FILTER_EPS * mv + FILTER_FLOOR))
-        | (aa - su - sv < -(FILTER_EPS * (ma + mu + mv) + FILTER_FLOOR))
-        | (st - DELTA * aa < -(FILTER_EPS * (mt + DELTA * ma)
-                               + FILTER_FLOOR))
-        | (st - bt * aa > FILTER_EPS * (mt + bt * ma) + FILTER_FLOOR))
-
-
-def tf32_filter_plain(tables, f, row, bt, width):
-    """Plain version of the leaf-test kernel's prefilter: for rays with
-    state rows ``row`` [k, 16] and best t ``bt`` at fat leaves ``f`` [k],
-    the [k, width] mask of the slots that survive (not ``clearly_misses``
-    on the TF32 products).  The tensor core sums its 8 exact products in an
-    order of its own; here they are summed in k order in f32, so a pair
-    within a few 2^-23 of a threshold may come out otherwise."""
-    fat_start = tables["fat_start"]
-    start = fat_start[f].long()
-    col = torch.arange(width, device=f.device)
-    valid = col < (fat_start[f + 1].long() - start)[:, None]
-    c = _tf32(tables["feat"][torch.where(valid, start[:, None] + col, 0)])
-    dm = _tf32(row[:, [3, 4, 5, 9, 10, 11]])[:, None, :]     # [k, 1, 6]
-    osh = _tf32(row[:, 12:15])[:, None, :]
-
-    def dot(x, coeff, const=None):
-        terms = (x * coeff).unbind(-1)
-        if const is not None:
-            terms = terms + (const,)
-        acc = terms[0]
-        for term in terms[1:]:
-            acc = acc + term
-        return acc
-
-    forms = (c[..., 0:3], c[..., 3:9], c[..., 9:15], c[..., 15:18])
-    vals = [dot(dm[..., :3], forms[0]), dot(dm, forms[1]), dot(dm, forms[2]),
-            dot(osh, forms[3], c[..., 18])]
-    mags = [dot(dm[..., :3].abs(), forms[0].abs()),
-            dot(dm.abs(), forms[1].abs()), dot(dm.abs(), forms[2].abs()),
-            dot(osh.abs(), forms[3].abs(), c[..., 18].abs())]
-    return valid & ~clearly_misses(*vals, *mags, bt[:, None])
-
-
 def finish_plain(st, tables, out):
     """The outputs of a finished chunk: exact Möller-Trumbore on each
     winner's slot_mt row (the tail kernel's end)."""
@@ -610,7 +545,6 @@ _KERNEL_TABLES = (("nodebox", torch.float32, (12,)),
                   ("fat_start", torch.int32, ()),
                   ("slot_tri", torch.int32, ()),
                   ("slot_mt", torch.float32, (9,)), ("ctr", torch.float32, ()))
-_LEAF_ENTRIES = dict(tf32="clive2_s2q_leaf_tf32", fp32="clive2_s2q_leaf_fp32")
 
 
 def _p(*tensors):
@@ -682,19 +616,15 @@ def bin_by_leaf(st):
     scatter_by_leaf(st)
 
 
-def leaf_test(st, tables, instance=LEAF_TEST, keep=None):
-    """The leaf-test kernel (leaf_test_plain's contract): ``instance``
-    "tf32" (prefiltered) or "fp32" (every slot exact); ``keep``, an i32
-    [st.max_tiles * TILE, 4] tensor, receives the prefilter's survivor
-    masks of the queue's entries."""
+def leaf_test(st, tables):
+    """The leaf-test kernel (leaf_test_plain's contract)."""
     from .. import kernels
 
-    kernels.call(_LEAF_ENTRIES[instance], st.ray.device,
+    kernels.call("clive2_s2q_leaf", st.ray.device,
                  *_p(st.queue, st.info, st.hist, st.offs),
                  st.max_tiles,
                  *_p(st.leaf, st.ray, st.bt, st.bc, tables["feat"],
-                     tables["fat_start"]),
-                 None if keep is None else keep.data_ptr())
+                     tables["fat_start"]))
     leaf_test.launches += 1
 
 
@@ -720,9 +650,8 @@ for _fn in (stream2_thread, walk_to_leaf, count_by_leaf, plan_tiles,
 class KernelSteps(PlainSteps):
     """The queued traversal's steps as kernel launches."""
 
-    def __init__(self, tables, any_hit, instance=LEAF_TEST):
+    def __init__(self, tables, any_hit):
         super().__init__(tables, any_hit)
-        self.instance = instance
         self.side = None
 
     def walk(self, st, rays=None):
@@ -751,7 +680,7 @@ class KernelSteps(PlainSteps):
         return read
 
     def leaf_test(self, st):
-        leaf_test(st, self.tables, self.instance)
+        leaf_test(st, self.tables)
 
     def side_stream(self, device):
         """The stream the tails run on (made at first use)."""

@@ -16,5 +16,4 @@ clive2_tpu_torch.scripts.<name>``, on the card unless ``--device cpu`` (or
 and ``compare_images`` use no device.  The port's own tools:
 ``launch_cost`` times the kernels' launch path on the card, for one
 checkout or several in turns (``python3
-clive2_tpu_torch/scripts/launch_cost.py --root A --root B``), and
-``wide_variants`` A/Bs the BVH8 kernel's design on the card."""
+clive2_tpu_torch/scripts/launch_cost.py --root A --root B``)."""

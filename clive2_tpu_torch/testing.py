@@ -1,9 +1,8 @@
 """Inputs that hold the kernels to their rules: a soup of triangles that
 each appear twice, so that every hit is an exact tie in t (the traversal
 kernels' tie rule, and the packet walk's inside a leaf:
-``leaf_tie_winner``), and rays at the edges of the brute-force test and of
-its early-reject pre-test; rays and a deep tree at the packet walk's
-edges (``packet_edge_rays``, ``deep_bvh2_tables``); ``launch_counters``
+``leaf_tie_winner``), and rays at the edges of the brute-force test;
+rays and a deep tree at the packet walk's edges (``packet_edge_rays``, ``deep_bvh2_tables``); ``launch_counters``
 and ``check_launches``,
 which tell which kernels a render ran; ``CastLog``, ``differing_slots``,
 ``reached_pixels`` and ``splat_pixels``, which find the pixels two
@@ -546,9 +545,9 @@ def deep_bvh2_tables(depth, seed):
 
 
 def brute_edge_cases():
-    """Rays at the edges of the brute-force test and of its early-reject
-    pre-test (csrc/brute.cu's note), built by hand, and the two triangles they are built for: (origins [N,
-    3], directions [N, 3], brute table [2, 10]), all f32.  Ray 0 hits
+    """Rays at the edges of the brute-force test, built by hand, and the
+    two triangles they are built for: (origins [N, 3], directions [N, 3],
+    brute table [2, 10]), all f32.  Ray 0 hits
     triangle 1 with u = f U underflowing to -0.0, which a test of U's sign
     alone would reject."""
     f32 = np.float32
@@ -571,7 +570,7 @@ def brute_edge_cases():
         (unit, [0.3, 0.0, 1.0], [0, 0, -1]),
         (unit, [0.5, 0.5, 1.0], [0, 0, -1]),
         (unit, [0.25, 0.75, 1.0], [0, 0, -1]),
-        # just outside each edge, by one ulp and by the margin
+        # just outside each edge, by one ulp and by about 2^-20
         (unit, [np.nextafter(f32(1), f32(2)), 0.0, 1.0], [0, 0, -1]),
         (unit, [-(2.0 ** -30), 0.5, 1.0], [0, 0, -1]),
         (unit, [0.5, np.nextafter(f32(0.5), f32(1)), 1.0], [0, 0, -1]),

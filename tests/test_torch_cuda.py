@@ -152,12 +152,11 @@ def test_brute_kernel_matches_plain(dev, masked):
     _assert_same(got, brute.brute_plain(o, d, tris, **kw))
 
 
-def test_brute_kernel_matches_plain_on_the_pretest_edges(dev):
+def test_brute_kernel_matches_plain_on_the_edge_cases(dev):
     """Rays at the edges of the exact test (clive2_tpu_torch.testing:
     brute_edge_cases): u underflowing to -0.0, a = +-0, u and v exactly 0
     or 1, u + v = 1, t at kDelta, each ray against both edge triangles; and
-    rays inside the Cornell box, most of whose tests the pre-test would
-    end (brute.pretest_stage on the card)."""
+    rays inside the Cornell box, nearly all of which hit."""
     o, d, tris = (torch.from_numpy(x).to(dev) for x in brute_edge_cases())
     for k in range(tris.shape[0]):
         one = tris[k:k + 1]
@@ -173,8 +172,6 @@ def test_brute_kernel_matches_plain_on_the_pretest_edges(dev):
     got = brute.intersect_brute(o, d, table)
     _assert_same(got, brute.brute_plain(o, d, table))
     assert (got[0] >= 0).float().mean() > 0.9
-    stage = brute.pretest_stage(o, d, table)
-    assert (stage < 3).float().mean() > 0.5
 
 
 def _bvh2_scene(dev, rows):
@@ -423,9 +420,8 @@ def _stream2_case(dev, seed, n=50_000):
     return tables, _rays(gen, n, dev)
 
 
-QUEUED = {"tf32": (0, 1 << 22), "fp32": (0, 1 << 22),
-          "tf32-tail": (2000, 7000), "fp32-tail": (2000, 7000)}
-# instance: (tail_min, chunk)
+QUEUED = {"queued": (0, 1 << 22), "queued-tail": (2000, 7000)}
+# case: (tail_min, chunk)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -462,7 +458,7 @@ def test_stream2_queued_matches_plain(dev, case, any_hit, monkeypatch):
         rays, tables, got = s2.kernel_args(o, d, scene, active, t_max)
         rounds, _ = s2.queued_cast(
             (rays.origin, rays.direction, rays.active, rays.t_max),
-            s2.KernelSteps(tables, any_hit, case[:4]), got, chunk=chunk,
+            s2.KernelSteps(tables, any_hit), got, chunk=chunk,
             tail_min=tail_min)
         assert rounds > 0
     assert all(w.launches > b for w, b in zip(wrappers, before))
@@ -490,8 +486,7 @@ def _queue_sorted(st):
 
 def test_stream2_parts_match_plain(dev):
     """One round of the queued traversal, kernel by kernel, against the
-    plain steps on the same state; the prefilter keeps every slot the
-    exact test accepts."""
+    plain steps on the same state."""
     s2 = traverse_stream2
     tables, (o, d, active, t_max) = _stream2_case(dev, 7)
     rays = (o, d, active, t_max)
@@ -508,31 +503,9 @@ def test_stream2_parts_match_plain(dev):
     assert torch.equal(_queue_sorted(st_k), _queue_sorted(st_p))
 
     st_p = st_k.clone()
-    before = st_k.clone()
-    keep = torch.zeros(st_k.max_tiles * 128, 4, dtype=torch.int32,
-                       device=dev)
-    fp32 = st_k.clone()
-    s2.leaf_test(st_k, tables, "tf32", keep)
-    s2.leaf_test(fp32, tables, "fp32")
+    s2.leaf_test(st_k, tables)
     s2.leaf_test_plain(st_p, tables)
-    for st in (st_k, fp32):
-        assert torch.equal(st.bt, st_p.bt) and torch.equal(st.bc, st_p.bc)
-
-    pos, f = s2.queue_positions(before)
-    r = before.queue[pos].long()
-    width = s2._width(tables)
-    col = torch.arange(width, device=dev)
-    kept = ((keep[pos][:, col // 32] >> (col % 32)) & 1).bool()
-    row = before.ray[r]
-    plain = s2.tf32_filter_plain(tables, f, row, before.bt[r], width)
-    ok, t, _ = s2.slot_pass(tables, f, row[:, 3:6].unbind(-1),
-                            row[:, 9:12].unbind(-1),
-                            row[:, 12:15].unbind(-1), width)
-    need = ok & (t <= before.bt[r, None])
-    assert not (need & ~kept).any() and not (need & ~plain).any()
-    assert (kept == plain).float().mean() > 0.999
-    pairs = (tables["fat_start"][f + 1] - tables["fat_start"][f]).sum()
-    assert kept.sum() < 0.5 * pairs
+    assert torch.equal(st_k.bt, st_p.bt) and torch.equal(st_k.bc, st_p.bc)
 
     s2.walk_to_leaf(st_k, tables, False)
     s2.walk_to_leaf_plain(st_p, tables, False)

@@ -34,7 +34,6 @@ from clive2_tpu_torch.bvh.build import build_bvh, leaf_tables
 from clive2_tpu_torch.geometry import TriangleSoup
 from clive2_tpu_torch.models import utah_teapot
 from clive2_tpu_torch.ops import brute, intersect, traverse_bvh2
-from clive2_tpu_torch.testing import brute_edge_cases
 
 torch.set_num_threads(2)
 
@@ -117,113 +116,6 @@ def test_brute_plain_matches_chunked_xla_path():
         _t(o), _t(d), _t(brute.pack_brute(TriangleSoup.from_vertices(verts))),
         active=_t(active), t_max=_t(t_max))
     _assert_hits(got, want, "brute vs chunked")
-
-
-# ---- brute's pre-test ---------------------------------------------------------
-# The exact early-reject pre-test of csrc/brute.cu's note
-# (brute.pretest_stage), mirrored in numpy f32 in brute_plain's expression
-# order and held to brute_plain's acceptances.
-
-def _pretest_np(o, d, tris):
-    """The pre-test in numpy f32: [N, T] stage index (brute.STAGES) where
-    it ends each test."""
-    f32 = np.float32
-    o, d = o.astype(f32)[:, None, :], d.astype(f32)[:, None, :]
-    v0, e1, e2 = (tris[None, :, j:j + 3].astype(f32) for j in (0, 3, 6))
-    with np.errstate(all="ignore"):
-        h = np.stack([d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1],
-                      d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2],
-                      d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]], -1)
-        a = e1[..., 0] * h[..., 0] + e1[..., 1] * h[..., 1] \
-            + e1[..., 2] * h[..., 2]
-        pos = a > 0
-        lo = np.abs(a) * f32(brute.PRETEST_LO)
-        hi = np.abs(a) * f32(brute.PRETEST_HI)
-        s_ = o - v0
-        uu = s_[..., 0] * h[..., 0] + s_[..., 1] * h[..., 1] \
-            + s_[..., 2] * h[..., 2]
-        ua = np.where(pos, uu, -uu)
-        q = np.stack([s_[..., 1] * e1[..., 2] - s_[..., 2] * e1[..., 1],
-                      s_[..., 2] * e1[..., 0] - s_[..., 0] * e1[..., 2],
-                      s_[..., 0] * e1[..., 1] - s_[..., 1] * e1[..., 0]], -1)
-        vv = d[..., 0] * q[..., 0] + d[..., 1] * q[..., 1] \
-            + d[..., 2] * q[..., 2]
-        va = np.where(pos, vv, -vv)
-        tt = e2[..., 0] * q[..., 0] + e2[..., 1] * q[..., 1] \
-            + e2[..., 2] * q[..., 2]
-        end_u = (a == 0) | (ua < -lo) | (ua > hi)
-        end_v = (va < -lo) | ((ua >= 0) & (va >= 0) & (ua + va > hi))
-        end_t = np.where(pos, tt, -tt) < -lo
-    return np.where(end_u, 0, np.where(end_v, 1, np.where(end_t, 2, 3)))
-
-
-def _plain_hits(o, d, tris):
-    """[N, T]: brute_plain's acceptance of each ray-triangle pair (before
-    its best-t rule)."""
-    t = _t(tris)
-    hit, _, _, _ = intersect._mt(
-        tuple(c[:, None] for c in _t(o).unbind(-1)),
-        tuple(c[:, None] for c in _t(d).unbind(-1)),
-        t[:, 0:3].unbind(-1), t[:, 3:6].unbind(-1), t[:, 6:9].unbind(-1))
-    return hit.numpy()
-
-
-def _pretest_case(case):
-    rng = np.random.default_rng(9)
-    if case == "edges":
-        return brute_edge_cases()
-    if case == "cornell":
-        s = ct.create_scene_from_preset("empty", 32, 18, device="cpu")
-        tris = s.data["brute"]["tris"].numpy()
-        lo, hi = tris[:, 0:3].min(0), tris[:, 0:3].max(0)
-        o = rng.uniform(lo, hi, (4000, 3)).astype(np.float32)
-        d = rng.normal(size=(4000, 3)).astype(np.float32)
-        return o, d / np.linalg.norm(d, axis=1, keepdims=True), tris
-    tris = brute.pack_brute(TriangleSoup.from_vertices(_soup(rng, 60)))
-    o, _ = _rays(rng, 3000)
-    # aimed at points of the triangles' planes around their edges
-    k = rng.integers(0, 60, 3000)
-    r = rng.uniform(-0.2, 1.2, (3000, 2, 1)).astype(np.float32)
-    aim = tris[k, 0:3] + r[:, 0] * tris[k, 3:6] + r[:, 1] * tris[k, 6:9]
-    d = aim - o
-    return o, d / np.linalg.norm(d, axis=1, keepdims=True), tris
-
-
-@pytest.mark.parametrize("case", ["random", "cornell", "edges"])
-def test_brute_pretest_never_rejects_a_plain_hit(case):
-    """The pre-test ends no test that brute_plain accepts, on seeded random
-    rays, on rays inside the Cornell box and on the hand-built edges (u
-    underflowing to -0.0, a = +-0, u and v exactly 0 or 1, u + v = 1, t at
-    kDelta); brute.pretest_stage equals the numpy mirror; and brute behind
-    the pre-test equals brute_plain."""
-    o, d, tris = _pretest_case(case)
-    stage = _pretest_np(o, d, tris)
-    np.testing.assert_array_equal(
-        brute.pretest_stage(_t(o), _t(d), _t(tris)).numpy(), stage)
-    hits = _plain_hits(o, d, tris)
-    assert hits.sum() > (8 if case == "edges" else 100)
-    assert (stage[hits] == 3).all(), np.argwhere(hits & (stage < 3))
-    if case != "edges":
-        assert (stage < 3).mean() > 0.5     # the pre-test ends most tests
-    # a brute loop behind the pre-test: the plain test only where it lets
-    # the test through
-    want = brute.brute_plain(_t(o), _t(d), _t(tris))
-    t = _t(tris)
-    kept = torch.from_numpy(stage == 3)
-    best_t = torch.full((len(o),), float("inf"))
-    best_i = torch.full((len(o),), -1, dtype=torch.int32)
-    hit, tt, _, _ = intersect._mt(
-        tuple(c[:, None] for c in _t(o).unbind(-1)),
-        tuple(c[:, None] for c in _t(d).unbind(-1)),
-        t[:, 0:3].unbind(-1), t[:, 3:6].unbind(-1), t[:, 6:9].unbind(-1))
-    for k in range(len(tris)):
-        ok = kept[:, k] & hit[:, k] & (tt[:, k] < best_t)
-        best_t = torch.where(ok, tt[:, k], best_t)
-        best_i = torch.where(ok, k, best_i)
-    np.testing.assert_array_equal(best_i.numpy(), want[0].numpy())
-    if case == "edges":
-        # the -0.0 underflow ray is a hit that a sign-only test would drop
-        assert hits[0, 1] and stage[0, 1] == 3
 
 
 # ---- gather walk ------------------------------------------------------------

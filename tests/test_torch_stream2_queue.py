@@ -8,12 +8,12 @@ queued_cast and its plain steps) on the CPU.
   takes it whole), and it equals the JAX package's interpret-mode stream2
   kernel and gather walk within the bounds tests/test_torch_stream2.py
   states;
-* the binning puts every live ray into its fat leaf's tiles once;
-* the TF32 prefilter (``tf32_filter_plain``) never rejects a slot the
-  exact test accepts under the cap, on built adversarial sets (rays through
-  vertices and shared edges, grazing rays, origins far from the centre,
-  slivers, huge and tiny triangles, caps equal to a hit's t) and on
-  seeded random ones, and rejects most slots of random rays.
+* on built adversarial sets (rays through vertices and shared edges,
+  grazing rays, origins far from the centre, slivers, huge and tiny
+  triangles), where nearly every ray is a near tie, the schedule equals
+  ``stream2_plain`` bit for bit under every schedule, closest-hit and
+  any-hit;
+* the binning puts every live ray into its fat leaf's tiles once.
 
 The kernels run only on the card (tests/test_torch_cuda.py).
 """
@@ -72,26 +72,97 @@ def _queued(tables, rays, any_hit, chunk, tail_min):
     return out, stats
 
 
+def _unit(x):
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _adversarial(rng, kind, s=96):
+    """(triangles v0 e1 e2 [s, 3] each, ray origins and directions [k, 3])
+    of one adversarial set."""
+    if kind == "shared_edges":      # a fan: every triangle shares two edges
+        ang = np.linspace(0, 2 * np.pi, s + 1)
+        rim = np.stack([np.cos(ang), np.sin(ang), 0.1 * np.sin(3 * ang)], 1)
+        v0 = np.zeros((s, 3))
+        e1, e2 = rim[:-1], rim[1:]
+        pts = np.concatenate([rim[:-1] * 0.5, rim[:-1], np.zeros((1, 3))])
+        scale = 1.0
+    else:
+        c = rng.uniform(-1, 1, (s, 1, 3))
+        tri = c + rng.uniform(-0.3, 0.3, (s, 3, 3))
+        if kind == "slivers":
+            tri[:, 2] = tri[:, 0] + 1e-4 * (tri[:, 1] - tri[:, 0]) \
+                + 1e-5 * rng.normal(size=(s, 3))
+        scale = {"huge": 1e3, "tiny": 1e-3}.get(kind, 1.0)
+        tri = tri * scale
+        v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+        pts = np.concatenate([tri[:, 0], tri[:, 1], tri[:, 2],
+                              0.5 * (tri[:, 0] + tri[:, 1])])
+    k = len(pts)
+    if kind == "grazing":           # in the plane of a triangle, through it
+        i = rng.integers(0, s, k)
+        n = _unit(np.cross(e1[i], e2[i]))
+        along = _unit(np.cross(n, rng.normal(size=(k, 3))))
+        target = v0[i] + 0.3 * e1[i] + 0.3 * e2[i]
+        d = _unit(along + 1e-6 * rng.normal(size=(k, 1)) * n)
+        o = target - 3 * scale * d
+    else:
+        far = 1e4 if kind == "far_origin" else 3.0 * scale
+        o = pts + far * _unit(rng.normal(size=(k, 3)))
+        d = _unit(pts - o)
+    return (v0, e1, e2), o, d
+
+
+KINDS = ["shared_edges", "vertices", "grazing", "far_origin", "slivers",
+         "huge", "tiny"]
+
+
+def _adversarial_case(kind):
+    """Tables and rays (all active, no cap) of one adversarial set; the fan
+    and the vertex set are drawn with more triangles than the rest, which
+    at 96 are too few to cut into fat leaves."""
+    rng = np.random.default_rng(70 + KINDS.index(kind))
+    size = 256 if kind in ("shared_edges", "vertices") else 96
+    (v0, e1, e2), o, d = _adversarial(rng, kind, size)
+    _, _, rows = _jax_tree(np.stack([v0, v0 + e1, v0 + e2], 1)
+                           .astype(np.float32))
+    tables = {k: _t(v) for k, v in s2.pack_stream2(
+        rows["node_packed"], rows["leaf_packed"]).items()}
+    n = o.shape[0]
+    rays = (_t(o.astype(np.float32)), _t(d.astype(np.float32)),
+            torch.ones(n, dtype=torch.bool), torch.full((n,), torch.inf))
+    return tables, rays
+
+
 @pytest.mark.parametrize("schedule", list(SCHEDULES))
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + [f"adversarial_{k}"
+                                                 for k in KINDS])
 def test_schedule_equals_stream2_plain(case, schedule):
+    """The schedule equals ``stream2_plain`` bit for bit: on the random
+    ``CASES``, and on each adversarial set both closest-hit and any-hit."""
     chunk, tail_min = SCHEDULES[schedule]
-    _, _, _, tables, rays, any_hit = _case(case, 40 + list(CASES).index(case))
+    if case in CASES:
+        _, _, _, tables, rays, any_hit = _case(
+            case, 40 + list(CASES).index(case))
+        modes = (any_hit,)
+    else:
+        tables, rays = _adversarial_case(case.removeprefix("adversarial_"))
+        modes = (False, True)
     if chunk == 1:
         rays = tuple(x[:120] for x in rays)  # 120 one-ray chunks
-    got, (rounds, tail) = _queued(tables, rays, any_hit, chunk, tail_min)
     o, d, active, t_max = rays
-    want = s2.stream2_plain(o, d, tables, active=active, t_max=t_max,
-                            any_hit=any_hit)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert (want[0] >= 0).sum() > 2
-    if tail_min == 0:
-        assert tail == 0 and rounds > 0
-    if tail_min > o.shape[0]:
-        # one round runs before the first count is read; the tail takes
-        # every ray still live after it
-        assert rounds == 1 and 0 < tail <= int(active.sum())
+    for any_hit in modes:
+        got, (rounds, tail) = _queued(tables, rays, any_hit, chunk, tail_min)
+        want = s2.stream2_plain(o, d, tables, active=active, t_max=t_max,
+                                any_hit=any_hit)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert (want[0] >= 0).sum() > 2
+        if tail_min == 0:
+            assert tail == 0 and rounds > 0
+        if tail_min > o.shape[0]:
+            # one round runs before the first count is read; the tail
+            # takes every ray still live after it
+            assert rounds == 1 and 0 < tail <= int(active.sum())
 
 
 @pytest.mark.parametrize("case", ["closest", "capped", "any_hit"])
@@ -141,127 +212,3 @@ def test_binning_queues_each_live_ray_once():
     assert (st_.offs % s2.TILE == 0).all()
     assert tiles == int(padded.sum()) // s2.TILE <= st_.max_tiles
     assert torch.equal(st_.cursor, st_.offs)
-
-
-# ---- the TF32 prefilter ------------------------------------------------------
-
-def _one_leaf(v0, e1, e2, ctr=None):
-    """Tables of one fat leaf holding the given triangles (for the filter
-    and the exact test alone)."""
-    v0, e1, e2 = (np.asarray(x, np.float32) for x in (v0, e1, e2))
-    ctr = np.zeros(3, np.float32) if ctr is None else np.float32(ctr)
-    feat = np.zeros((len(v0), s2.N_FEAT), np.float32)
-    feat[:, :19] = s2.triangle_features(v0, e1, e2, ctr)
-    return dict(feat=_t(feat), ctr=_t(ctr),
-                fat_start=_t(np.array([0, len(v0)], np.int32)))
-
-
-def _filter_vs_exact(tables, o, d, bt=None):
-    """(kept, needed) [k, S] for rays o/d at the one fat leaf: needed are
-    the slots the exact test accepts under the cap."""
-    o, d = _t(np.asarray(o, np.float32)), _t(np.asarray(d, np.float32))
-    width = tables["fat_start"][-1].item()
-    row = s2.ray_rows(o, d, tables["ctr"])
-    f = torch.zeros(o.shape[0], dtype=torch.int64)
-    ok, t, _ = s2.slot_pass(tables, f, row[:, 3:6].unbind(-1),
-                            row[:, 9:12].unbind(-1),
-                            row[:, 12:15].unbind(-1), width)
-    if bt is None:
-        bt = torch.full((o.shape[0],), s2.CAP_CLAMP)
-    elif bt == "hit":            # each ray's cap is its nearest hit's t
-        bt = torch.where(ok, t, torch.inf).amin(1)
-        bt = torch.where(torch.isfinite(bt), bt, s2.CAP_CLAMP)
-    kept = s2.tf32_filter_plain(tables, f, row, bt, width)
-    return kept, ok & (t <= bt[:, None])
-
-
-def _unit(x):
-    return x / np.linalg.norm(x, axis=-1, keepdims=True)
-
-
-def _adversarial(rng, kind):
-    """(triangles v0 e1 e2 [S, 3] each, ray origins and directions [k, 3],
-    centre) of one adversarial set."""
-    s = 96
-    if kind == "shared_edges":      # a fan: every triangle shares two edges
-        ang = np.linspace(0, 2 * np.pi, s + 1)
-        rim = np.stack([np.cos(ang), np.sin(ang), 0.1 * np.sin(3 * ang)], 1)
-        v0 = np.zeros((s, 3))
-        e1, e2 = rim[:-1], rim[1:]
-        pts = np.concatenate([rim[:-1] * 0.5, rim[:-1], np.zeros((1, 3))])
-        scale, ctr = 1.0, np.zeros(3)
-    else:
-        c = rng.uniform(-1, 1, (s, 1, 3))
-        tri = c + rng.uniform(-0.3, 0.3, (s, 3, 3))
-        if kind == "slivers":
-            tri[:, 2] = tri[:, 0] + 1e-4 * (tri[:, 1] - tri[:, 0]) \
-                + 1e-5 * rng.normal(size=(s, 3))
-        scale = {"huge": 1e3, "tiny": 1e-3}.get(kind, 1.0)
-        tri = tri * scale
-        v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
-        pts = np.concatenate([tri[:, 0], tri[:, 1], tri[:, 2],
-                              0.5 * (tri[:, 0] + tri[:, 1])])
-        ctr = np.zeros(3) if kind != "far_origin" else np.full(3, 5e3)
-    k = len(pts)
-    if kind == "grazing":           # in the plane of a triangle, through it
-        i = rng.integers(0, s, k)
-        n = _unit(np.cross(e1[i], e2[i]))
-        along = _unit(np.cross(n, rng.normal(size=(k, 3))))
-        target = v0[i] + 0.3 * e1[i] + 0.3 * e2[i]
-        d = _unit(along + 1e-6 * rng.normal(size=(k, 1)) * n)
-        o = target - 3 * scale * d
-    else:
-        far = 1e4 if kind == "far_origin" else 3.0 * scale
-        o = pts + far * _unit(rng.normal(size=(k, 3)))
-        d = _unit(pts - o)
-    return (v0, e1, e2), o, d, ctr
-
-
-KINDS = ["shared_edges", "vertices", "grazing", "far_origin", "slivers",
-         "huge", "tiny"]
-
-
-@pytest.mark.parametrize("cap", ["none", "hit"])
-@pytest.mark.parametrize("kind", KINDS)
-def test_filter_never_rejects_an_exact_hit(kind, cap):
-    rng = np.random.default_rng(70 + KINDS.index(kind))
-    (v0, e1, e2), o, d, ctr = _adversarial(rng, kind)
-    tables = _one_leaf(v0, e1, e2, ctr)
-    kept, need = _filter_vs_exact(tables, o, d,
-                                  None if cap == "none" else "hit")
-    assert need.sum() > 0, "the set holds no exact hit to protect"
-    assert not (need & ~kept).any()
-
-
-@pytest.mark.parametrize("shift", [0.0, 1e3])
-@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e2])
-def test_filter_never_rejects_drawn_hits(scale, shift):
-    """Triangles and rays through their vertices, edges and insides, drawn
-    from ten seeds at each scale and distance from the centre."""
-    for seed in range(10):
-        rng = np.random.default_rng([90, seed, int(scale * 1e3), int(shift)])
-        tri = (rng.uniform(-1, 1, (32, 1, 3))
-               + rng.uniform(-0.5, 0.5, (32, 3, 3))) * scale + shift
-        w = rng.dirichlet([0.3, 0.3, 0.3], 96)      # often near an edge
-        i = rng.integers(0, 32, 96)
-        pts = np.einsum("kj,kjc->kc", w, tri[i])
-        o = pts + scale * 4 * _unit(rng.normal(size=(96, 3)))
-        tables = _one_leaf(tri[:, 0], tri[:, 1] - tri[:, 0],
-                           tri[:, 2] - tri[:, 0], np.full(3, shift))
-        kept, need = _filter_vs_exact(tables, o, _unit(pts - o), "hit")
-        assert not (need & ~kept).any(), seed
-
-
-def test_filter_rejects_most_slots_of_random_rays():
-    rng = np.random.default_rng(80)
-    tri = rng.uniform(-5, 5, (128, 1, 3)) + rng.uniform(-0.4, 0.4,
-                                                        (128, 3, 3))
-    tables = _one_leaf(tri[:, 0], tri[:, 1] - tri[:, 0],
-                       tri[:, 2] - tri[:, 0])
-    o = rng.uniform(-6, 6, (2000, 3))
-    kept, need = _filter_vs_exact(tables, o, _unit(rng.normal(size=(2000, 3))))
-    share = kept.float().mean().item()
-    print(f"prefilter pass share on random rays: {share:.4f} "
-          f"(exact: {need.float().mean().item():.4f})")
-    assert not (need & ~kept).any()
-    assert share < 0.05
