@@ -113,7 +113,7 @@ byte bound and its plain stage; the ``kernels`` line carries their rows.
 runs that phase alone.
 
 The phase ``rng_kernels_vs_plain`` (after the connection's) replays the
-RNG calls of one sample of Cornell and sponza at 1920x1080 (22 draws, 15
+RNG calls of one sample of Cornell and sponza at 1920x1080 (4 draws, 15
 key derivations) through the RNG's kernels (csrc/rng.cu) and their plain
 versions: bit equality, CUDA-event times beside the bound (integer
 operations), plain times and ptxas's figures; the ``kernels`` line
@@ -121,6 +121,17 @@ carries their rows.  A two-rank tile mesh's band of each frame holds the
 draws that take rows (``rows=lanes``) bit for bit too.
 
     python3 chip_smoke.py --phase rng_kernels_vs_plain
+
+runs that phase alone.
+
+The phase ``shade_kernel_vs_plain`` (after the RNG's) replays the six
+bounces of one sample of Cornell and sponza at 1920x1080 through the
+trace's shading kernel (csrc/shade.cu) and its plain version: the same
+bits on every output, CUDA-event times (median of 5) beside the byte
+bound, ptxas's figures and nvcc's seconds for shade.cu and connect.cu
+alone; the ``kernels`` line carries its row.
+
+    python3 chip_smoke.py --phase shade_kernel_vs_plain
 
 runs that phase alone.
 
@@ -915,13 +926,13 @@ def rng_tag(name):
 
 def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
     """Phase ``rng_kernels_vs_plain``: the RNG calls of one sample of each
-    of ``scenes`` ((name, scene)), recorded as the renderer makes them (22
-    draws, 15 key derivations), each replayed through its kernel and its
-    plain version on the same key: bit equality (and of ``random_bits``
+    of ``scenes`` ((name, scene)), recorded as the renderer makes them (4
+    draws, 15 key derivations; the shading kernel draws its own), each
+    replayed through its kernel and its plain version on the same key: bit equality (and of ``random_bits``
     for each draw); each kernel call's CUDA-event time (median of 5) beside
-    its bound, the plain version's (one call) and the 37 calls back to
+    its bound, the plain version's (one call) and the 19 calls back to
     back (median of 5); ptxas's registers and spills and the SASS counts
-    of each instance.  The 22 draws of a two-rank tile mesh's lower band,
+    of each instance.  The 4 draws of a two-rank tile mesh's lower band,
     which take rows (``rows=lanes``), are held bit for bit too, untimed.
     Returns the figures by scene."""
     import torch
@@ -1020,8 +1031,8 @@ def rng_kernels_vs_plain(scenes, seed=2**31 + 17):
         out[name] = figures
         del calls, tile_calls
         torch.cuda.empty_cache()
-        if (unequal or tile_unequal or len(draws) != 22 or len(rows) != 37
-                or figures["tile_rows_draws"] != 22):
+        if (unequal or tile_unequal or len(draws) != 4 or len(rows) != 19
+                or figures["tile_rows_draws"] != 4):
             figures.pop("per_call")
             raise AssertionError(f"rng_kernels_vs_plain {name}: {figures}")
     if any(v.get("spill_store_bytes") for v in resources.values()):
@@ -1044,6 +1055,189 @@ def rng_phase_alone() -> int:
     kernels.load()
     write_assets(RESOURCE_DIR)
     rng_kernels_vs_plain(
+        (("cornell_1080p", ct.create_scene_from_preset(
+            "empty", 1920, 1080, device=dev)),
+         ("sponza_1080p", ct.create_scene_from_preset(
+             "sponza", 1920, 1080, device=dev))))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+# the shading's bound (csrc/shade.cu): bytes a lane a bounce, each read
+# once and each write once: the ray's 11 fields (76), the hit (16), active,
+# from_camera and the pending pdf (6), the triangle row (60); vertex d's 11
+# fields (76), the next ray's (76), the pending pdf, stored and active (6)
+SHADE_LANE_BYTES = 316
+# trace_subpaths's arguments to a shading, in order
+SHADE_ARGS = ("keys", "depth", "hit", "cur", "active", "fwd_pending", "fc",
+              "lanes", "scene", "vertices", "stored")
+
+
+def shade_tag(name):
+    """A shading kernel instance (csrc/shade.cu) by its rows flag and
+    estimator: ``rows``/``no_rows``, then ``reference``, ``corrected depth
+    0`` or ``corrected``."""
+    m = re.search(r"shade_kernelILb([01])ELb([01])ELb([01])E", name)
+    if m is None:
+        return None
+    rows = "rows" if m.group(1) == "1" else "no_rows"
+    if m.group(2) == "1":
+        return f"{rows} reference"
+    return f"{rows} corrected{' depth 0' if m.group(3) == '1' else ''}"
+
+
+def nvcc_seconds(sources):
+    """Seconds of nvcc for each of ``sources`` (file names in csrc/) alone,
+    all started together as ``kernels.build`` starts them."""
+    import tempfile
+
+    from clive2_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for src in sources:
+            cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-c", "-o",
+                   os.path.join(tmp, src + ".o"),
+                   os.path.join(kernels.CSRC, src)]
+            procs[src] = (time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+        out = {}
+        for src, (t0, proc) in procs.items():
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode:
+                raise RuntimeError(f"{src}: nvcc failed: {err.decode()}")
+            out[src] = time.perf_counter() - t0
+    return out
+
+
+def shade_kernel_vs_plain(scenes, seed=2**31 + 29):
+    """Phase ``shade_kernel_vs_plain``: the six bounces of one sample of each
+    of ``scenes`` ((name, scene)) in the renderer's wave order, each
+    bounce's inputs copied as ``trace_subpaths`` hands them to the
+    shading, each replayed through the kernel (``trace.shade_kernel``) and
+    its plain version: the same bits on every output of every lane (a NaN
+    equal to any NaN); each one's CUDA-event time (median of 5 calls, the
+    inputs restored before each), the six bounces' sums beside the byte
+    bound; ptxas's registers and spills of csrc/shade.cu's instances and
+    nvcc's seconds for shade.cu and connect.cu alone.  Returns the figures
+    by scene."""
+    import torch
+
+    from clive2_tpu_torch import kernels, rng
+    from clive2_tpu_torch.integrator import render, trace
+
+    resources = ptxas_figures(kernels.ptxas_report("shade.cu"), shade_tag)
+    compile_s = nvcc_seconds(("shade.cu", "connect.cu"))
+    fields = trace.RAY_FIELDS
+
+    def same_bits(a, b):
+        if a.dtype.is_floating_point:
+            same = ((a.view(torch.int32) == b.view(torch.int32))
+                    | (torch.isnan(a) & torch.isnan(b)))
+        else:
+            same = a == b
+        return same.all(-1) if same.dim() > 1 else same
+
+    def timed(fn, saved, work, reps=5):
+        """Median CUDA-event ms of ``fn()`` over ``reps`` calls, ``work``'s
+        written tensors restored from ``saved`` before each."""
+        times = []
+        for _ in range(reps):
+            for k, v in saved["cur"].items():
+                work["cur"][k].copy_(v)
+            work["active"].copy_(saved["active"])
+            work["fwd_pending"].copy_(saved["fwd_pending"])
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+    out = {}
+    for name, scene in scenes:
+        w, h = scene.pixel_width, scene.pixel_height
+        bounces, kernel = [], trace.shade_kernel
+
+        def keep(*args):
+            a = dict(zip(SHADE_ARGS, args))
+            bounces.append(dict(
+                a, cur={k: v.clone() for k, v in a["cur"].items()},
+                active=a["active"].clone(),
+                fwd_pending=a["fwd_pending"].clone()))
+            return kernel(*args)
+
+        trace.shade_kernel = keep
+        try:
+            render.trace_wavefront(rng.key(seed, scene.device), scene.data,
+                                   w, h, order=render._wave_order(scene.data))
+        finally:
+            trace.shade_kernel = kernel
+        torch.cuda.synchronize()
+        n = bounces[0]["active"].shape[0]
+        rows = []
+        for saved in bounces:
+            d = saved["depth"]
+            outs, ms = {}, {}
+            for route, fn in (("kernel", kernel),
+                              ("plain", trace.shade_plain)):
+                work = dict(saved, cur={k: v.clone() for k, v in
+                                        saved["cur"].items()},
+                            active=saved["active"].clone(),
+                            fwd_pending=saved["fwd_pending"].clone())
+                nxt, active, pending = fn(**work)
+                outs[route] = dict(
+                    {f"next {f}": nxt[f].clone() for f in fields},
+                    active=active.clone(), pending=pending.clone(),
+                    stored=work["stored"][d].clone(),
+                    **{f"vertex {f}": work["vertices"][f][d].clone()
+                       for f in fields})
+                ms[route] = timed(lambda: fn(**work), saved, work)
+            differing = {k: int((~same_bits(x, outs["plain"][k])).sum())
+                         for k, x in outs["kernel"].items()}
+            rows.append(dict(depth=d, ms=ms["kernel"], plain_ms=ms["plain"],
+                             differing={k: v for k, v in differing.items()
+                                        if v}))
+            del outs
+        bound_ms = 6 * n * SHADE_LANE_BYTES / HBM_BYTES_S * 1e3
+        sample_ms = sum(x["ms"] for x in rows)
+        figures = dict(
+            lanes=n, order=render._wave_order(scene.data),
+            bit_equal=not any(x["differing"] for x in rows),
+            ms=sample_ms, plain_ms=sum(x["plain_ms"] for x in rows),
+            bound_ms=bound_ms, bound_by="bytes",
+            bound_share=bound_ms / sample_ms, per_bounce=rows)
+        out[name] = figures
+        del bounces
+        torch.cuda.empty_cache()
+        if not figures["bit_equal"] or len(rows) != 6:
+            raise AssertionError(f"shade_kernel_vs_plain {name}: {figures}")
+    if any(v.get("spill_store_bytes") for v in resources.values()):
+        raise AssertionError(f"shade_kernel_vs_plain: a spill: {resources}")
+    emit(phase="shade_kernel_vs_plain", resources=resources,
+         nvcc_seconds=compile_s, **out)
+    return dict(resources=resources, nvcc_seconds=compile_s, **out)
+
+
+def shade_phase_alone() -> int:
+    """``--phase shade_kernel_vs_plain``: that phase alone, on Cornell and
+    sponza at 1920x1080 (the mesh written when missing)."""
+    import torch
+
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import kernels
+    from clive2_tpu_torch.scene import RESOURCE_DIR
+    from clive2_tpu_torch.testing import write_assets
+
+    dev = torch.device("cuda")
+    kernels.load()
+    write_assets(RESOURCE_DIR)
+    shade_kernel_vs_plain(
         (("cornell_1080p", ct.create_scene_from_preset(
             "empty", 1920, 1080, device=dev)),
          ("sponza_1080p", ct.create_scene_from_preset(
@@ -1903,6 +2097,9 @@ def main() -> int:
     # ---- 5c. the RNG's kernels against their plain versions ---------------
     rng_figures = rng_kernels_vs_plain((("cornell_1080p", cornell),
                                         ("sponza_1080p", sponza)))
+    # ---- 5d. the trace's shading kernel against its plain version ----------
+    shade_figures = shade_kernel_vs_plain((("cornell_1080p", cornell),
+                                           ("sponza_1080p", sponza)))
 
     # ---- 6./7. the main path at full size ----------------------------------
     # the queued fat-leaf traversal's kernels, counted apart from its casts
@@ -3419,6 +3616,18 @@ def main() -> int:
             bound_by="int32 operations",
             plain_ms=sum(x["plain_ms"] for x in per),
             cast=f"sponza 1920x1080, one sample's {len(per)} calls"))
+    # the trace's shading kernel: sponza 1080p's sample (phase
+    # shade_kernel_vs_plain); it replaces no TPU kernel
+    sponza_shade = shade_figures["sponza_1080p"]
+    rows.append(dict(
+        name="trace_shade", route="cuda",
+        source="clive2_tpu_torch/csrc/shade.cu",
+        replaces="none: clive2_tpu/integrator/trace.py is XLA-fused jnp",
+        launches=launches["trace_shade"],
+        bit_equal=sponza_shade["bit_equal"],
+        **{k: sponza_shade[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "bound_share")},
+        cast="sponza 1920x1080, one sample's 6 bounces of 4,147,200 lanes"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3433,7 +3642,8 @@ if __name__ == "__main__":
         sys.exit(0)
     alone = {"connect_kernels_vs_plain": connect_phase_alone,
              "dragon_1080p": dragon_phase_alone,
-             "rng_kernels_vs_plain": rng_phase_alone}
+             "rng_kernels_vs_plain": rng_phase_alone,
+             "shade_kernel_vs_plain": shade_phase_alone}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and (
             sys.argv[2] in alone):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

@@ -33,8 +33,8 @@
 //
 // Arithmetic: every expression is the plain version's, in its order, and
 // the library is built with --fmad=false, so multiplies and adds round
-// apart as PyTorch's elementwise kernels do; a 3-term dot is
-// (x*x' + z*z') + y*y', the order in which PyTorch's reduce sums
+// apart as PyTorch's elementwise kernels do; a 3-term dot (v3.cuh's
+// dot3) is (x*x' + z*z') + y*y', the order in which PyTorch's reduce sums
 // (a * b).sum(-1) over three floats on the card (measured on every row
 // alignment, PyTorch 2.11 on the H100), so a dot here is the plain
 // version's bit for bit.  A tensor divided by a Python float on the card is
@@ -50,6 +50,7 @@
 #include <utility>
 
 #include "common.cuh"
+#include "v3.cuh"
 
 namespace {
 
@@ -67,53 +68,11 @@ constexpr float kInvPi = 0x1.45f306p-2f;        // ops/sampling.py:INV_PI
 constexpr float kInv2Pi = 0x1.45f306p-3f;       // INV_2PI
 constexpr float kBelow = 0x1.ff7ceep-1f;        // f32(1.0 - 1e-3)
 constexpr float kBeyond = 0x1.00418ap+0f;       // f32(1.001)
-constexpr float kTiny2 = 1e-30f;                // squared-length floor
 constexpr float kTiny = 1e-38f;                 // denominator floor
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-__device__ __forceinline__ V3 scale(V3 a, float k) {
-  return {a.x * k, a.y * k, a.z * k};
-}
-// origin + t * direction, as o + t[:, None] * d
-__device__ __forceinline__ V3 along(V3 o, float t, V3 d) {
-  return {o.x + t * d.x, o.y + t * d.y, o.z + t * d.z};
-}
-__device__ __forceinline__ float dot3(V3 a, V3 b) {
-  return (a.x * b.x + a.z * b.z) + a.y * b.y;
-}
-// torch.clamp(x, min=lo): NaN stays NaN
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return x < lo ? lo : x;
-}
-// ops/sampling.py:normalize
-__device__ __forceinline__ V3 normalize3(V3 v) {
-  const float n = clamp_min(sqrtf(dot3(v, v)), kTiny2);
-  return {v.x / n, v.y / n, v.z / n};
-}
 // torch.where(d.abs() > 1e-38, d, 1e-38)
 __device__ __forceinline__ float guard(float d) {
   return fabsf(d) > kTiny ? d : kTiny;
-}
-__device__ __forceinline__ V3 load3(const float* __restrict__ p,
-                                    long long row) {
-  const float* q = p + 3 * row;
-  return {__ldg(q), __ldg(q + 1), __ldg(q + 2)};
-}
-
-// Row m of an [M, 3] table, zero outside [0, M) (gather_rows).
-__device__ __forceinline__ V3 table_row(const float* __restrict__ t, int m,
-                                        int rows) {
-  if (m < 0 || m >= rows) return {0.0f, 0.0f, 0.0f};
-  return load3(t, m);
 }
 // connect.py:specular: the material's type > 0, false outside the table
 __device__ __forceinline__ bool specular(const int* __restrict__ type, int m,

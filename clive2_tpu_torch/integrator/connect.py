@@ -262,30 +262,20 @@ def _path_fields(path, fields, n: int, dev, what: str):
     return ptrs, (n if stride is None else stride), depth
 
 
-def _checked(t, dtype, shape, dev, what: str):
-    """``t`` itself, after checking its dtype, shape, device and that it
-    is contiguous."""
-    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or t.device != dev or not t.is_contiguous()):
-        raise ValueError(f"{what} must be a contiguous {dtype} "
-                         f"{list(shape)} on {dev}, got {tuple(t.shape)} "
-                         f"{t.dtype} on {t.device}")
-    return t
-
-
 def _camera(cam, keys, dev):
     """Pointers of the camera's device tensors ``keys``."""
-    return [_checked(cam[k], torch.float32,
-                     () if k.startswith("phys") else (3,), dev,
-                     f"camera {k}").data_ptr() for k in keys]
+    return [kernels.checked(cam[k], torch.float32,
+                            () if k.startswith("phys") else (3,), dev,
+                            f"camera {k}").data_ptr() for k in keys]
 
 
 def _materials(mat, keys, dev):
     """Pointers of the material table's ``keys``, then its row count."""
     m = mat["type"].shape[0]
-    out = [_checked(mat[k], torch.int32 if k == "type" else torch.float32,
-                    (m,) if k == "type" else (m, 3), dev,
-                    f"material {k}").data_ptr() for k in keys]
+    out = [kernels.checked(mat[k],
+                           torch.int32 if k == "type" else torch.float32,
+                           (m,) if k == "type" else (m, 3), dev,
+                           f"material {k}").data_ptr() for k in keys]
     if m <= CAMERA_MATERIAL:
         raise ValueError(f"the material table has {m} rows: the sensor's "
                          f"material is row {CAMERA_MATERIAL}")
@@ -319,8 +309,8 @@ def rays_kernel(cam_path, light_path, scene, pairs, any_hit: bool):
     if depth > min(c_depth, l_depth):
         raise ValueError(f"pairs reach depth {depth}, the subpaths hold "
                          f"{min(c_depth, l_depth)} vertices")
-    lens = [_checked(path["length"], torch.int32, (n,), dev,
-                     f"{what} length").data_ptr()
+    lens = [kernels.checked(path["length"], torch.int32, (n,), dev,
+                            f"{what} length").data_ptr()
             for what, path in (("camera", cam_path), ("light", light_path))]
     mat_type, n_mat = _materials(scene["mat"], ("type",), dev)
     cam = _camera(scene["camera"], ("center", "focal_point", "direction"),
@@ -360,9 +350,9 @@ def shade_kernel(cam_path, light_path, scene, cast_tri, cast_t, cast_active,
     if max_bounces > min(c_depth, l_depth):
         raise ValueError(f"max_bounces={max_bounces}, the subpaths hold "
                          f"{min(c_depth, l_depth)} vertices")
-    _checked(cam_len, torch.int32, (n,), dev, "camera length")
+    kernels.checked(cam_len, torch.int32, (n,), dev, "camera length")
     pn = (max_bounces ** 2, n)
-    casts = [_checked(x, dtype, pn, dev, f"cast {what}").data_ptr()
+    casts = [kernels.checked(x, dtype, pn, dev, f"cast {what}").data_ptr()
              for x, dtype, what in ((cast_tri, torch.int32, "triangles"),
                                     (cast_t, torch.float32, "t"),
                                     (cast_active, torch.bool, "active"))]

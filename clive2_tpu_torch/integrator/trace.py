@@ -28,7 +28,7 @@ import os
 
 import torch
 
-from .. import constants, rng
+from .. import constants, kernels, rng
 from ..constants import DELTA, MAX_BOUNCES
 from ..ops import bsdf
 from ..ops.gather import gather_rows
@@ -204,8 +204,10 @@ def trace_subpaths(key, rays, scene, from_camera,
     each depth's random numbers, or row ``lanes[i]`` when ``lanes`` ([N]
     int) is given.  ``sort`` is the extension casts' Morton-sort policy
     (``intersect_scene``); None reads ``CLIVE2_TRACE_SORT``.  Each
-    bounce's shading, from the hit's gathers to the new throughput, runs
-    in the span ``trace.shade``; while a profiler records, the stored
+    bounce's shading, from the hit's gathers to the next ray, runs in the
+    span ``trace.shade``: on CUDA tensors one launch of
+    ``clive2_trace_shade`` (``shade_kernel``), on CPU tensors the plain
+    version (``shade_plain``).  While a profiler records, the stored
     vertices and those among them on a specular material are counted
     (``trace.vertices``, ``trace.specular_vertices``;
     ``utils/profiling.py:count``).  Returns
@@ -215,149 +217,261 @@ def trace_subpaths(key, rays, scene, from_camera,
       n_rays:   extension rays cast (one per stored vertex plus the final
                 breaking cast, capped at max_bounces)
     """
-    reference = constants.REFERENCE_MIS
     cast_sort = sort_knob("CLIVE2_TRACE_SORT") if sort is None else sort
-    tri = scene["tri"]
-    mat = scene["mat"]
     dev = rays["origin"].device
+    shade = shade_plain if dev.type == "cpu" else shade_kernel
 
     n = rays["origin"].shape[0]
     fc = torch.as_tensor(from_camera, device=dev).to(torch.bool).expand(n)
     fwd_pending = torch.where(fc, rays["c_importance"], INV_2PI)
+    if lanes is not None:
+        lanes = lanes.to(device=dev, dtype=torch.int64).contiguous()
 
-    cur = dict(rays)
+    cur = {k: v.contiguous() for k, v in rays.items()}
     active = torch.ones(n, dtype=torch.bool, device=dev)
-    verts, stores = [], []
+    vertices = {k: torch.empty((max_bounces,) + tuple(v.shape),
+                               dtype=v.dtype, device=dev)
+                for k, v in cur.items()}
+    valid = torch.empty((max_bounces, n), dtype=torch.bool, device=dev)
     for depth in range(max_bounces):
-        hit_i, hit_t, hit_u, hit_v = intersect_scene(
-            cur["origin"], cur["direction"], scene, active=active,
-            sort=cast_sort)
-        hit_ok = hit_i >= 0
-        safe_i = torch.clamp(hit_i, min=0)
-
+        hit = intersect_scene(cur["origin"], cur["direction"], scene,
+                              active=active, sort=cast_sort)
+        keys = rng.split(rng.fold_in(key, depth), 3)
         with span("trace.shade"):
-            attrs = gather_rows(tri["packed"], safe_i)
-            face_n = attrs[:, 0:3]
-            n0 = attrs[:, 3:6]
-            n1 = attrs[:, 6:9]
-            n2 = attrs[:, 9:12]
-            tri_mat = attrs[:, 12].to(torch.int32)
-            is_light = attrs[:, 13].to(torch.int32)
-            is_camera = attrs[:, 14].to(torch.int32)
+            cur, active, fwd_pending = shade(
+                keys, depth, hit, cur, active, fwd_pending, fc, lanes,
+                scene, vertices, valid)
 
-            alpha = gather_rows(mat["alpha"], tri_mat)
-            ior = gather_rows(mat["ior"], tri_mat)
-            mat_type = gather_rows(mat["type"], tri_mat)
-            mat_color = gather_rows(mat["color"], tri_mat)
-
-            d = cur["direction"]
-            cos_f = dot(-d, face_n)
-            front = cos_f > 0.0
-            degenerate = cos_f == 0.0
-
-            sampled_n = bsdf.interpolate_normal(n0, n1, n2, hit_u, hit_v)
-            nrm = torch.where(front[:, None], sampled_n, -sampled_n)
-            ni = torch.where(front, 1.0, ior)
-            no = torch.where(front, ior, 1.0)
-
-            new_origin = cur["origin"] + d * hit_t[:, None]
-            new_hit_light = torch.where(
-                (is_light != 0) & (dot(d, face_n) < 0.0), hit_i, -1)
-            new_hit_camera = torch.where(is_camera != 0, hit_i, -1)
-
-            wi = -d
-            ka, kb, kc = rng.split(rng.fold_in(key, depth), 3)
-            roll_a = rng.uniform(ka, (n, 2), rows=lanes)
-            roll_b = rng.uniform(kb, (n, 2), rows=lanes)
-            # an independent uniform for the Fresnel lottery (the
-            # reference reuses roll_b.x)
-            roll_c = rng.uniform(kc, (n,), rows=lanes)
-
-            m = ggx_sample(nrm, roll_a, alpha)
-            ok_m = (dot(wi, m) >= 0.0) & (dot(m, nrm) >= 0.0)
-            fres = bsdf.fresnel(wi, m, ni, no)
-
-            # bounce routines return (fwd, rev) pdfs in camera convention;
-            # swap per ray for light-subpath lanes
-            diffuse = bsdf.diffuse_bounce(wi, nrm, roll_b)
-            reflect = bsdf.reflect_bounce(wi, nrm, m, ni, no, alpha)
-            transmit = bsdf.transmit_bounce(wi, nrm, m, ni, no, alpha)
-            wo, f, fwd_p, rev_p = _select_bounce(
-                mat_type, roll_c, fres, diffuse, reflect, transmit)
-            c_p = torch.where(fc, fwd_p, rev_p)
-            l_p = torch.where(fc, rev_p, fwd_p)
-
-            # throughput: material color only on external reflection /
-            # egress
-            wi_fn = dot(wi, face_n)
-            wo_fn = dot(wo, face_n)
-            apply_color = (((wi_fn > 0.0) & (wo_fn > 0.0))
-                           | ((wi_fn < 0.0) & (wo_fn > 0.0)))
-            new_color = torch.where(
-                apply_color[:, None],
-                f[:, None] * cur["color"] * mat_color,
-                f[:, None] * cur["color"],
-            )
-            # the Lambertian emitter's flux toward the first light-subpath
-            # edge carries cos(n_light, dir): fold it in at the first light
-            # bounce (the reference estimator omits it)
-            if depth == 0 and not reference:
-                emit_cos = dot(cur["direction"], cur["normal"]).abs()
-                new_color = torch.where(
-                    (~fc)[:, None], new_color * emit_cos[:, None], new_color)
-
-        new_fwd = fwd_pending
-        new_tot = cur["tot_importance"] * new_fwd
-
-        bounce_ok = ok_m & (f != 0.0)
-        if reference:
-            # the reference stores a vertex only when the bounce at the next
-            # hit also succeeded (its reverse pdf comes from that bounce)
-            valid = active & hit_ok & ~degenerate & bounce_ok
-            store = valid
-        else:
-            # store on hit success alone; continue only if the bounce
-            # succeeded
-            store = active & hit_ok & ~degenerate
-            valid = store & bounce_ok
-
-        emit = dict(cur)
-        emit["l_importance"] = torch.where(fc, l_p, cur["l_importance"])
-        emit["c_importance"] = torch.where(fc, cur["c_importance"], c_p)
-        next_pending = torch.where(fc, c_p, l_p)
-
-        new_cur = dict(
-            origin=new_origin,
-            direction=wo,
-            normal=nrm,
-            color=new_color,
-            c_importance=torch.where(fc, new_fwd, 1.0),
-            l_importance=torch.where(fc, 1.0, new_fwd),
-            tot_importance=new_tot,
-            material=tri_mat,
-            triangle=hit_i.to(torch.int32),
-            hit_light=new_hit_light.to(torch.int32),
-            hit_camera=new_hit_camera.to(torch.int32),
-        )
-        # dead lanes stay frozen (masked by `valid` downstream)
-        cur = {
-            k: torch.where(valid.reshape((n,) + (1,) * (v.dim() - 1)), v,
-                           cur[k])
-            for k, v in new_cur.items()
-        }
-        fwd_pending = torch.where(valid, next_pending, fwd_pending)
-        active = valid
-        verts.append(emit)
-        stores.append(store)
-
-    vertices = {k: torch.stack([v[k] for v in verts]) for k in verts[0]}
-    valid = torch.stack(stores)
+    mat = scene["mat"]
     count("trace.vertices", lambda: valid.sum())
     count("trace.specular_vertices",
           lambda: (valid & specular(vertices, mat)).sum())
     length = valid.to(torch.int32).sum(0, dtype=torch.int32)
     n_rays = torch.clamp(length + 1, max=max_bounces).sum()
     return dict(vertices=vertices, valid=valid, length=length, n_rays=n_rays)
+
+
+def shade_plain(keys, depth, hit, cur, active, fwd_pending, fc, lanes,
+                scene, vertices, stored):
+    """One bounce of ``trace_subpaths`` as tensor ops, on any device: the
+    hit's gathers, the bounce drawn under ``keys`` ([3, 2]: the depth's
+    keys of roll_a, roll_b and roll_c; rows ``lanes`` of each draw when
+    given), every bounce routine and ``_select_bounce``, the throughput,
+    the pdfs and the store and continue rules, under the estimator that
+    ``constants.REFERENCE_MIS`` names at this call.  Writes vertex
+    ``depth`` into ``vertices`` and ``stored`` ([D, N] bool); returns the next rays,
+    active lanes and pending forward pdfs (dead lanes frozen)."""
+    shade_plain.calls += 1
+    reference = constants.REFERENCE_MIS
+    tri = scene["tri"]
+    mat = scene["mat"]
+    n = cur["origin"].shape[0]
+    hit_i, hit_t, hit_u, hit_v = hit
+    hit_ok = hit_i >= 0
+    safe_i = torch.clamp(hit_i, min=0)
+
+    attrs = gather_rows(tri["packed"], safe_i)
+    face_n = attrs[:, 0:3]
+    n0 = attrs[:, 3:6]
+    n1 = attrs[:, 6:9]
+    n2 = attrs[:, 9:12]
+    tri_mat = attrs[:, 12].to(torch.int32)
+    is_light = attrs[:, 13].to(torch.int32)
+    is_camera = attrs[:, 14].to(torch.int32)
+
+    alpha = gather_rows(mat["alpha"], tri_mat)
+    ior = gather_rows(mat["ior"], tri_mat)
+    mat_type = gather_rows(mat["type"], tri_mat)
+    mat_color = gather_rows(mat["color"], tri_mat)
+
+    d = cur["direction"]
+    cos_f = dot(-d, face_n)
+    front = cos_f > 0.0
+    degenerate = cos_f == 0.0
+
+    sampled_n = bsdf.interpolate_normal(n0, n1, n2, hit_u, hit_v)
+    nrm = torch.where(front[:, None], sampled_n, -sampled_n)
+    ni = torch.where(front, 1.0, ior)
+    no = torch.where(front, ior, 1.0)
+
+    new_origin = cur["origin"] + d * hit_t[:, None]
+    new_hit_light = torch.where(
+        (is_light != 0) & (dot(d, face_n) < 0.0), hit_i, -1)
+    new_hit_camera = torch.where(is_camera != 0, hit_i, -1)
+
+    wi = -d
+    ka, kb, kc = keys
+    roll_a = rng.uniform(ka, (n, 2), rows=lanes)
+    roll_b = rng.uniform(kb, (n, 2), rows=lanes)
+    # an independent uniform for the Fresnel lottery (the reference reuses
+    # roll_b.x)
+    roll_c = rng.uniform(kc, (n,), rows=lanes)
+
+    m = ggx_sample(nrm, roll_a, alpha)
+    ok_m = (dot(wi, m) >= 0.0) & (dot(m, nrm) >= 0.0)
+    fres = bsdf.fresnel(wi, m, ni, no)
+
+    # bounce routines return (fwd, rev) pdfs in camera convention; swap per
+    # ray for light-subpath lanes
+    diffuse = bsdf.diffuse_bounce(wi, nrm, roll_b)
+    reflect = bsdf.reflect_bounce(wi, nrm, m, ni, no, alpha)
+    transmit = bsdf.transmit_bounce(wi, nrm, m, ni, no, alpha)
+    wo, f, fwd_p, rev_p = _select_bounce(
+        mat_type, roll_c, fres, diffuse, reflect, transmit)
+    c_p = torch.where(fc, fwd_p, rev_p)
+    l_p = torch.where(fc, rev_p, fwd_p)
+
+    # throughput: material color only on external reflection / egress
+    wi_fn = dot(wi, face_n)
+    wo_fn = dot(wo, face_n)
+    apply_color = (((wi_fn > 0.0) & (wo_fn > 0.0))
+                   | ((wi_fn < 0.0) & (wo_fn > 0.0)))
+    new_color = torch.where(
+        apply_color[:, None],
+        f[:, None] * cur["color"] * mat_color,
+        f[:, None] * cur["color"],
+    )
+    # the Lambertian emitter's flux toward the first light-subpath edge
+    # carries cos(n_light, dir): fold it in at the first light bounce (the
+    # reference estimator omits it)
+    if depth == 0 and not reference:
+        emit_cos = dot(cur["direction"], cur["normal"]).abs()
+        new_color = torch.where(
+            (~fc)[:, None], new_color * emit_cos[:, None], new_color)
+
+    new_fwd = fwd_pending
+    new_tot = cur["tot_importance"] * new_fwd
+
+    bounce_ok = ok_m & (f != 0.0)
+    if reference:
+        # the reference stores a vertex only when the bounce at the next
+        # hit also succeeded (its reverse pdf comes from that bounce)
+        valid = active & hit_ok & ~degenerate & bounce_ok
+        store = valid
+    else:
+        # store on hit success alone; continue only if the bounce succeeded
+        store = active & hit_ok & ~degenerate
+        valid = store & bounce_ok
+
+    emit = dict(cur)
+    emit["l_importance"] = torch.where(fc, l_p, cur["l_importance"])
+    emit["c_importance"] = torch.where(fc, cur["c_importance"], c_p)
+    next_pending = torch.where(fc, c_p, l_p)
+
+    new_cur = dict(
+        origin=new_origin,
+        direction=wo,
+        normal=nrm,
+        color=new_color,
+        c_importance=torch.where(fc, new_fwd, 1.0),
+        l_importance=torch.where(fc, 1.0, new_fwd),
+        tot_importance=new_tot,
+        material=tri_mat,
+        triangle=hit_i.to(torch.int32),
+        hit_light=new_hit_light.to(torch.int32),
+        hit_camera=new_hit_camera.to(torch.int32),
+    )
+    # dead lanes stay frozen (masked by `valid` downstream)
+    cur = {
+        k: torch.where(valid.reshape((n,) + (1,) * (v.dim() - 1)), v,
+                       cur[k])
+        for k, v in new_cur.items()
+    }
+    fwd_pending = torch.where(valid, next_pending, fwd_pending)
+    for k, v in emit.items():
+        vertices[k][depth] = v
+    stored[depth] = store
+    return cur, valid, fwd_pending
+
+
+shade_plain.calls = 0
+
+
+# ---- the kernel's wrapper (csrc/shade.cu) ------------------------------------
+
+# a wavefront's ray fields, in the order of clive2_trace_shade's arguments
+RAY_FIELDS = ("origin", "direction", "normal", "color", "c_importance",
+              "l_importance", "tot_importance", "material", "triangle",
+              "hit_light", "hit_camera")
+
+
+def _ray_field(k: str, n: int):
+    """(dtype, shape) of ray field ``k`` of ``n`` lanes."""
+    return (torch.int32 if k in RAY_FIELDS[7:] else torch.float32,
+            (n, 3) if k in RAY_FIELDS[:4] else (n,))
+
+
+def shade_kernel(keys, depth, hit, cur, active, fwd_pending, fc, lanes,
+                 scene, vertices, stored):
+    """``shade_plain`` through ``clive2_trace_shade``, on the device of the
+    rays' tensors, under the estimator ``constants.REFERENCE_MIS`` names at
+    this call: one launch, no host read of a device value.  ``active`` and
+    ``fwd_pending`` are written in place, and returned; the next rays go
+    into ``cur``'s own tensors past depth 0, into new ones at depth 0, so
+    the caller's rays are never written.  ``fc`` is [N] bool, contiguous or
+    one value expanded; ``lanes`` None or contiguous int64 [N].  Raises on
+    an input the kernel does not take."""
+    dev, n = cur["origin"].device, cur["origin"].shape[0]
+    d_max = stored.shape[0]
+    if not 0 <= depth < min(MAX_BOUNCES, d_max):
+        raise ValueError(f"depth {depth}: the kernel takes depths below "
+                         f"{MAX_BOUNCES} and the {d_max} vertices stored")
+    if set(cur) != set(RAY_FIELDS) or set(vertices) != set(RAY_FIELDS):
+        raise ValueError(f"the rays and vertices hold the fields "
+                         f"{RAY_FIELDS}, got {sorted(cur)}, "
+                         f"{sorted(vertices)}")
+    for k in RAY_FIELDS:
+        dtype, shape = _ray_field(k, n)
+        kernels.checked(cur[k], dtype, shape, dev, f"ray {k}")
+        kernels.checked(vertices[k], dtype, (d_max,) + shape, dev,
+                        f"vertex {k}")
+    kernels.checked(stored, torch.bool, (d_max, n), dev, "stored")
+    hit = [kernels.checked(h, torch.int32 if j == 0 else torch.float32,
+                           (n,), dev, f"hit {what}")
+           for j, (h, what) in enumerate(zip(hit, "ituv"))]
+    kernels.checked(active, torch.bool, (n,), dev, "active")
+    kernels.checked(fwd_pending, torch.float32, (n,), dev, "pending pdfs")
+    if (fc.dtype != torch.bool or tuple(fc.shape) != (n,)
+            or fc.device != dev or fc.stride(0) not in (0, 1)):
+        raise ValueError(f"from_camera must be bool [{n}] on {dev}, "
+                         "contiguous or one value expanded, got "
+                         f"{tuple(fc.shape)} {fc.dtype} {fc.stride()} on "
+                         f"{fc.device}")
+    kernels.checked(keys, torch.int64, (3, 2), dev, "keys")
+    if lanes is not None:
+        kernels.checked(lanes, torch.int64, (n,), dev, "lanes")
+    packed, mat = scene["tri"]["packed"], scene["mat"]
+    if (packed.dtype != torch.float32 or packed.dim() != 2
+            or packed.shape[1] < 15 or packed.stride(1) != 1
+            or packed.device != dev):
+        raise ValueError("scene tri packed must be f32 [T, >= 15] rows on "
+                         f"{dev}")
+    m = mat["type"].shape[0]
+    tables = [kernels.checked(mat[k], dtype, shape, dev, f"material {k}")
+              for k, dtype, shape in (
+                  ("alpha", torch.float32, (m,)),
+                  ("ior", torch.float32, (m,)),
+                  ("type", torch.int32, (m,)),
+                  ("color", torch.float32, (m, 3)))]
+    nxt = cur if depth else {k: torch.empty_like(v) for k, v in cur.items()}
+    if n:
+        kernels.call(
+            "clive2_trace_shade", dev,
+            *(cur[k].data_ptr() for k in RAY_FIELDS),
+            *(nxt[k].data_ptr() for k in RAY_FIELDS),
+            *(vertices[k][depth].data_ptr() for k in RAY_FIELDS),
+            *(h.data_ptr() for h in hit), active.data_ptr(),
+            fwd_pending.data_ptr(), stored[depth].data_ptr(),
+            fc.data_ptr(), fc.stride(0), keys.data_ptr(),
+            None if lanes is None else lanes.data_ptr(), n, depth,
+            packed.data_ptr(), packed.stride(0), packed.shape[0],
+            *(t.data_ptr() for t in tables), m,
+            int(constants.REFERENCE_MIS))
+        shade_kernel.launches += 1
+    return nxt, active, fwd_pending
+
+
+shade_kernel.launches = 0
 
 
 def specular(V, mat):

@@ -96,6 +96,14 @@ _SIGNATURES = {
     "clive2_rng_uniform": [_P, _P, ctypes.c_int64, ctypes.c_int64,
                            ctypes.c_int, _P, _P],
     "clive2_rng_keys": [_P, ctypes.c_int64, ctypes.c_int, _P, _P],
+    # one bounce of the trace's shading (csrc/shade.cu): the current rays'
+    # 11 fields, the next rays', vertex d's; the hit (i, t, u, v), active,
+    # pending pdfs, stored, from_camera and its stride, keys, rows, n,
+    # depth, packed rows, stride and count, material alpha, ior, type,
+    # color and count, reference
+    "clive2_trace_shade": [_P] * 33 + [_P] * 8 + [ctypes.c_int64]
+    + [_P, _P, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int64,
+       ctypes.c_int64] + [_P] * 4 + [ctypes.c_int, ctypes.c_int, _P],
 }
 
 _lib = None
@@ -313,6 +321,17 @@ def resources(entry: str, any_hit: bool) -> dict:
         raise RuntimeError(f"{entry} failed with CUDA error {rc}")
     return dict(zip(("registers", "shared_bytes", "local_bytes",
                      "blocks_per_sm", "sms"), out))
+
+
+def checked(t, dtype, shape, dev, what: str):
+    """``t`` itself, after checking its dtype, shape, device and that it
+    is contiguous."""
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or t.device != dev or not t.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {dtype} "
+                         f"{list(shape)} on {dev}, got {tuple(t.shape)} "
+                         f"{t.dtype} on {t.device}")
+    return t
 
 
 def on_device(t, device, name: str):

@@ -34,7 +34,8 @@ PLAIN_VERSIONS = ("brute_plain", "gather_walk", "stream2_plain",
                   "link_probe_plain", "slab_copy_plain", "matmul_t_plain",
                   "matmul_plain", "connect_rays_plain",
                   "connect_shade_plain", "rng_uniform_plain",
-                  "rng_fold_in_plain", "rng_split_plain")
+                  "rng_fold_in_plain", "rng_split_plain",
+                  "trace_shade_plain")
 # the connection's kernels, which every render on the card launches (once
 # each a connect_paths) whatever its cast kernel, and their plain
 # versions, which only connect_paths(debug_per_strategy=True) runs there
@@ -45,6 +46,10 @@ CONNECT_PLAIN = ("connect_rays_plain", "connect_shade_plain")
 # runs
 RNG_KERNELS = ("rng_uniform", "rng_keys")
 RNG_PLAIN = ("rng_uniform_plain", "rng_fold_in_plain", "rng_split_plain")
+# the trace's shading kernel, which every render on the card launches (once
+# a bounce), and its plain version, which no render there runs
+TRACE_KERNELS = ("trace_shade",)
+TRACE_PLAIN = ("trace_shade_plain",)
 
 
 def launch_counters():
@@ -53,7 +58,7 @@ def launch_counters():
     and of the queued fat-leaf traversal's kernels (STREAM2_KERNELS), and
     the ``calls`` of each plain version (PLAIN_VERSIONS)."""
     from . import rng
-    from .integrator import connect
+    from .integrator import connect, trace
     from .ops import (brute, intersect, link_probe, mosaic_probes as mp,
                       packet_walk, traverse_bvh2, traverse_stream,
                       traverse_stream2 as s2, traverse_wide)
@@ -74,7 +79,8 @@ def launch_counters():
                    slab_copy=mp.slab_copy, matmul_t=mp.matmul_t,
                    matmul=mp.matmul, connect_rays=connect.rays_kernel,
                    connect_shade=connect.shade_kernel,
-                   rng_uniform=rng.uniform_kernel, rng_keys=rng.keys_kernel)
+                   rng_uniform=rng.uniform_kernel, rng_keys=rng.keys_kernel,
+                   trace_shade=trace.shade_kernel)
     plain = dict(brute_plain=brute.brute_plain,
                  gather_walk=intersect.intersect_bvh_packed,
                  stream2_plain=s2.stream2_plain,
@@ -89,7 +95,8 @@ def launch_counters():
                  connect_shade_plain=connect.shade_plain,
                  rng_uniform_plain=rng.random_bits_plain,
                  rng_fold_in_plain=rng.fold_in_plain,
-                 rng_split_plain=rng.split_plain)
+                 rng_split_plain=rng.split_plain,
+                 trace_shade_plain=trace.shade_plain)
     return {**{k: (fn, "launches") for k, fn in kernels.items()},
             **{k: (fn, "calls") for k, fn in plain.items()}}
 
@@ -98,15 +105,16 @@ def check_launches(label, kernel, ran, compared=()):
     """Raise unless every kernel named in ``kernel`` ran (``ran``: counts by
     the names of ``launch_counters``), no plain version ran but those named
     in ``compared`` (a tool that holds its kernels to them), and no other
-    kernel ran (with ``stream2``, the queued kernels may; the connection's
-    and the RNG's kernels always may)."""
+    kernel ran (with ``stream2``, the queued kernels may; the connection's,
+    the RNG's and the trace's shading kernels always may)."""
     idle = [k for k in kernel if ran[k] <= 0]
     if idle:
         raise AssertionError(f"{label}: the {idle} kernels never ran")
     if any(ran[k] for k in PLAIN_VERSIONS if k not in compared):
         raise AssertionError(f"{label}: a plain version ran: {ran}")
-    allowed = set(kernel) | set(CONNECT_KERNELS) | set(RNG_KERNELS) | (
-        set(STREAM2_KERNELS) if "stream2" in kernel else set())
+    allowed = (set(kernel) | set(CONNECT_KERNELS) | set(RNG_KERNELS)
+               | set(TRACE_KERNELS)
+               | (set(STREAM2_KERNELS) if "stream2" in kernel else set()))
     if any(v for k, v in ran.items()
            if k not in PLAIN_VERSIONS and k not in allowed):
         raise AssertionError(f"{label}: another kernel ran: {ran}")

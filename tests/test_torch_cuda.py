@@ -39,10 +39,20 @@ exactly: every draw (``uniform``, ``random_bits``) of either shape at any
 length, on its own rows or on a permutation, a tile's slice or rows whose
 counters pass 2^32, under keys from ``key``, ``fold_in``, ``split`` and
 ``wrap_key_data``, and every ``fold_in`` and ``split``; a sample on the
-card launches one kernel a hash, 37 in all, and reads no device value on
+card launches one kernel a hash, 19 in all, and reads no device value on
 the host in the RNG:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k rng
+
+The trace's shading kernel (csrc/shade.cu) gives ``shade_plain``'s bits on
+every output of every lane (a NaN equal to any NaN): each bounce of one
+1080p sample of Cornell, the sponza stand-in and the glass dragon in
+raster and Morton order, and a table made to reach every branch (material
+types, indices outside the table, missed rays, cos_f == 0) under both
+estimators, a scalar or per-lane from_camera, with and without a tile's
+rows; a sample launches it once a bounce and never its plain version:
+
+    python3 -m pytest --noconftest -q tests/test_torch_cuda.py -k shade
 """
 
 import numpy as np
@@ -1284,8 +1294,9 @@ def test_rng_keys_equal_their_plain_versions(dev):
 @pytest.mark.parametrize("preset", ["cornell", "teapots"])
 def test_a_sample_launches_one_rng_kernel_a_hash(dev, connect_scenes,
                                                  monkeypatch, preset):
-    """One ``Renderer.run_sample`` at 64x48 launches 37 RNG kernels (22
-    draws, 15 key derivations) and calls no plain version of the RNG; each
+    """One ``Renderer.run_sample`` at 64x48 launches 19 RNG kernels (4
+    draws, 15 key derivations: the shading kernel draws each bounce's
+    uniforms itself) and calls no plain version of the RNG; each
     of the RNG's calls runs under CUDA's sync debug mode, which raises on a
     host read of a device value.  The sample equals the same sample drawn
     through the plain versions."""
@@ -1312,7 +1323,7 @@ def test_a_sample_launches_one_rng_kernel_a_hash(dev, connect_scenes,
         r.run_sample()
         torch.cuda.synchronize()
         after = [getattr(*counters[k]) for k in names]
-    assert [a - b for a, b in zip(after, before)] == [22, 15, 0, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [4, 15, 0, 0, 0]
     with monkeypatch.context() as m:
         m.setattr(rng, "fold_in", rng.fold_in_plain)
         m.setattr(rng, "split", rng.split_plain)
@@ -1335,5 +1346,253 @@ def test_rng_kernels_neither_spill_nor_keep_a_stack_frame(dev):
     report = kernels.ptxas_report("rng.cu")
     parts = report.split("Compiling entry function")[1:]
     assert len(parts) == 5
+    for part in parts:
+        assert "0 bytes stack frame, 0 bytes spill stores" in part, part
+
+
+# ---- the trace's shading kernel (csrc/shade.cu) -------------------------------
+
+def _same_bits(a, b):
+    """Per lane: equal bit for bit (a NaN equal to any NaN), over a row's
+    three components for vectors."""
+    if a.dtype.is_floating_point:
+        same = ((a.view(torch.int32) == b.view(torch.int32))
+                | (torch.isnan(a) & torch.isnan(b)))
+    else:
+        same = a == b
+    return same.all(-1) if same.dim() > 1 else same
+
+
+def _shade_copy(a):
+    """Shade's keyword arguments ``a`` with everything the shading writes
+    copied."""
+    return dict(a, cur={k: v.clone() for k, v in a["cur"].items()},
+                active=a["active"].clone(),
+                fwd_pending=a["fwd_pending"].clone(),
+                vertices={k: v.clone() for k, v in a["vertices"].items()},
+                stored=a["stored"].clone())
+
+
+def _shade_both(a, kernel):
+    """``kernel`` (the shading kernel's wrapper) and the plain version on
+    copies of ``a``: {output: lanes that differ} over the next rays,
+    active, the pending pdfs, vertex ``depth`` and its stored flag; the
+    kernel's outputs; the kernel's copy of ``a``."""
+    from clive2_tpu_torch.integrator import trace
+
+    k, p = _shade_copy(a), _shade_copy(a)
+    got = kernel(**k)
+    want = trace.shade_plain(**p)
+    d = a["depth"]
+    pairs = ([(f"next {f}", got[0][f], want[0][f])
+              for f in trace.RAY_FIELDS]
+             + [("active", got[1], want[1]), ("pending", got[2], want[2]),
+                ("stored", k["stored"][d], p["stored"][d])]
+             + [(f"vertex {f}", k["vertices"][f][d], p["vertices"][f][d])
+                for f in trace.RAY_FIELDS])
+    diffs = {name: int((~_same_bits(x, y)).sum()) for name, x, y in pairs}
+    return {name: v for name, v in diffs.items() if v}, got, k
+
+
+def _preset_scene(preset, workdir, width, height):
+    """``preset`` on the card, its meshes written into ``workdir`` by the
+    port's generator (``scripts/make_assets.py``)."""
+    import os
+
+    from clive2_tpu_torch.scene import scene_presets
+    from clive2_tpu_torch.scripts.make_assets import write_mesh
+
+    p = scene_presets[preset]
+    specs = []
+    for spec in p.get("file_specs") or ():
+        name = os.path.basename(spec["file_path"])
+        write_mesh(str(workdir), name)
+        specs.append(dict(spec, file_path=os.path.join(str(workdir), name)))
+    return ct.create_scene(pixel_width=width, pixel_height=height,
+                           cam_center=p["cam_center"],
+                           cam_direction=p["cam_direction"],
+                           file_specs=specs or None, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def frames_1080p(tmp_path_factory):
+    """The benchmark cells' scenes at 1920x1080 on the card: Cornell
+    (brute kernel), the sponza stand-in (queued fat-leaf traversal) and the
+    glass dragon (BVH2 kernel), built once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    work = tmp_path_factory.mktemp("meshes")
+    return {name: _preset_scene(preset, work, 1920, 1080)
+            for name, preset in (("cornell", "empty"), ("sponza", "sponza"),
+                                 ("dragon", "dragon"))}
+
+
+@pytest.mark.parametrize("order", ["raster", "morton"])
+@pytest.mark.parametrize("name", ["cornell", "sponza", "dragon"])
+def test_trace_shade_kernel_equals_plain_on_a_1080p_sample(
+        dev, frames_1080p, monkeypatch, name, order):
+    """Every bounce of one 1080p sample's merged trace (4,147,200 lanes):
+    the kernel and ``shade_plain`` on the same inputs give the same bits
+    on every output of every lane (NaN equal to NaN); the trace goes on
+    from the kernel's outputs."""
+    from clive2_tpu_torch.integrator import trace
+
+    kernel = trace.shade_kernel
+    seen = []
+
+    def both(**a):
+        seen.append((a["depth"], _shade_both(a, kernel)[0]))
+        return kernel(**a)
+
+    monkeypatch.setattr(trace, "shade_kernel", lambda *a, **k: both(
+        **dict(zip(("keys", "depth", "hit", "cur", "active", "fwd_pending",
+                    "fc", "lanes", "scene", "vertices", "stored"), a), **k)))
+    scene = frames_1080p[name]
+    w = render.trace_wavefront(rng.key(2**31 + 101, dev), scene.data, 1920,
+                               1080, order=order)
+    assert int(w["cam_path"]["valid"][0].sum()) > 0
+    assert [d for d, _ in seen] == list(range(6))
+    assert all(not diffs for _, diffs in seen), seen
+
+
+SHADE_TRIS = 14
+
+
+def _shade_case(dev, fc, rows, depth, n=4099, seed=3):
+    """Shade's keyword arguments for ``n`` lanes at ``depth`` on a table
+    made to reach every branch: material types 0, 1 (delta and rough), 2,
+    3 and 7, material indices below and past the table and a fraction that
+    truncates, zero vertex normals, emitter and sensor rows, an axis
+    face on which some rays hit with cos_f == 0, missed rays and ids past
+    the rows; inactive lanes; ``fc`` "camera", "light" or "per_lane";
+    ``rows``: the lanes of a tile whose counters pass 2^32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def unit(*shape):
+        v = torch.randn(*shape, 3, generator=g, device=dev)
+        return v / v.norm(dim=-1, keepdim=True)
+
+    def uni(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    packed = torch.zeros((SHADE_TRIS, 16), device=dev)
+    packed[:, 0:3] = unit(SHADE_TRIS)
+    packed[:, 3:12] = unit(SHADE_TRIS, 3).reshape(SHADE_TRIS, 9)
+    packed[0, 0:3] = torch.tensor([0.0, 1.0, 0.0])
+    packed[1, 3:12] = 0.0
+    packed[:, 12] = torch.tensor(
+        [0, 1, 2, 3, 4, 5, 0, 1, 2, 99, -1, 2.7, 5, 1], device=dev)
+    packed[:, 13] = (torch.arange(SHADE_TRIS, device=dev) % 3 == 0).float()
+    packed[:, 14] = (torch.arange(SHADE_TRIS, device=dev) % 5 == 1).float()
+    mat = dict(
+        type=torch.tensor([0, 1, 2, 3, 1, 7], dtype=torch.int32, device=dev),
+        alpha=torch.tensor([0.0, 0.0, 0.3, 0.2, 0.25, 0.1], device=dev),
+        ior=torch.tensor([1.0, 1.5, 1.5, 1.2, 1.33, 1.5], device=dev),
+        color=uni(6, 3))
+    hit_i = torch.randint(-1, SHADE_TRIS, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+    hit_i[::97] = SHADE_TRIS + 3
+    direction = unit(n)
+    flat = hit_i == 0
+    direction[flat & (torch.arange(n, device=dev) % 2 == 0)] = torch.tensor(
+        [1.0, 0.0, 0.0], device=dev)
+    direction[flat & (torch.arange(n, device=dev) % 2 == 1)] = torch.tensor(
+        [0.0, 0.0, -1.0], device=dev)
+    u, v = uni(n), uni(n)
+    hit_t = torch.where(hit_i < 0, float("inf"), uni(n) * 5)
+    cur = dict(origin=uni(n, 3) * 4 - 2, direction=direction,
+               normal=unit(n), color=uni(n, 3),
+               c_importance=uni(n) + 0.1, l_importance=uni(n) + 0.1,
+               tot_importance=uni(n) + 0.1,
+               material=torch.randint(0, 6, (n,), generator=g, device=dev,
+                                      dtype=torch.int32),
+               triangle=torch.randint(-1, SHADE_TRIS, (n,), generator=g,
+                                      device=dev, dtype=torch.int32),
+               hit_light=torch.full((n,), -1, dtype=torch.int32, device=dev),
+               hit_camera=torch.full((n,), -1, dtype=torch.int32,
+                                     device=dev))
+    if fc == "per_lane":
+        flags = uni(n) < 0.5
+    else:
+        flags = torch.tensor(fc == "camera", device=dev).expand(n)
+    key = rng.fold_in(rng.key(2**31 + 77, dev), depth)
+    return dict(
+        keys=rng.split(key, 3), depth=depth,
+        hit=(hit_i, hit_t, u * 0.7, v * 0.7), cur=cur,
+        active=uni(n) < 0.85, fwd_pending=uni(n) + 0.05, fc=flags,
+        lanes=(torch.randperm(n, generator=g, device=dev) + 2**32 + 5)
+        if rows else None,
+        scene=dict(tri=dict(packed=packed), mat=mat),
+        vertices={k: torch.zeros((6,) + tuple(x.shape), dtype=x.dtype,
+                                 device=dev) for k, x in cur.items()},
+        stored=torch.zeros((6, n), dtype=torch.bool, device=dev))
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("fc", ["camera", "light", "per_lane"])
+@pytest.mark.parametrize("reference", [False, True])
+def test_trace_shade_kernel_equals_plain_on_its_edge_cases(
+        dev, monkeypatch, reference, fc, rows, depth):
+    """``_shade_case``'s lanes: the same bits from the kernel and
+    ``shade_plain`` on every output, under both estimators, a scalar or a
+    per-lane from_camera, with and without rows.  At depth 0 the kernel
+    leaves the rays it was given as they were and writes new ones; past it
+    it writes the next rays over them (a lane that does not continue keeps
+    its ray, as the plain version's)."""
+    from clive2_tpu_torch.integrator import trace
+
+    monkeypatch.setattr(constants, "REFERENCE_MIS", reference)
+    a = _shade_case(dev, fc, rows, depth)
+    diffs, got, k = _shade_both(a, trace.shade_kernel)
+    assert not diffs, diffs
+    assert (got[0] is k["cur"]) == (depth > 0)
+    if depth == 0:
+        assert all(torch.equal(k["cur"][f], a["cur"][f]) for f in a["cur"])
+    assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("preset", ["cornell", "teapots"])
+def test_a_sample_shades_each_bounce_in_one_launch(dev, connect_scenes,
+                                                   monkeypatch, preset):
+    """One ``Renderer.run_sample`` launches the shading kernel once a
+    bounce, 6 times, and never calls its plain version; the wrapper reads
+    no device value on the host (CUDA's sync debug mode raises on one)."""
+    from clive2_tpu_torch.integrator import trace
+    from clive2_tpu_torch.testing import (TRACE_KERNELS, TRACE_PLAIN,
+                                          launch_counters)
+
+    kernel = trace.shade_kernel
+
+    def no_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return kernel(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    counters = launch_counters()
+    names = TRACE_KERNELS + TRACE_PLAIN
+    r = ct.Renderer(connect_scenes[preset], seed=2**31 + 3, device=dev)
+    before = [getattr(*counters[k]) for k in names]
+    with monkeypatch.context() as m:
+        m.setattr(trace, "shade_kernel", no_sync)
+        r.run_sample()
+    torch.cuda.synchronize()
+    after = [getattr(*counters[k]) for k in names]
+    assert [x - y for x, y in zip(after, before)] == [6, 0]
+    assert np.isfinite(r.raw_image).all() and r.raw_image.mean() > 0
+
+
+def test_trace_shade_kernel_neither_spills_nor_keeps_a_stack_frame(dev):
+    """ptxas's report on csrc/shade.cu: its six instances (rows given or
+    not; the reference estimator, the corrected one at depth 0 and past
+    it) keep every value in registers."""
+    from clive2_tpu_torch import kernels
+
+    kernels.load()
+    parts = kernels.ptxas_report("shade.cu").split(
+        "Compiling entry function")[1:]
+    assert len(parts) == 6
     for part in parts:
         assert "0 bytes stack frame, 0 bytes spill stores" in part, part

@@ -517,3 +517,218 @@ def test_rng_on_the_cpu_runs_the_plain_versions():
     rng.random_bits(kb, (3,))
     after = [getattr(*counters[n]) for n in names]
     assert [x - y for x, y in zip(after, before)] == [0, 0, 3, 1, 1]
+
+
+# ---- the trace's shading wrapper (integrator/trace.py, csrc/shade.cu) --------
+
+@pytest.fixture
+def fake_shade(fake, monkeypatch):
+    """``fake`` with the shading's entry."""
+    def fn(*args):
+        fake["calls"].append(("clive2_trace_shade", args))
+        return 0
+
+    monkeypatch.setattr(kernels, "_entries", {"clive2_trace_shade": fn})
+    fake["streams"] += [7] * 8
+    return fake
+
+
+def _shade_args(device="cpu", n=5, depth_max=6, rows=9, tris=4):
+    """``shade_kernel``'s keyword arguments at depth 0: ``n`` lanes of rays,
+    hits, flags, keys and lanes, ``depth_max`` vertices to fill, a scene
+    of ``tris`` packed triangle rows and ``rows`` materials."""
+    def f(*shape):
+        return torch.zeros(shape, device=device)
+
+    def i(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    cur = dict(origin=f(n, 3), direction=f(n, 3), normal=f(n, 3),
+               color=f(n, 3), c_importance=f(n), l_importance=f(n),
+               tot_importance=f(n), material=i(n), triangle=i(n),
+               hit_light=i(n), hit_camera=i(n))
+    return dict(
+        keys=torch.zeros((3, 2), dtype=torch.int64, device=device), depth=0,
+        hit=(i(n), f(n), f(n), f(n)), cur=cur,
+        active=torch.ones(n, dtype=torch.bool, device=device),
+        fwd_pending=f(n),
+        fc=torch.ones((), dtype=torch.bool, device=device).expand(n),
+        lanes=torch.arange(n, device=device),
+        scene=dict(tri=dict(packed=f(tris, 16)),
+                   mat=dict(alpha=f(rows), ior=f(rows), type=i(rows),
+                            color=f(rows, 3))),
+        vertices={k: torch.empty((depth_max,) + tuple(v.shape),
+                                 dtype=v.dtype, device=device)
+                  for k, v in cur.items()},
+        stored=torch.empty((depth_max, n), dtype=torch.bool, device=device))
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("reference", [False, True])
+def test_trace_shade_wrapper_passes_its_arguments_in_order(
+        fake_shade, monkeypatch, depth, reference):
+    """The current rays' 11 fields, the next rays' (new tensors at depth 0,
+    the current ones after it: the caller's rays are never written), vertex
+    ``depth``'s row of each field, the hit, active, the pending pdfs,
+    ``stored``'s row, from_camera and its stride, the keys, the lanes, N,
+    the depth, the packed rows with their stride and count, the material
+    table and its count, the estimator read at the call, the stream; one
+    launch counted; active and the pending pdfs returned as given."""
+    from clive2_tpu_torch import constants
+    from clive2_tpu_torch.integrator import trace
+
+    monkeypatch.setattr(constants, "REFERENCE_MIS", reference)
+    a = _shade_args()
+    a["depth"] = depth
+    before = trace.shade_kernel.launches
+    nxt, active, pending = trace.shade_kernel(**a)
+    (name, args), = fake_shade["calls"]
+    assert name == "clive2_trace_shade"
+    cur, fields = a["cur"], trace.RAY_FIELDS
+    assert (nxt is cur) == (depth > 0)
+    assert all(nxt[k].shape == cur[k].shape and nxt[k].dtype == cur[k].dtype
+               and nxt[k].is_contiguous() for k in fields)
+    if depth == 0:
+        assert not {nxt[k].data_ptr() for k in fields} & {
+            cur[k].data_ptr() for k in fields}
+    packed, mat = a["scene"]["tri"]["packed"], a["scene"]["mat"]
+    want = ([cur[k].data_ptr() for k in fields]
+            + [nxt[k].data_ptr() for k in fields]
+            + [a["vertices"][k][depth].data_ptr() for k in fields]
+            + [h.data_ptr() for h in a["hit"]]
+            + [a["active"].data_ptr(), a["fwd_pending"].data_ptr(),
+               a["stored"][depth].data_ptr(), a["fc"].data_ptr(), 0,
+               a["keys"].data_ptr(), a["lanes"].data_ptr(), 5, depth,
+               packed.data_ptr(), 16, 4]
+            + [mat[k].data_ptr() for k in ("alpha", "ior", "type", "color")]
+            + [9, int(reference), 7])
+    assert list(args) == want
+    assert active is a["active"] and pending is a["fwd_pending"]
+    assert trace.shade_kernel.launches == before + 1
+
+
+def test_trace_shade_wrapper_takes_per_lane_flags_and_no_lanes(fake_shade):
+    """A contiguous per-lane from_camera goes in with stride 1, no lanes as
+    a null pointer; no lanes at all launches nothing."""
+    from clive2_tpu_torch.integrator import trace
+
+    a = _shade_args()
+    a["fc"] = torch.tensor([True, False, True, False, False])
+    a["lanes"] = None
+    trace.shade_kernel(**a)
+    (_, args), = fake_shade["calls"]
+    assert args[40:45] == (a["fc"].data_ptr(), 1, a["keys"].data_ptr(),
+                           None, 5)
+    before = trace.shade_kernel.launches
+    trace.shade_kernel(**_shade_args(n=0))
+    assert len(fake_shade["calls"]) == 1
+    assert trace.shade_kernel.launches == before
+
+
+def _with_ray(a, k, v):
+    return dict(a, cur=dict(a["cur"], **{k: v}))
+
+
+def _with_table(a, part, k, v):
+    scene = dict(a["scene"])
+    scene[part] = dict(scene[part], **{k: v})
+    return dict(a, scene=scene)
+
+
+SHADE_REFUSALS = {
+    "a depth past MAX_BOUNCES": lambda a: dict(a, depth=6),
+    "a depth past the stored vertices": lambda a: dict(
+        _shade_args("meta", depth_max=3), depth=3),
+    "a negative depth": lambda a: dict(a, depth=-1),
+    "a ray field of another dtype": lambda a: _with_ray(
+        a, "c_importance", a["cur"]["c_importance"].double()),
+    "an id field of int64": lambda a: _with_ray(
+        a, "triangle", a["cur"]["triangle"].long()),
+    "a ray field of another shape": lambda a: _with_ray(
+        a, "normal", a["cur"]["normal"][:, :2]),
+    "a strided ray field": lambda a: _with_ray(
+        a, "origin", a["cur"]["origin"].t().contiguous().t()),
+    "an expanded ray field": lambda a: _with_ray(
+        a, "normal", a["cur"]["normal"][:1].expand(5, 3)),
+    "a missing ray field": lambda a: dict(a, cur={
+        k: v for k, v in a["cur"].items() if k != "hit_camera"}),
+    "a ray field on another device": lambda a: _with_ray(
+        a, "color", torch.zeros(5, 3)),
+    "vertices of another depth": lambda a: dict(a, vertices=dict(
+        a["vertices"], origin=a["vertices"]["origin"][:4])),
+    "stored of another dtype": lambda a: dict(
+        a, stored=a["stored"].to(torch.uint8)),
+    "a hit id of int64": lambda a: dict(
+        a, hit=(a["hit"][0].long(),) + a["hit"][1:]),
+    "a hit of another length": lambda a: dict(
+        a, hit=a["hit"][:3] + (a["hit"][3][:4],)),
+    "active of uint8": lambda a: dict(a, active=a["active"].to(torch.uint8)),
+    "strided pending pdfs": lambda a: dict(
+        a, fwd_pending=torch.zeros(10, device="meta")[::2]),
+    "from_camera of uint8": lambda a: dict(a, fc=a["fc"].to(torch.uint8)),
+    "from_camera two lanes apart": lambda a: dict(
+        a, fc=torch.ones(10, dtype=torch.bool, device="meta")[::2]),
+    "keys of int32": lambda a: dict(a, keys=a["keys"].int()),
+    "one key": lambda a: dict(a, keys=a["keys"][:1]),
+    "lanes of int32": lambda a: dict(a, lanes=a["lanes"].int()),
+    "packed rows of 14 columns": lambda a: _with_table(
+        a, "tri", "packed", torch.zeros(4, 14, device="meta")),
+    "packed columns apart": lambda a: _with_table(
+        a, "tri", "packed", torch.zeros(16, 4, device="meta").t()),
+    "material types of int64": lambda a: _with_table(
+        a, "mat", "type", a["scene"]["mat"]["type"].long()),
+    "material colors of another count": lambda a: _with_table(
+        a, "mat", "color", torch.zeros(8, 3, device="meta")),
+}
+
+
+@pytest.mark.parametrize("case", list(SHADE_REFUSALS))
+def test_trace_shade_wrapper_refuses_what_the_kernel_does_not_take(
+        fake_shade, case):
+    from clive2_tpu_torch.integrator import trace
+
+    before = trace.shade_kernel.launches
+    a = SHADE_REFUSALS[case](_shade_args("meta"))
+    with pytest.raises(ValueError):
+        trace.shade_kernel(**a)
+    assert fake_shade["calls"] == []
+    assert trace.shade_kernel.launches == before
+
+
+def test_trace_on_the_cpu_runs_the_plain_shading(fake_shade):
+    """CPU tensors: every bounce of ``trace_subpaths`` calls ``shade_plain``
+    once and launches nothing; the two counts are registered."""
+    import clive2_tpu_torch as ct
+    from clive2_tpu_torch import rng
+    from clive2_tpu_torch.integrator import render
+    from clive2_tpu_torch.testing import (TRACE_KERNELS, TRACE_PLAIN,
+                                          launch_counters)
+
+    counters = launch_counters()
+    names = TRACE_KERNELS + TRACE_PLAIN
+    before = [getattr(*counters[k]) for k in names]
+    scene = ct.create_scene_from_preset("empty", 8, 6, device="cpu")
+    path = render.trace_wavefront(rng.key(2), scene.data, 8, 6,
+                                  max_bounces=4)
+    after = [getattr(*counters[k]) for k in names]
+    assert [x - y for x, y in zip(after, before)] == [0, 4]
+    assert path["cam_path"]["valid"].shape == (4, 48)
+    assert fake_shade["calls"] == []
+
+
+@pytest.mark.parametrize("plain", ["trace_shade_plain", None])
+def test_check_launches_refuses_a_render_whose_shading_ran_plain(plain):
+    """A card render's counts: the shading kernel may run beside any cast
+    kernel; its plain version may not, unless named as compared."""
+    from clive2_tpu_torch.testing import check_launches, launch_counters
+
+    ran = dict.fromkeys(launch_counters(), 0)
+    ran.update(brute=7, connect_rays=1, connect_shade=1, rng_uniform=4,
+               rng_keys=15, trace_shade=6)
+    if plain is None:
+        check_launches("cornell", ("brute",), ran)
+        return
+    ran[plain] = 6
+    with pytest.raises(AssertionError, match="plain"):
+        check_launches("cornell", ("brute",), ran)
+    check_launches("cornell", ("brute",), ran, compared=(plain,))
