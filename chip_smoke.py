@@ -1172,6 +1172,8 @@ def shade_kernel_vs_plain(scenes, seed=2**31 + 29):
                 fwd_pending=a["fwd_pending"].clone()))
             return kernel(*args)
 
+        # the wrapper counts its launches on the name trace_subpaths calls
+        keep.launches = 0
         trace.shade_kernel = keep
         try:
             render.trace_wavefront(rng.key(seed, scene.device), scene.data,

@@ -31,7 +31,7 @@
 // picked routine's values, so the bits are the same).  Divergence across
 // material types costs little in a kernel bound by bytes.  Past depth 0
 // the next ray is written over the current one, and a lane that does not
-// continue writes nothing there.  Block size: see kThreads.
+// continue writes nothing there.  Block size: kThreads.
 //
 // Arithmetic: every expression is the plain version's (integrator/trace.py,
 // ops/bsdf.py, ops/sampling.py), in its order, as connect.cu's are (built
@@ -53,7 +53,11 @@
 
 namespace {
 
-// ptxas's report (-Xptxas -v) decides it; see PERF.md §6 row 16.
+// From ptxas's report (-Xptxas -v): 80 registers a thread in every
+// instance, no spill; its 32-byte stack frame is sinf's and cosf's
+// argument reduction for |x| past 105,615, which no angle here reaches.
+// At 80 registers an SM's 64K hold 24 warps whatever the block size (3
+// blocks of 256 threads or 6 of 128); 256 it is.
 constexpr int kThreads = 256;
 
 constexpr float kPi = 0x1.921fb6p+1f;           // ops/sampling.py:PI
@@ -261,16 +265,32 @@ __device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
 // kRows: lane i draws row rows[i] of the depth's draws (else row i).
 // kEmitCos: depth 0 of the corrected estimator (the light lanes' first
 // throughput carries the emitter's cosine).
+// One launch's arguments (clive2_trace_shade's): the current rays, the
+// next rays (the same pointers past depth 0), vertex d's row; the cast's
+// hits; active and the pending pdfs (read and written), stored (written);
+// from_camera, fc_stride 0 or 1 lanes apart; the depth's three keys
+// (int64 [3, 2]); rows (int64 [n]) or null; n lanes; the scene's tables.
+struct Launch {
+  Rays cur, next, vert;
+  Hits hit;
+  bool* active;
+  float* pending;
+  bool* store;
+  const bool* from_camera;
+  long long fc_stride;
+  const long long* keys;
+  const long long* rows;
+  long long n;
+  Tables tab;
+};
+
 template <bool kRows, bool kReference, bool kEmitCos>
-__global__ void __launch_bounds__(kThreads)
-    shade_kernel(Rays cur, Rays next, Rays vert, Hits hit, bool* active,
-                 float* pending, bool* __restrict__ store,
-                 const bool* __restrict__ from_camera, long long fc_stride,
-                 const long long* __restrict__ keys,
-                 const long long* __restrict__ rows, long long n,
-                 Tables tab) {
+__global__ void __launch_bounds__(kThreads) shade_kernel(const Launch a) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  if (i >= a.n) return;
+  const Rays cur = a.cur, next = a.next, vert = a.vert;
+  const Hits hit = a.hit;
+  const Tables tab = a.tab;
 
   // the ray, written out unchanged as vertex d
   const V3 o = get3(cur.origin, i);
@@ -280,9 +300,9 @@ __global__ void __launch_bounds__(kThreads)
   const float c_in = cur.c_imp[i], l_in = cur.l_imp[i], tot = cur.tot[i];
   const int mat_in = cur.material[i], tri_in = cur.triangle[i];
   const int hl_in = cur.hit_light[i], hc_in = cur.hit_camera[i];
-  const bool act = active[i];
-  const float pend = pending[i];
-  const bool fc = from_camera[i * fc_stride];
+  const bool act = a.active[i];
+  const float pend = a.pending[i];
+  const bool fc = a.from_camera[i * a.fc_stride];
   const bool copy = next.origin != cur.origin;
   put3(vert.origin, i, o);
   put3(vert.direction, i, d);
@@ -351,10 +371,10 @@ __global__ void __launch_bounds__(kThreads)
 
   // roll_a, roll_b (two values a lane) and roll_c (one) under the depth's
   // three keys: lane i's value j has the counter row * inner + j
-  const uint64_t r = kRows ? (uint64_t)__ldg(rows + i) : (uint64_t)i;
+  const uint64_t r = kRows ? (uint64_t)__ldg(a.rows + i) : (uint64_t)i;
   uint32_t k[6];
 #pragma unroll
-  for (int q = 0; q < 6; ++q) k[q] = (uint32_t)__ldg(keys + q);
+  for (int q = 0; q < 6; ++q) k[q] = (uint32_t)__ldg(a.keys + q);
   const float a0 = uniform_at(k[0], k[1], 2 * r);
   const float a1 = uniform_at(k[0], k[1], 2 * r + 1);
   const float b0 = uniform_at(k[2], k[3], 2 * r);
@@ -400,8 +420,8 @@ __global__ void __launch_bounds__(kThreads)
   const bool stored = kReference ? valid : hit_ok;
   vert.l_imp[i] = fc ? l_p : l_in;
   vert.c_imp[i] = fc ? c_in : c_p;
-  store[i] = stored;
-  active[i] = valid;
+  a.store[i] = stored;
+  a.active[i] = valid;
   if (valid) {
     put3(next.origin, i, new_origin);
     put3(next.direction, i, b.wo);
@@ -414,7 +434,7 @@ __global__ void __launch_bounds__(kThreads)
     next.triangle[i] = hi;
     next.hit_light[i] = new_hit_light;
     next.hit_camera[i] = new_hit_camera;
-    pending[i] = fc ? c_p : l_p;
+    a.pending[i] = fc ? c_p : l_p;
   } else if (copy) {
     put3(next.origin, i, o);
     put3(next.direction, i, d);
@@ -431,48 +451,29 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kRows, bool kReference, bool kEmitCos>
-cudaError_t launch(long long n, cudaStream_t s, const Rays& cur,
-                   const Rays& next, const Rays& vert, const Hits& hit,
-                   bool* active, float* pending, bool* store,
-                   const bool* from_camera, long long fc_stride,
-                   const long long* keys, const long long* rows,
-                   const Tables& tab) {
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  shade_kernel<kRows, kReference, kEmitCos><<<blocks, kThreads, 0, s>>>(
-      cur, next, vert, hit, active, pending, store, from_camera, fc_stride,
-      keys, rows, n, tab);
+cudaError_t launch(const Launch& a, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((a.n + kThreads - 1) / kThreads);
+  shade_kernel<kRows, kReference, kEmitCos><<<blocks, kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
+// The instance of the estimator and the depth (the emitter's cosine is the
+// corrected estimator's, at depth 0).
 template <bool kRows>
-cudaError_t launch_rows(int reference, int depth, long long n,
-                        cudaStream_t s, const Rays& cur, const Rays& next,
-                        const Rays& vert, const Hits& hit, bool* active,
-                        float* pending, bool* store, const bool* from_camera,
-                        long long fc_stride, const long long* keys,
-                        const long long* rows, const Tables& tab) {
-  if (reference)
-    return launch<kRows, true, false>(n, s, cur, next, vert, hit, active,
-                                      pending, store, from_camera, fc_stride,
-                                      keys, rows, tab);
-  if (depth == 0)
-    return launch<kRows, false, true>(n, s, cur, next, vert, hit, active,
-                                      pending, store, from_camera, fc_stride,
-                                      keys, rows, tab);
-  return launch<kRows, false, false>(n, s, cur, next, vert, hit, active,
-                                     pending, store, from_camera, fc_stride,
-                                     keys, rows, tab);
+cudaError_t launch_estimator(const Launch& a, int reference, int depth,
+                             cudaStream_t s) {
+  if (reference) return launch<kRows, true, false>(a, s);
+  if (depth == 0) return launch<kRows, false, true>(a, s);
+  return launch<kRows, false, false>(a, s);
 }
 
 }  // namespace
 
-// One bounce at depth `depth` of n lanes: the current rays' 11 fields,
-// the next rays' (the same pointers past depth 0), vertex d's row of the
-// subpath's fields; the cast's hit (i, t, u, v); active and pending
-// (read and written), store (written); from_camera (bool, fc_stride 0 or
-// 1 lanes apart); the depth's three keys (int64 [3, 2]); rows (int64 [n])
-// or null; the packed triangle rows (row stride, row count); the material
-// table (alpha, ior, type, color, row count); the estimator.
+// One bounce at depth `depth` of n lanes: the fields of Launch in its
+// order (the rays' 11 fields each: origin, direction, normal, color,
+// c_importance, l_importance, tot_importance, material, triangle,
+// hit_light, hit_camera), the packed triangle rows (row stride, row count),
+// the material table (alpha, ior, type, color, row count), the estimator.
 extern "C" int clive2_trace_shade(
     float* origin, float* direction, float* normal, float* color,
     float* c_imp, float* l_imp, float* tot, int* material, int* triangle,
@@ -504,16 +505,15 @@ extern "C" int clive2_trace_shade(
                   vert_color,     vert_c_imp,     vert_l_imp,
                   vert_tot,       vert_material,  vert_triangle,
                   vert_hit_light, vert_hit_camera};
-  const Hits hit{hit_i, hit_t, hit_u, hit_v};
   const Tables tab{packed, packed_stride, packed_rows,
                    packed_stride % 4 == 0 && (uintptr_t)packed % 16 == 0,
                    alpha, ior, type, mat_color, mat_rows};
+  const Launch a{cur,         next,      vert,  {hit_i, hit_t, hit_u, hit_v},
+                 active,      pending,   store, from_camera,
+                 fc_stride,   keys,      rows,  n,
+                 tab};
   cudaStream_t s = (cudaStream_t)stream;
   if (rows == nullptr)
-    return (int)launch_rows<false>(reference, depth, n, s, cur, next, vert,
-                                   hit, active, pending, store, from_camera,
-                                   fc_stride, keys, rows, tab);
-  return (int)launch_rows<true>(reference, depth, n, s, cur, next, vert, hit,
-                                active, pending, store, from_camera,
-                                fc_stride, keys, rows, tab);
+    return (int)launch_estimator<false>(a, reference, depth, s);
+  return (int)launch_estimator<true>(a, reference, depth, s);
 }

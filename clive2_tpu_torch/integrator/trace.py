@@ -17,6 +17,11 @@ BDPT bookkeeping (as in the JAX package):
 Random numbers come from threefry keys folded per (purpose, depth), bit for
 bit with the JAX package (``clive2_tpu_torch.rng``).
 
+On the card each bounce's shading is one launch of csrc/shade.cu's kernel
+(``shade_kernel``), which draws its own uniforms under the depth's keys;
+its plain version, ``shade_plain`` (the same tensor code as the JAX
+package's), runs on the CPU.  Both give the same bits.
+
 ``CLIVE2_TRACE_SORT`` in {auto, 0, 1} sets the Morton sort of the extension
 casts (auto: ``intersect_scene``'s default, which sorts the streaming
 tables' casts); it is read at call time.

@@ -10,7 +10,11 @@ The connection's wrappers (integrator/connect.py) pass their arguments in
 the order of their C entries and refuse what the kernels do not take; on
 the CPU ``connect_paths`` runs the plain versions.  So do the RNG's
 (rng.py: ``uniform_kernel``, ``keys_kernel``): a key off the CPU takes
-them, a key on the CPU the plain versions.
+them, a key on the CPU the plain versions.  The trace's shading wrapper
+(integrator/trace.py: ``shade_kernel``) passes its arguments in the order
+of ``clive2_trace_shade`` and refuses what the kernel does not take; on
+the CPU ``trace_subpaths`` runs ``shade_plain``; ``check_launches``
+refuses a card render whose shading ran plain.
 """
 
 import contextlib
