@@ -611,6 +611,20 @@ def test_trace_shade_wrapper_passes_its_arguments_in_order(
     assert trace.shade_kernel.launches == before + 1
 
 
+def test_trace_shade_wrapper_takes_depths_past_max_bounces(fake_shade):
+    """Subpaths of 12 vertices (the glass furnace oracle's): depth 11 is
+    one launch, depth 12 is refused."""
+    from clive2_tpu_torch.integrator import trace
+
+    a = _shade_args(depth_max=12)
+    trace.shade_kernel(**dict(a, depth=11))
+    (_, args), = fake_shade["calls"]
+    assert args[33 + 8 + 4] == 11
+    with pytest.raises(ValueError):
+        trace.shade_kernel(**dict(a, depth=12))
+    assert len(fake_shade["calls"]) == 1
+
+
 def test_trace_shade_wrapper_takes_per_lane_flags_and_no_lanes(fake_shade):
     """A contiguous per-lane from_camera goes in with stride 1, no lanes as
     a null pointer; no lanes at all launches nothing."""
@@ -640,7 +654,7 @@ def _with_table(a, part, k, v):
 
 
 SHADE_REFUSALS = {
-    "a depth past MAX_BOUNCES": lambda a: dict(a, depth=6),
+    "depth MAX_BOUNCES of MAX_BOUNCES vertices": lambda a: dict(a, depth=6),
     "a depth past the stored vertices": lambda a: dict(
         _shade_args("meta", depth_max=3), depth=3),
     "a negative depth": lambda a: dict(a, depth=-1),
