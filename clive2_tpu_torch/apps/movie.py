@@ -14,6 +14,9 @@ starts them).  The movie's folder is emptied only by an unsharded run
 launcher, which empties it before any of its processes starts, so that no
 process deletes the frames another has written.  Renders on the card
 unless ``--device cpu``; ``--aot-cache`` is accepted and has no effect.
+
+The frame loop is ``Movie``, which the CLI drives one sample at a time,
+as any other caller can.
 """
 
 from __future__ import annotations
@@ -23,7 +26,116 @@ import os
 import shutil
 import time
 
+from ..utils.profiling import span
 from .render import add_device_flags, make_display, save_png
+
+
+class Movie:
+    """The turntable movie of preset ``scene``, one sample a ``step()``.
+
+    Frames are ``range(start_frame + frame_offset, frames, frame_stride)``
+    of an orbit of ``frames`` frames at ``width`` x ``height``; with
+    ``loop`` the range starts again after its last frame.  The scene and
+    its BVH are built for the range's first frame (the base scene); any
+    other frame is the base scene ``with_camera`` its ``orbit_camera``.
+    Frame f renders ``samples`` samples with a fresh ``Renderer`` seeded
+    ``seed + f`` and is written to ``<out_dir>/frame_ffff.png``.
+
+    ``step()`` runs one sample of the current frame.  When the current
+    frame has all its samples it first crosses the frame boundary
+    (``ready``), inside one ``clive2.frame`` span: it ends the frame
+    (``end_frame``) and begins the next (``begin_frame``).  ``frame`` and
+    ``renderer`` are the current frame's index and renderer (``renderer``
+    is None between a frame's end and the next one's beginning);
+    ``frames_written`` lists the frames' PNG paths in the order written.
+    The old frame's renderer is dropped before the next is built, so that
+    two frames' accumulators are never held at once.
+    """
+
+    def __init__(self, scene: str, width: int = 1280, height: int = 720,
+                 frames: int = 120, samples: int = 15, seed: int = 0,
+                 out_dir: str = "output/test-movie", device="cuda",
+                 start_frame: int = 0, frame_stride: int = 1,
+                 frame_offset: int = 0, loop: bool = False, show=None):
+        from ..scene import create_scene_from_preset_with_params
+
+        self.width, self.height = width, height
+        self.total_frames = frames
+        self.samples = samples
+        self.seed = seed
+        self.out_dir = out_dir
+        self.loop = loop
+        self.show = show
+        self.frames = range(start_frame + frame_offset, frames,
+                            frame_stride)
+        if not self.frames:
+            raise ValueError(f"no frame in {self.frames}")
+        self.frames_written = []
+        self._next = 0                       # position in ``frames``
+        self.base_frame = self.frames[0]
+        self.base_scene = create_scene_from_preset_with_params(
+            scene, pixel_width=width, pixel_height=height,
+            frame_idx=self.base_frame, total_frames=frames, device=device)
+        self.frame = self.renderer = None
+        self.begin_frame()
+
+    @property
+    def frame_done(self) -> bool:
+        """Whether the current frame has all its samples."""
+        return self.renderer.samples >= self.samples
+
+    def path(self, f: int) -> str:
+        return os.path.join(self.out_dir, f"frame_{f:04d}.png")
+
+    def begin_frame(self):
+        """Begin the next frame of the range: its camera and scene and a
+        fresh renderer."""
+        from ..renderer import Renderer
+        from ..scene import orbit_camera
+
+        if self._next == len(self.frames):
+            if not self.loop:
+                raise StopIteration("the movie has no frame left")
+            self._next = 0
+        f = self.frames[self._next]
+        self._next += 1
+        with span("frame.camera"):
+            scene = self.base_scene if f == self.base_frame else \
+                self.base_scene.with_camera(orbit_camera(
+                    f, self.total_frames, self.width, self.height))
+            self.frame = f
+            self.renderer = Renderer(scene, seed=self.seed + f)
+
+    def end_frame(self) -> str:
+        """Finish the current frame: wait for its samples, tone-map its
+        image, show it and write its PNG; then drop its renderer.  Returns
+        the PNG's path."""
+        with span("frame.image"):
+            self.renderer.block()
+            image = self.renderer.image
+        if self.show is not None:
+            self.show(image)
+        path = self.path(self.frame)
+        with span("frame.save"):
+            save_png(path, image)
+        self.frames_written.append(path)
+        self.renderer = None
+        return path
+
+    def ready(self):
+        """The renderer of the frame that the next sample belongs to: the
+        current one, or, when it is complete (or ended), the next frame's,
+        after the frame boundary."""
+        if self.renderer is None or self.frame_done:
+            with span("frame"):
+                if self.renderer is not None:
+                    self.end_frame()
+                self.begin_frame()
+        return self.renderer
+
+    def step(self):
+        """One sample, of the frame ``ready()`` gives."""
+        self.ready().run_sample()
 
 
 def make_parser():
@@ -62,39 +174,29 @@ def empty_movie_dir(args):
 def main(argv=None):
     args = make_parser().parse_args(argv)
 
-    from ..renderer import Renderer
-    from ..scene import create_scene_from_preset_with_params, orbit_camera
-
     if args.start_frame == 0 and args.frame_offset == 0 and \
             args.frame_stride == 1:
         empty_movie_dir(args)
     os.makedirs(movie_dir(args), exist_ok=True)
 
-    frames = range(args.start_frame + args.frame_offset, args.movie_frames,
-                   args.frame_stride)
-    base_scene = None
+    if args.start_frame + args.frame_offset >= args.movie_frames:
+        return
     show = make_display(args.display)
-    for f in frames:
-        frame_start = time.time()
-        if base_scene is None:
-            base_scene = create_scene_from_preset_with_params(
-                args.scene, pixel_width=args.width,
-                pixel_height=args.height, frame_idx=f,
-                total_frames=args.movie_frames, device=args.device)
-            scene = base_scene
-        else:
-            scene = base_scene.with_camera(
-                orbit_camera(f, args.movie_frames, args.width, args.height))
-        renderer = Renderer(scene, seed=args.seed + f)
+    frame_start = time.time()
+    movie = Movie(args.scene, args.width, args.height, args.movie_frames,
+                  args.samples, args.seed, movie_dir(args), args.device,
+                  start_frame=args.start_frame,
+                  frame_stride=args.frame_stride,
+                  frame_offset=args.frame_offset, show=show)
+    for n, f in enumerate(movie.frames):
+        if n:
+            frame_start = time.time()
+            movie.begin_frame()
         for i in range(args.samples):
             t0 = time.time()
-            renderer.run_sample()
+            movie.step()
             print(f"Sample {i} time: {time.time() - t0:.3f}")
-        renderer.block()
-        if show is not None:
-            show(renderer.image)
-        save_png(os.path.join(movie_dir(args), f"frame_{f:04d}.png"),
-                 renderer.image)
+        movie.end_frame()
         print(f"Frame {f} time: {time.time() - frame_start:.2f}")
 
 

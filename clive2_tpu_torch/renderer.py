@@ -90,8 +90,11 @@ class Renderer:
         self.chunk_rows = chunk_rows
         self.mesh = mesh
         if mesh is None:
+            # no reference to self: a dropped renderer frees its
+            # accumulators at once, with no wait for the cycle collector
+            w, h = self.width, self.height
             self._render = lambda key, data, **stripe: render_sample(
-                key, data, self.width, self.height, max_bounces, **stripe)
+                key, data, w, h, max_bounces, **stripe)
         else:
             held = scene.data["tri"]["packed"].device
             if resolve_device(mesh.device) != resolve_device(held):

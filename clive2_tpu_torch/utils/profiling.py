@@ -3,7 +3,7 @@
   * ``span``: the program's spans, ``clive2.<name>`` ranges that a running
     ``torch.profiler`` records on its own clock, beside the device work
     launched inside them, and nothing when no profiler runs; ``spanned``
-    puts a function's body in one.  The eight names and their sites:
+    puts a function's body in one.  The twelve names and their sites:
     ``sample`` (``Renderer.run_sample``, ``run_adaptive_sample``),
     ``trace`` (``integrator/render.py:trace_wavefront``), ``trace.shade``
     (each bounce's shading in ``integrator/trace.py:trace_subpaths``),
@@ -11,8 +11,14 @@
     (every draw, split and fold: on the card ``rng.uniform_kernel`` and
     ``rng.keys_kernel``, on the CPU ``rng.threefry2x32``), ``cast``
     (``ops/intersect.py:intersect_scene``), ``cast.sort`` (its Morton sort
-    and gathers, and its unsort) and ``wait`` (each round read of
-    ``ops/traverse_stream2.py:queued_cast``);
+    and gathers, and its unsort), ``wait`` (each round read of
+    ``ops/traverse_stream2.py:queued_cast``), and the movie's frame
+    boundary in ``apps/movie.py:Movie.step``: ``frame`` (the whole
+    boundary), holding ``frame.image`` (``Movie.end_frame``: the
+    renderer's ``block`` and its tone-mapped ``image``, read back),
+    ``frame.save`` (the PNG's encode and write) and ``frame.camera``
+    (``Movie.begin_frame``: ``orbit_camera``, ``with_camera`` and the
+    frame's new ``Renderer``);
   * ``count``: the program's counters, device totals added while a
     profiler records and nothing otherwise, read with ``counts``.  The
     names and their sites: ``trace.vertices`` (the stored subpath
