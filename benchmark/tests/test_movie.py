@@ -21,6 +21,7 @@ from benchmark import manifest, run
 from benchmark.reference.orbit import orbit_camera as ref_orbit_camera
 from clive2_tpu_torch.apps import movie as movie_mod
 from clive2_tpu_torch.integrator import render as render_mod
+from clive2_tpu_torch.utils import profiling
 
 from .helpers import BLOB, args, small_cell
 
@@ -55,7 +56,8 @@ def blob_movie(tmp_path, monkeypatch):
         return orig(self)
 
     monkeypatch.setattr(movie_mod.Movie, "end_frame", end_frame)
-    return ended
+    yield ended
+    profiling.counts()      # the traced run's counters, on this run's device
 
 
 def _run(tmp_path, seconds=1.5, trace=0, **traffic):

@@ -79,14 +79,6 @@ class Movie:
         self.frame = self.renderer = None
         self.begin_frame()
 
-    @property
-    def frame_done(self) -> bool:
-        """Whether the current frame has all its samples."""
-        return self.renderer.samples >= self.samples
-
-    def path(self, f: int) -> str:
-        return os.path.join(self.out_dir, f"frame_{f:04d}.png")
-
     def begin_frame(self):
         """Begin the next frame of the range: its camera and scene and a
         fresh renderer."""
@@ -115,7 +107,7 @@ class Movie:
             image = self.renderer.image
         if self.show is not None:
             self.show(image)
-        path = self.path(self.frame)
+        path = os.path.join(self.out_dir, f"frame_{self.frame:04d}.png")
         with span("frame.save"):
             save_png(path, image)
         self.frames_written.append(path)
@@ -126,7 +118,7 @@ class Movie:
         """The renderer of the frame that the next sample belongs to: the
         current one, or, when it is complete (or ended), the next frame's,
         after the frame boundary."""
-        if self.renderer is None or self.frame_done:
+        if self.renderer is None or self.renderer.samples >= self.samples:
             with span("frame"):
                 if self.renderer is not None:
                     self.end_frame()

@@ -24,10 +24,14 @@ import numpy as np
 
 
 def save_png(path: str, bgr_u8: np.ndarray):
+    """Write a BGR image as an RGB PNG at zlib's fastest level, the one
+    upstream's ``cv2.imwrite`` writes at by default (Pillow's default,
+    level 6, spends more than twice the time on a noisy frame to save a
+    few percent of its bytes)."""
     from PIL import Image
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(bgr_u8[:, :, ::-1]).save(path)  # BGR -> RGB
+    Image.fromarray(bgr_u8[:, :, ::-1]).save(path, compress_level=1)
 
 
 def make_display(mode: str):

@@ -7,7 +7,8 @@ on the CPU, at tiny sizes.
   holding one ``clive2.frame.image``, ``clive2.frame.save`` and
   ``clive2.frame.camera`` in that order, between two samples; with no
   profiler, no span;
-* a frame's PNG is ``tone_map`` of its renderer's accumulators;
+* a frame's PNG is ``tone_map`` of its renderer's accumulators, written
+  at zlib's fastest level (upstream's ``cv2.imwrite`` default);
 * the previous frame's renderer is freed before the next one is built;
 * a looping movie starts its range again; one that does not stops.
 """
@@ -108,6 +109,11 @@ def test_the_png_is_the_tone_mapped_accumulators(tmp_path):
     got = np.asarray(Image.open(path))
     assert got.shape == (H, W, 3)
     np.testing.assert_array_equal(got, expected)
+    with open(path, "rb") as f:
+        png = f.read()
+    idat = png.index(b"IDAT") + 4
+    assert png[idat] & 0x0F == 8               # deflate
+    assert png[idat + 1] >> 6 == 0             # FLEVEL 0: the fastest
 
 
 def test_the_old_renderer_is_freed_before_the_next(tmp_path, monkeypatch):
