@@ -36,6 +36,13 @@ def _cell(**traffic):
     return c
 
 
+def _work_in(tmp_path, monkeypatch):
+    """The harness's work folder (the frames, the trace) in ``tmp_path``."""
+    monkeypatch.setattr(run, "WORK", str(tmp_path / "work"))
+    monkeypatch.setattr(run, "TRACE_FILE", str(tmp_path / "work" /
+                                               "trace.json"))
+
+
 @pytest.fixture
 def blob_movie(tmp_path, monkeypatch):
     """The dragon preset reading the glass blob the harness writes, in
@@ -47,7 +54,7 @@ def blob_movie(tmp_path, monkeypatch):
     spec = scene_mod.scene_presets["dragon"]["file_specs"][0]
     monkeypatch.setitem(spec, "file_path",
                         os.path.join(str(tmp_path), GLASS_BLOB["file"]))
-    monkeypatch.setattr(run, "WORK", str(tmp_path / "work"))
+    _work_in(tmp_path, monkeypatch)
     ended = []
     orig = movie_mod.Movie.end_frame
 
@@ -142,7 +149,7 @@ def test_small_dragon_movie_on_the_card(card, tmp_path, monkeypatch):
     spec = scene_mod.scene_presets["dragon"]["file_specs"][0]
     monkeypatch.setitem(spec, "file_path", os.path.join(
         str(tmp_path), os.path.basename(spec["file_path"])))
-    monkeypatch.setattr(run, "WORK", str(tmp_path / "work"))
+    _work_in(tmp_path, monkeypatch)
     c = small_cell(CELL, width=96, height=54, samples_per_frame=3,
                    trace_samples=3)
     for trace in (0, 1):
