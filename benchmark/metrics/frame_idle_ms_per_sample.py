@@ -4,7 +4,10 @@ frame boundary, per sample of the traced stretch, in ms: the
 ``clive2.frame`` span or one inside it (``clive2.frame.image``,
 ``.save``, ``.camera``; ``apps/movie.py:Movie.step``), summed.  None
 without a trace, or where no gap falls under those spans (a program
-without them)."""
+without them).  ``tracing.records`` keeps only the ten labels with the
+most idle time, so a frame span whose gaps rank lower is left out of the
+sum: the number is a floor of the boundary's idle time, and falls to
+None once every frame span ranks below the tenth label."""
 
 PREFIX = "clive2.frame"
 

@@ -65,7 +65,7 @@ class Session:
         shutil.rmtree(self.out_dir, ignore_errors=True)
         self.movie = Movie(config["preset"], self.width, self.height,
                            self.frames, self.per_frame, seed=self.seed,
-                           out_dir=self.out_dir, device=device, loop=True)
+                           out_dir=self.out_dir, device=device)
         scene = self.movie.base_scene
         self.scene_build_s = float(scene.build_seconds)
         self.n_triangles = int(scene.n_triangles)

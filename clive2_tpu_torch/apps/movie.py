@@ -34,29 +34,32 @@ class Movie:
     """The turntable movie of preset ``scene``, one sample a ``step()``.
 
     Frames are ``range(start_frame + frame_offset, frames, frame_stride)``
-    of an orbit of ``frames`` frames at ``width`` x ``height``; with
-    ``loop`` the range starts again after its last frame.  The scene and
-    its BVH are built for the range's first frame (the base scene); any
-    other frame is the base scene ``with_camera`` its ``orbit_camera``.
-    Frame f renders ``samples`` samples with a fresh ``Renderer`` seeded
-    ``seed + f`` and is written to ``<out_dir>/frame_ffff.png``.
+    of an orbit of ``frames`` frames at ``width`` x ``height``; the range
+    starts again after its last frame.  The scene and its BVH are built
+    for the range's first frame (the base scene); any other frame is the
+    base scene ``with_camera`` its ``orbit_camera``.  Frame f renders
+    ``samples`` samples with a fresh ``Renderer`` seeded ``seed + f`` and
+    is written to ``<out_dir>/frame_ffff.png``.
 
     ``step()`` runs one sample of the current frame.  When the current
-    frame has all its samples it first crosses the frame boundary
-    (``ready``), inside one ``clive2.frame`` span: it ends the frame
-    (``end_frame``) and begins the next (``begin_frame``).  ``frame`` and
-    ``renderer`` are the current frame's index and renderer (``renderer``
-    is None between a frame's end and the next one's beginning);
-    ``frames_written`` lists the frames' PNG paths in the order written.
-    The old frame's renderer is dropped before the next is built, so that
-    two frames' accumulators are never held at once.
+    frame has all its samples, or was ended, it first crosses the frame
+    boundary (``ready``), inside one ``clive2.frame`` span: it ends the
+    frame (``end_frame``) unless that was done, and begins the next
+    (``begin_frame``).  The CLI ends each frame itself, so that the frame's
+    printed time holds its PNG; there the span holds ``frame.camera``
+    alone.  ``frame`` and ``renderer`` are the current frame's index and
+    renderer (``renderer`` is None between a frame's end and the next
+    one's beginning); ``frames_written`` lists the frames' PNG paths in
+    the order written.  The old frame's renderer is dropped before the
+    next is built, so that two frames' accumulators are never held at
+    once.
     """
 
     def __init__(self, scene: str, width: int = 1280, height: int = 720,
                  frames: int = 120, samples: int = 15, seed: int = 0,
                  out_dir: str = "output/test-movie", device="cuda",
                  start_frame: int = 0, frame_stride: int = 1,
-                 frame_offset: int = 0, loop: bool = False, show=None):
+                 frame_offset: int = 0, show=None):
         from ..scene import create_scene_from_preset_with_params
 
         self.width, self.height = width, height
@@ -64,12 +67,13 @@ class Movie:
         self.samples = samples
         self.seed = seed
         self.out_dir = out_dir
-        self.loop = loop
         self.show = show
         self.frames = range(start_frame + frame_offset, frames,
                             frame_stride)
         if not self.frames:
             raise ValueError(f"no frame in {self.frames}")
+        if samples < 1:
+            raise ValueError(f"a frame needs a sample, not {samples}")
         self.frames_written = []
         self._next = 0                       # position in ``frames``
         self.base_frame = self.frames[0]
@@ -85,12 +89,8 @@ class Movie:
         from ..renderer import Renderer
         from ..scene import orbit_camera
 
-        if self._next == len(self.frames):
-            if not self.loop:
-                raise StopIteration("the movie has no frame left")
-            self._next = 0
         f = self.frames[self._next]
-        self._next += 1
+        self._next = (self._next + 1) % len(self.frames)
         with span("frame.camera"):
             scene = self.base_scene if f == self.base_frame else \
                 self.base_scene.with_camera(orbit_camera(
@@ -183,7 +183,6 @@ def main(argv=None):
     for n, f in enumerate(movie.frames):
         if n:
             frame_start = time.time()
-            movie.begin_frame()
         for i in range(args.samples):
             t0 = time.time()
             movie.step()

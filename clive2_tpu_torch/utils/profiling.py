@@ -14,11 +14,11 @@
     and gathers, and its unsort), ``wait`` (each round read of
     ``ops/traverse_stream2.py:queued_cast``), and the movie's frame
     boundary in ``apps/movie.py:Movie.step``: ``frame`` (the whole
-    boundary), holding ``frame.image`` (``Movie.end_frame``: the
-    renderer's ``block`` and its tone-mapped ``image``, read back),
-    ``frame.save`` (the PNG's encode and write) and ``frame.camera``
-    (``Movie.begin_frame``: ``orbit_camera``, ``with_camera`` and the
-    frame's new ``Renderer``);
+    boundary; the movie CLI ends its frames before it), holding
+    ``frame.image`` (``Movie.end_frame``: the renderer's ``block`` and its
+    tone-mapped ``image``, read back), ``frame.save`` (the PNG's encode
+    and write) and ``frame.camera`` (``Movie.begin_frame``:
+    ``orbit_camera``, ``with_camera`` and the frame's new ``Renderer``);
   * ``count``: the program's counters, device totals added while a
     profiler records and nothing otherwise, read with ``counts``.  The
     names and their sites: ``trace.vertices`` (the stored subpath

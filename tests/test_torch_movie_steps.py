@@ -10,7 +10,8 @@ on the CPU, at tiny sizes.
 * a frame's PNG is ``tone_map`` of its renderer's accumulators, written
   at zlib's fastest level (upstream's ``cv2.imwrite`` default);
 * the previous frame's renderer is freed before the next one is built;
-* a looping movie starts its range again; one that does not stops.
+* after its last frame a movie starts its range again, strided or not;
+  a movie of no sample a frame is refused.
 """
 
 import gc
@@ -141,8 +142,8 @@ def test_the_old_renderer_is_freed_before_the_next(tmp_path, monkeypatch):
     assert built[-1]() is m.renderer
 
 
-def test_a_looping_movie_starts_again(tmp_path):
-    m = _movie(tmp_path, frames=2, samples=1, loop=True)
+def test_a_movie_starts_its_range_again(tmp_path):
+    m = _movie(tmp_path, frames=2, samples=1)
     seen = []
     for _ in range(5):
         m.step()
@@ -150,10 +151,12 @@ def test_a_looping_movie_starts_again(tmp_path):
     assert [f for f, _ in seen] == [0, 1, 0, 1, 0]
     assert seen[0][1] == seen[2][1] != seen[1][1]     # seed + f
     assert len(m.frames_written) == 4
-    once = _movie(tmp_path / "once", frames=2, samples=1,
-                  frame_stride=2)
-    once.step()
-    with pytest.raises(StopIteration):
-        once.step()
-    assert once.frames_written == [os.path.join(str(tmp_path / "once"),
-                                                "frame_0000.png")]
+    strided = _movie(tmp_path / "strided", frames=4, samples=1,
+                     frame_stride=2, frame_offset=1)
+    _run(strided, 3)
+    assert strided.frame == 1
+    assert strided.frames_written == [
+        os.path.join(str(tmp_path / "strided"), f"frame_{f:04d}.png")
+        for f in (1, 3)]
+    with pytest.raises(ValueError):
+        _movie(tmp_path / "none", samples=0)
